@@ -1,0 +1,126 @@
+"""Build and bind the hand-written Hopper kernels.
+
+Each ``csrc/*.cu`` source compiles on first use, with ``nvcc`` for
+``sm_90a``, into its own shared library with a plain C interface, and
+loads through :mod:`ctypes`.  Pointers cross as ``data_ptr()`` ints and
+the stream as ``torch.cuda.current_stream().cuda_stream``; every entry
+point returns ``cudaGetLastError()`` after its launches.  No PyTorch
+header is compiled, so a build takes seconds, not minutes.
+
+Libraries land in ``csrc/_build/`` (gitignored) under a name keyed by a
+hash of the source and the flags: an edited source rebuilds, an unchanged
+one loads the cached library.  :func:`build_all` starts one ``nvcc`` per
+source at once, so a cold start costs the slowest file, not the sum.
+
+Importing this module builds nothing and never touches CUDA.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_HERE, "_build")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def _nvcc():
+    """The CUDA compiler: ``$NVCC``, then ``nvcc`` on PATH, then the
+    toolkit PyTorch itself located (``CUDA_HOME``)."""
+    explicit = os.environ.get("NVCC")
+    if explicit:
+        return explicit
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: set NVCC or CUDA_HOME, or put the "
+                       "CUDA toolkit's bin/ on PATH")
+
+
+class Kernel(object):
+    """One ``csrc`` source: its build, its loaded entry point, and the
+    count of its launches (the main path's proof that it ran)."""
+
+    def __init__(self, source, symbol, argtypes):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+        self._lock = threading.Lock()
+
+    def _paths(self):
+        src = os.path.join(_HERE, self.source)
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        stem = os.path.splitext(self.source)[0]
+        lib = os.path.join(BUILD_DIR, "lib{}-{}.so".format(
+            stem, digest.hexdigest()[:16]))
+        return src, lib
+
+    def start_build(self):
+        """Start ``nvcc`` for this source unless its library is cached.
+        Returns ``(process, tmp_path, lib_path)`` or None when cached."""
+        src, lib = self._paths()
+        if os.path.exists(lib):
+            return None
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = "{}.{}.tmp".format(lib, os.getpid())
+        proc = subprocess.Popen([_nvcc()] + NVCC_FLAGS + ["-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+        return proc, tmp, lib
+
+    @staticmethod
+    def finish_build(started):
+        if started is None:
+            return
+        proc, tmp, lib = started
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed ({}):\n{}".format(
+                proc.returncode, out.decode(errors="replace")))
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half
+
+    def fn(self):
+        """The bound C entry point, building the library on first use."""
+        if self._fn is None:
+            with self._lock:
+                if self._fn is None:
+                    self.finish_build(self.start_build())
+                    lib = ctypes.CDLL(self._paths()[1])
+                    f = getattr(lib, self.symbol)
+                    f.argtypes = self.argtypes
+                    f.restype = ctypes.c_int
+                    self._fn = f
+        return self._fn
+
+    def launch(self, *args):
+        """Call the entry point (which launches on the given stream) and
+        count the launch; raise on any CUDA error it reports."""
+        err = self.fn()(*args)
+        with self._lock:
+            self.launches += 1
+        if err != 0:
+            raise RuntimeError("{} launch failed: CUDA error {}".format(
+                self.symbol, err))
+
+
+def build_all(kernels):
+    """Build every given kernel's library at once (one ``nvcc`` process
+    per source, all started together), then load each."""
+    started = [k.start_build() for k in kernels]
+    for s in started:
+        Kernel.finish_build(s)
+    for k in kernels:
+        k.fn()

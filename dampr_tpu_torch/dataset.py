@@ -1,0 +1,148 @@
+"""Read-side datasets: the record sources stages consume.
+
+Port of the parts of ``dampr_tpu/dataset.py`` the slice uses.  Every
+dataset yields ``(key, value)`` pairs; text taps yield
+``(byte_offset, line)``.
+"""
+
+import os
+
+
+class Chunker(object):
+    """Splittable input: yields independent Datasets to map in parallel."""
+
+    def chunks(self):
+        raise NotImplementedError()
+
+
+class Dataset(Chunker):
+    """A stream of (key, value) records."""
+
+    def read(self):
+        raise NotImplementedError()
+
+    def delete(self):
+        pass
+
+    def chunks(self):
+        yield self
+
+
+class BlockDataset(Dataset):
+    """View over a list of materialized block refs."""
+
+    def __init__(self, refs):
+        self.refs = list(refs)
+
+    def iter_blocks(self):
+        for r in self.refs:
+            yield r.get() if hasattr(r, "get") else r
+
+    def read(self):
+        for blk in self.iter_blocks():
+            for kv in blk.iter_pairs():
+                yield kv
+
+
+class CatDataset(Dataset):
+    """Concatenation of several datasets."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+
+    def read(self):
+        for ds in self.datasets:
+            for kv in ds.read():
+                yield kv
+
+    def delete(self):
+        for ds in self.datasets:
+            ds.delete()
+
+
+class TextLineDataset(Dataset):
+    """Byte-range slice ``[start, end)`` of a newline-delimited text file.
+
+    A chunk with ``start > 0`` skips through the first newline at or after
+    ``start``; every chunk reads through the line that crosses ``end``.
+    Adjacent chunks therefore read each line exactly once.  Keys are the
+    byte offsets of each line's first byte."""
+
+    def __init__(self, path, start=0, end=None):
+        self.path = path
+        self.start = start
+        self.end = end
+
+    def _owned_start(self, f):
+        if self.start > 0:
+            f.seek(self.start)
+            f.readline()
+            return f.tell()
+        f.seek(0)
+        return 0
+
+    def read(self):
+        with open(self.path, "rb") as f:
+            pos = self._owned_start(f)
+            if self.start > 0 and self.end is not None and pos > self.end:
+                return
+            for raw in f:
+                yield pos, raw.decode("utf-8").rstrip("\n")
+                pos += len(raw)
+                if self.end is not None and pos > self.end:
+                    break
+
+    def read_bytes(self):
+        """The chunk's owned bytes as one buffer."""
+        with open(self.path, "rb") as f:
+            real_start = self._owned_start(f)
+            if self.end is None:
+                return f.read()
+            if real_start > self.end:
+                return b""
+            f.seek(self.end)
+            f.readline()
+            real_end = f.tell()
+            f.seek(real_start)
+            return f.read(real_end - real_start)
+
+    def iter_byte_blocks(self, block_size=4 * 1024 ** 2):
+        """The chunk's owned bytes in bounded blocks (same ownership)."""
+        with open(self.path, "rb") as f:
+            real_start = self._owned_start(f)
+            if self.end is None:
+                while True:
+                    b = f.read(block_size)
+                    if not b:
+                        return
+                    yield b
+            if real_start > self.end:
+                return
+            at = real_start
+            while at < self.end:
+                b = f.read(min(block_size, self.end - at))
+                if not b:
+                    return
+                at += len(b)
+                yield b
+            tail = f.readline()  # extend through the line crossing `end`
+            if tail:
+                yield tail
+
+    def __repr__(self):
+        return "Text[path={},start={},end={}]".format(
+            self.path, self.start, self.end)
+
+
+class SinkDataset(Dataset):
+    """Reads back a sink's part-file as (offset, line)."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def read(self):
+        return TextLineDataset(self.path).read()
+
+    def delete(self):
+        if os.path.exists(self.path):
+            os.unlink(self.path)

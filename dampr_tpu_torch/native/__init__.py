@@ -1,0 +1,116 @@
+"""Native host codec: builds and binds the C++ tokenizer via ctypes.
+
+Port of ``dampr_tpu/native`` (the same ``tokenizer.cpp``, copied).  The
+shared object compiles with g++ on first use into ``native/_build/``
+(gitignored, and outside the importable module path); set
+``DAMPR_TPU_NATIVE=0`` to force the pure-numpy paths.
+"""
+
+import ctypes
+import logging
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+log = logging.getLogger("dampr_tpu_torch.native")
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "tokenizer.cpp")
+_SO = os.path.join(_HERE, "_build", "libtokenizer.so")
+
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+
+def _build():
+    os.makedirs(os.path.dirname(_SO), exist_ok=True)
+    tmp = "{}.{}.tmp".format(_SO, os.getpid())
+    cmd = ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", tmp]
+    try:
+        subprocess.run(cmd + ["-march=native"], check=True,
+                       capture_output=True)
+    except (subprocess.CalledProcessError, OSError):
+        subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, _SO)
+
+
+def get_lib():
+    """The loaded native library, or None when unavailable/disabled."""
+    global _lib, _tried
+    if _lib is not None or _tried:
+        return _lib
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        if os.environ.get("DAMPR_TPU_NATIVE", "1") in ("0", "false"):
+            return None
+        try:
+            if (not os.path.exists(_SO)
+                    or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
+                _build()
+            lib = ctypes.CDLL(_SO)
+            fc = lib.dampr_token_counts
+            fc.restype = ctypes.c_long
+            fc.argtypes = [
+                ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ]
+            fb = lib.dampr_hash_bytes_batch
+            fb.restype = None
+            fb.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
+                ctypes.c_void_p, ctypes.c_void_p,
+            ]
+            _lib = lib
+        except (OSError, AttributeError,
+                subprocess.CalledProcessError) as exc:
+            log.warning("native tokenizer unavailable (%s); using numpy", exc)
+            _lib = None
+    return _lib
+
+
+def hash_bytes_batch(bs):
+    """Dual-lane FNV over a list of bytes keys in one C pass: (h1, h2)
+    uint32 arrays, or None when the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(bs)
+    offs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.fromiter((len(b) for b in bs), dtype=np.int64, count=n),
+              out=offs[1:])
+    buf = np.frombuffer(b"".join(bs), dtype=np.uint8)
+    h1 = np.empty(n, dtype=np.uint32)
+    h2 = np.empty(n, dtype=np.uint32)
+    lib.dampr_hash_bytes_batch(
+        np.ascontiguousarray(buf).ctypes.data, offs.ctypes.data, n,
+        h1.ctypes.data, h2.ctypes.data)
+    return h1, h2
+
+
+def token_counts(buf, mode, lower, dedup_per_line):
+    """Fused native tokenize+hash+count: (h1, h2, counts, rep_starts,
+    rep_lens) over distinct tokens, or None when unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(buf)
+    cap = n // 2 + 1
+    h1 = np.empty(cap, dtype=np.uint32)
+    h2 = np.empty(cap, dtype=np.uint32)
+    counts = np.empty(cap, dtype=np.int64)
+    starts = np.empty(cap, dtype=np.int64)
+    lens = np.empty(cap, dtype=np.int32)
+    buf = np.ascontiguousarray(buf)
+    k = lib.dampr_token_counts(
+        buf.ctypes.data, n, int(mode), int(lower), int(dedup_per_line),
+        h1.ctypes.data, h2.ctypes.data, counts.ctypes.data,
+        starts.ctypes.data, lens.ctypes.data)
+    if k < 0:
+        return None
+    return h1[:k], h2[:k], counts[:k], starts[:k], lens[:k]

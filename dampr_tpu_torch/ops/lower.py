@@ -1,0 +1,430 @@
+"""The lowered map->fold stage: one device program per token batch.
+
+Port of ``dampr_tpu/ops/lower.py`` (the classic path; the device-resident
+handoff tier is a later slice).  A stage whose mapper is a native-vocabulary
+scanner (``TokenCounts``/``DocFreq``) feeding a keyed sum fold runs its
+windows through :func:`token_fold` instead of the host codec:
+
+- **host (feed)**: token bounds and case fold from the byte tables
+  (:mod:`.text`), per-line ids, and the padded token byte matrix, written
+  straight into pinned buffers for the next batch while the previous
+  batch's program runs (double buffering);
+- **device**: :func:`token_fold` — the FNV kernel (:mod:`.fnv`), a stable
+  ``(inv, h1, h2[, line])`` sort, per-line first-occurrence dedup, the
+  segmented-fold kernel (:mod:`.segfold`), segment representatives and a
+  byte-exact collision check;
+- **host (drain)**: wait for the batch, decode the vocabulary-sized
+  survivors' strings, build the partial-count Block the fold consumes.
+
+Exactness: grouping is by the 64-bit dual hash, and the program verifies
+every token's bytes equal its segment representative's; a collision
+regroups that batch exactly on host.  Non-round-trip UTF-8 windows and
+lines wider than a batch take the whole-window host path, and tokens over
+``_SHORT_TOKEN`` bytes count on host.  Each of these adds to
+``DeviceTokenFoldSink.fallbacks``.  Per-batch partials merge in the
+downstream sum fold, so batch boundaries are unobservable in the results.
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from .. import settings
+from . import fnv as _fnv
+from . import segfold as _segfold
+from .text import (_LOWER, _SHORT_TOKEN, _block_of, _token_bounds,
+                   chunk_doc_freq, chunk_token_counts, group_token_rows,
+                   line_ids)
+
+# ---------------------------------------------------------------------------
+# Stage claims
+# ---------------------------------------------------------------------------
+
+
+def claims(mapper):
+    """Lowering params for a mapper the device program executes exactly,
+    or None.  Exact types only: a subclass may have changed semantics."""
+    from .text import DocFreq, TokenCounts
+
+    if type(mapper) is TokenCounts:
+        dedup = False
+    elif type(mapper) is DocFreq:
+        dedup = True
+    else:
+        return None
+    if mapper.mode not in ("word", "whitespace"):
+        return None
+    return {"mode": mapper.mode, "lower": bool(mapper.lower),
+            "dedup": dedup, "pair_values": bool(mapper.pair_values)}
+
+
+# ---------------------------------------------------------------------------
+# The device program
+# ---------------------------------------------------------------------------
+
+
+def _pow2(n):
+    return max(8, 1 << max(0, (n - 1).bit_length()))
+
+
+def _len_bucket(max_len):
+    from .hashing import _len_bucket as hb
+
+    return hb(max(1, int(max_len)))
+
+
+def token_fold(mat, lens, lines, dedup, hash_fn=None, fold_fn=None):
+    """Hash -> sort -> dedup -> segment totals -> collision check over a
+    padded token matrix; the torch counterpart of the reference's
+    ``_token_fold_jit`` with the same six outputs, position by position:
+
+    ``(sh1, sh2, tot, live, rep_orig, collisions)`` — the sorted hash
+    lanes (int32 bit patterns), segment totals at segment ends (int32),
+    the live-end mask (bool), each position's segment representative as
+    an original row index (int64), and the count of valid tokens whose
+    bytes differ from their representative's (0-d int64).
+
+    ``mat`` uint8 [n, L], ``lens`` int32 [n] (0 marks a pad row), ``lines``
+    int32 [n] (< 2^31; read only when ``dedup``).  ``hash_fn``/``fold_fn``
+    default to the kernels (:func:`.fnv.fnv`, :func:`.segfold.segfold`);
+    the card check passes their plain versions instead."""
+    hash_fn = hash_fn or _fnv.fnv
+    fold_fn = fold_fn or _segfold.segfold
+    h1, h2 = hash_fn(mat, lens)
+    perm, sh1, sh2, sinv, v, start_pos = sort_segments(h1, h2, lens, lines,
+                                                       dedup)
+    tot, live = fold_fn(sh1, sh2, v, sinv)
+
+    # collision check: every token's bytes equal its segment rep's
+    smat = mat[perm]
+    slens = lens[perm]
+    same = ((slens == slens[start_pos])
+            & (smat == smat[start_pos]).all(dim=1))
+    collisions = ((sinv == 0) & ~same).sum()
+    rep_orig = perm[start_pos]
+    return sh1, sh2, tot, live, rep_orig, collisions
+
+
+def sort_segments(h1, h2, lens, lines, dedup):
+    """The sort stage of :func:`token_fold`: ``(perm, sh1, sh2, sinv, v,
+    start_pos)`` — the sorting permutation, the sorted lanes and validity
+    (int32; the segmented fold's inputs), each record's contribution
+    ``v``, and each position's segment start."""
+    n = h1.shape[0]
+    dev = h1.device
+    # Stable sort by (inv, h1, h2[, line]) in UNSIGNED lane order, ties by
+    # original index: two stable passes (least significant keys first)
+    # over int64 keys holding the unsigned values.
+    inv = (lens <= 0).to(torch.int64)
+    u1 = h1.to(torch.int64) & 0xFFFFFFFF
+    u2 = h2.to(torch.int64) & 0xFFFFFFFF
+    if dedup:
+        low = (u2 << 31) | lines.to(torch.int64)
+    else:
+        low = u2
+    _, p = torch.sort(low, stable=True)
+    _, q = torch.sort(((inv << 32) | u1)[p], stable=True)
+    perm = p[q]
+
+    sinv = inv[perm].to(torch.int32)
+    sh1 = h1[perm]
+    sh2 = h2[perm]
+    starts = _segfold.adj_new(sinv, sh1, sh2)
+    if dedup:
+        # first occurrence of (token, line) contributes 1
+        v = (_segfold.adj_new(sinv, sh1, sh2, lines[perm])
+             & (sinv == 0)).to(torch.int32)
+    else:
+        v = (sinv == 0).to(torch.int32)
+    pos = torch.arange(n, device=dev)
+    start_pos = torch.cummax(torch.where(starts, pos, -1), 0).values
+    return perm, sh1, sh2, sinv, v, start_pos
+
+
+# ---------------------------------------------------------------------------
+# The window sink
+# ---------------------------------------------------------------------------
+
+
+class _Batch(object):
+    """One dispatched program plus what its drain needs.  ``out`` holds
+    the host-side (pinned, on a card) result buffers, filled once
+    ``event`` completes (``start`` marks when the batch's stream work
+    began); ``keep`` pins the inputs until then."""
+
+    __slots__ = ("out", "start", "event", "keep", "starts", "lens")
+
+    def __init__(self, out, start, event, keep, starts, lens):
+        self.out = out
+        self.start = start
+        self.event = event
+        self.keep = keep
+        self.starts = starts
+        self.lens = lens
+
+
+def _batch_bounds(lines, n_tokens, limit):
+    """Batch cut points (token indices) on line boundaries, so per-line
+    dedup never straddles a batch; None when one line exceeds the limit."""
+    if n_tokens <= limit:
+        return [(0, n_tokens)]
+    cuts = [0]
+    at = 0
+    while at < n_tokens:
+        end = min(at + limit, n_tokens)
+        if end < n_tokens and lines is not None:
+            line_at_end = lines[end]
+            while end > at and lines[end - 1] == line_at_end:
+                end -= 1
+            if end == at:
+                return None  # one line wider than a whole batch
+        cuts.append(end)
+        at = end
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
+#: The host phases a DeviceTokenFoldSink times (see its ``seconds``).
+PHASES = ("scan", "pad", "enqueue", "wait", "decode")
+
+
+class DeviceTokenFoldSink(object):
+    """Window sink running the lowered program (drop-in for a scanner's
+    ``window_sink()``): ``add(win)`` feeds the window through
+    double-buffered dispatches and returns partial-count Blocks.
+
+    On a card each sink owns a CUDA stream: a batch's host-to-device copy,
+    program and device-to-host copy queue on it and the host moves on to
+    build the next batch; the drain waits on that batch's event only."""
+
+    def __init__(self, params, store=None, device=None):
+        self.mode = params["mode"]
+        self.lower = params["lower"]
+        self.dedup = params["dedup"]
+        self.pair_values = params["pair_values"]
+        self.store = store
+        self.device = device if device is not None else \
+            settings.resolve_device()
+        self._cuda = self.device.type == "cuda"
+        self._stream = (torch.cuda.Stream(self.device) if self._cuda
+                        else None)
+        self.batches = 0
+        self.fallbacks = 0
+        #: host seconds per phase of the lowered scan: ``scan`` (case fold,
+        #: token bounds, line ids), ``pad`` (the padded batch), ``enqueue``
+        #: (queueing copies + program), ``wait`` (blocked on a batch's
+        #: results) and ``decode`` (survivor strings -> Block)
+        self.seconds = dict.fromkeys(PHASES, 0.0)
+        #: summed per-batch span on the card's stream (copies + program),
+        #: from CUDA events; 0 on the CPU
+        self.stream_seconds = 0.0
+
+    # -- host fallbacks ----------------------------------------------------
+    def _host_window(self, win):
+        """Exact host path for one whole window."""
+        self.fallbacks += 1
+        scan = chunk_doc_freq if self.dedup else chunk_token_counts
+        blk = scan(win, self.mode, self.lower, self.pair_values)
+        return (blk,) if blk is not None and len(blk) else ()
+
+    def _host_batch(self, buf, starts, lens, lines):
+        """Exact host grouping of one collided batch."""
+        from . import hashing
+
+        self.fallbacks += 1
+        uniq, counts = group_token_rows(buf, starts, lens, lines,
+                                        self.dedup)
+        keys = np.empty(len(uniq), dtype=object)
+        for i in range(len(uniq)):
+            ln = int(uniq[i, 0])
+            keys[i] = uniq[i, 1:1 + ln].tobytes().decode("utf-8", "replace")
+        h1, h2 = hashing.hash_keys(keys)
+        return self._emit(keys, counts.astype(np.int64), h1, h2)
+
+    def _emit(self, keys, counts, h1, h2):
+        return _block_of(keys, counts, self.pair_values, h1, h2)
+
+    def _long_tokens(self, buf, starts, lens, line_id, long_idx):
+        """Tokens over _SHORT_TOKEN bytes, counted in a host dict."""
+        from . import hashing
+
+        bb = buf.tobytes()
+        agg = {}
+        seen = set()
+        for i in long_idx:
+            s = int(starts[i])
+            tok = bb[s:s + int(lens[i])].decode("utf-8", "replace")
+            if self.dedup:
+                key = (int(line_id[i]), tok)
+                if key in seen:
+                    continue
+                seen.add(key)
+            agg[tok] = agg.get(tok, 0) + 1
+        keys = np.empty(len(agg), dtype=object)
+        counts = np.empty(len(agg), dtype=np.int64)
+        for i, (k, c) in enumerate(agg.items()):
+            keys[i] = k
+            counts[i] = c
+        h1, h2 = hashing.hash_keys(keys)
+        return self._emit(keys, counts, h1, h2)
+
+    # -- the device path ---------------------------------------------------
+    def _host_buffer(self, shape, dtype):
+        return torch.empty(shape, dtype=dtype, pin_memory=self._cuda)
+
+    def _pad_batch(self, buf, starts, lens, lines):
+        """The padded program inputs, built in place in (pinned) host
+        tensors: rows pad to a power of two with lens 0 (hence invalid)."""
+        n = len(starts)
+        L = _len_bucket(lens.max())
+        npad = _pow2(n)
+        mat_t = self._host_buffer((npad, L), torch.uint8)
+        lens_t = self._host_buffer((npad,), torch.int32)
+        lines_t = self._host_buffer((npad,), torch.int32)
+        mat, lens_p, lines_p = mat_t.numpy(), lens_t.numpy(), lines_t.numpy()
+        idx = starts[:, None] + np.arange(L, dtype=np.int64)[None, :]
+        np.clip(idx, 0, len(buf) - 1, out=idx)
+        mat[:n] = np.where(np.arange(L, dtype=np.int32)[None, :]
+                           < lens[:, None], buf[idx], 0)
+        mat[n:] = 0
+        lens_p[:n] = lens
+        lens_p[n:] = 0
+        lines_p[:] = 0
+        if lines is not None:
+            lines_p[:n] = lines
+        return mat_t, lens_t, lines_t
+
+    def _dispatch(self, buf, starts, lens, lines):
+        """Queue one batch: inputs up, the program, results down."""
+        t0 = time.perf_counter()
+        inputs = self._pad_batch(buf, starts, lens, lines)
+        if self.store is not None:
+            self.store.count_h2d(sum(t.numel() * t.element_size()
+                                     for t in inputs))
+        t1 = time.perf_counter()
+        self.seconds["pad"] += t1 - t0
+        start = None
+        if self._cuda:
+            with torch.cuda.stream(self._stream):
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(self._stream)
+                mat, lens_d, lines_d = (t.to(self.device, non_blocking=True)
+                                        for t in inputs)
+                res = token_fold(mat, lens_d, lines_d, self.dedup)
+                res = res[:4] + (res[4].to(torch.int32), res[5])
+                out = []
+                for r in res:
+                    h = self._host_buffer(r.shape, r.dtype)
+                    h.copy_(r, non_blocking=True)
+                    out.append(h)
+                event = torch.cuda.Event(enable_timing=True)
+                event.record(self._stream)
+            keep = (inputs, mat, lens_d, lines_d, res)
+        else:
+            out = token_fold(*inputs, self.dedup)
+            event, keep = None, None
+        self.seconds["enqueue"] += time.perf_counter() - t1
+        self.batches += 1
+        return _Batch(out, start, event, keep, starts, lens)
+
+    def _drain(self, buf, batch):
+        """Wait for one batch and build its partial-count Block (a
+        collision regroups the batch on host)."""
+        t0 = time.perf_counter()
+        if batch.event is not None:
+            batch.event.synchronize()
+            self.stream_seconds += batch.start.elapsed_time(batch.event) / 1e3
+        sh1, sh2, tot, live, rep_orig, collisions = (
+            t.numpy() for t in batch.out)
+        t1 = time.perf_counter()
+        self.seconds["wait"] += t1 - t0
+        batch.keep = None
+        if self.store is not None:
+            self.store.count_d2h(sum(t.numel() * t.element_size()
+                                     for t in batch.out))
+        if int(collisions):
+            lines = line_ids(buf, batch.starts) if self.dedup else None
+            return self._host_batch(buf, batch.starts, batch.lens, lines)
+        idx = np.flatnonzero(live)
+        if not len(idx):
+            return None
+        counts = tot[idx].astype(np.int64)
+        reps = rep_orig[idx]
+        keys = np.empty(len(idx), dtype=object)
+        starts, lens = batch.starts, batch.lens
+        for i, r in enumerate(reps):
+            s = int(starts[r])
+            keys[i] = buf[s:s + int(lens[r])].tobytes().decode(
+                "utf-8", "replace")
+        blk = self._emit(keys, counts, sh1[idx].view(np.uint32),
+                         sh2[idx].view(np.uint32))
+        self.seconds["decode"] += time.perf_counter() - t1
+        return blk
+
+    def add(self, win):
+        data = bytes(win) if isinstance(win, memoryview) else win
+        buf = np.frombuffer(data, dtype=np.uint8)
+        if not len(buf):
+            return ()
+        out = []
+        if (buf > 127).any():
+            # Only valid-UTF-8 windows lower: token substrings of valid
+            # UTF-8 decode losslessly, so keys can never desync from their
+            # byte hash lanes or the per-line byte dedup.
+            try:
+                data.decode("utf-8")
+            except UnicodeDecodeError:
+                out.extend(self._host_window(win))
+                return out
+        t0 = time.perf_counter()
+        if self.lower:
+            buf = _LOWER[buf]
+        starts, lens = _token_bounds(buf, self.mode)
+        line_id = line_ids(buf, starts) if self.dedup else None
+        self.seconds["scan"] += time.perf_counter() - t0
+        if len(starts) == 0:
+            return ()
+
+        short = lens <= _SHORT_TOKEN
+        long_idx = np.flatnonzero(~short)
+        s_starts, s_lens, s_lines = starts, lens, line_id
+        if len(long_idx):
+            sidx = np.flatnonzero(short)
+            s_starts, s_lens = starts[sidx], lens[sidx]
+            s_lines = line_id[sidx] if line_id is not None else None
+        ns = len(s_starts)
+
+        bounds = (_batch_bounds(s_lines, ns, max(1024, settings.lower_batch))
+                  if ns else [])
+        if bounds is None:
+            # The whole-window host path recounts every token, long ones
+            # included, so nothing else may land for this window.
+            out.extend(self._host_window(win))
+            return out
+        if len(long_idx):
+            out.append(self._long_tokens(buf, starts, lens, line_id,
+                                         long_idx))
+
+        # Double-buffered feed: dispatch batch i+1 before draining batch i.
+        pending = None
+        for a, b in bounds:
+            nxt = self._dispatch(
+                buf, s_starts[a:b], s_lens[a:b],
+                s_lines[a:b] if s_lines is not None else None)
+            if pending is not None:
+                out.append(self._drain(buf, pending))
+            pending = nxt
+        if pending is not None:
+            out.append(self._drain(buf, pending))
+        return [blk for blk in out if blk is not None and len(blk)]
+
+    def finish(self):
+        return ()
+
+
+def device_window_sink(mapper, store=None):
+    """The device window sink for a claimed mapper, or None."""
+    params = claims(mapper)
+    if params is None:
+        return None
+    return DeviceTokenFoldSink(params, store=store)

@@ -1,0 +1,139 @@
+"""The device-lowering pass: assign each executed stage a target.
+
+Port of ``dampr_tpu/plan/lower.py`` (``analyze``/``apply``; history-driven
+placement, the handoff edges and shuffle routing are later slices):
+
+- a **map** stage lowers when its mapper is a native-vocabulary scanner
+  (:func:`dampr_tpu_torch.ops.lower.claims`), its map-side combiner (if
+  any) is a ``sum``, and every consumer of its output folds it with a
+  keyed ``sum``.  The device
+  program emits partial counts per batch where the host scanner emits them
+  per window; only a summing consumer is invariant to that regrouping.
+- a **reduce** stage lowers when it is an associative ``sum``/``min``/
+  ``max`` fold (the device segment folds, exact-lane gated per block).
+
+Lowered stages get ``options["exec_target"] = "device"`` on a fresh clone;
+the decisions with their reasons land in the plan report's ``lowering``
+section.  Master switch: ``settings.lower``.
+"""
+
+from .. import base, settings
+from ..graph import GMap, GReduce
+from . import ir
+
+
+def _fold_kind(stage):
+    """The combiner kind a stage carries, or None."""
+    op = None
+    if isinstance(getattr(stage, "combiner", None),
+                  base.PartialReduceCombiner):
+        op = stage.combiner.op
+    elif "binop" in (stage.options or {}):
+        from ..ops import segment
+
+        op = segment.as_assoc_op(stage.options["binop"])
+    return getattr(op, "kind", None)
+
+
+def _consumers_all_sum_folds(graph, output, protected):
+    """Does every consumer of ``output`` fold it with a keyed associative
+    ``sum``?  A requested output (``protected``) is read directly and so
+    never qualifies.  (The reference also looks through bare checkpoints;
+    the port has no ``checkpoint()`` yet.)"""
+    if output in protected:
+        return False
+    consumers = [s for s in graph.stages
+                 if output in getattr(s, "inputs", ())]
+    if not consumers:
+        return False
+    for stage in consumers:
+        if isinstance(stage, GReduce):
+            red = getattr(stage, "reducer", None)
+            if (isinstance(red, base.AssocFoldReducer)
+                    and red.op.kind == "sum"):
+                continue
+            return False
+        if (isinstance(stage, GMap) and ir.is_identity_mapper(stage.mapper)
+                and _fold_kind(stage) == "sum"):
+            continue
+        return False
+    return True
+
+
+def _map_decision(stage, graph, protected):
+    from ..ops import lower as ops_lower
+
+    if (stage.options or {}).get("lower") is False:
+        return "host", "killed by stage option lower=False"
+    if len(stage.inputs) != 1:
+        return "host", "multi-input map (join shapes stay host)"
+    head = stage.mapper
+    if ops_lower.claims(head) is None:
+        return "host", "no device lowering for {} (opaque UDF)".format(
+            ir.part_name(head))
+    kind = _fold_kind(stage)
+    if ir.has_combiner(stage) and kind != "sum":
+        return "host", "combiner kind {!r} not sum — partial-count " \
+            "granularity would be observable".format(kind)
+    if kind != "sum" and not _consumers_all_sum_folds(
+            graph, stage.output, protected):
+        return "host", "not every consumer is a keyed sum fold — " \
+            "partial-count granularity would be observable"
+    return "device", "scanner {} + keyed sum fold run the token-fold " \
+        "program".format(type(head).__name__)
+
+
+def _reduce_decision(stage):
+    if (stage.options or {}).get("lower") is False:
+        return "host", "killed by stage option lower=False"
+    red = getattr(stage, "reducer", None)
+    if not isinstance(red, base.AssocFoldReducer):
+        name = ir.part_name(red) if red is not None else "?"
+        return "host", "non-associative reducer {} (opaque UDF)".format(name)
+    if red.op.kind not in ("sum", "min", "max"):
+        return "host", "fold binop has no device kind (opaque Python binop)"
+    return "device", "assoc {} fold runs the device segment folds " \
+        "(exact-lane gate per block)".format(red.op.kind)
+
+
+def analyze(graph, outputs=()):
+    """Per-executed-stage decisions: [{sid, kind, target, reason}]."""
+    protected = set(outputs)
+    decisions = []
+    for sid, stage in enumerate(graph.stages):
+        kind = ir.stage_kind(stage)
+        if kind == "input":
+            continue
+        if kind == "map":
+            target, reason = _map_decision(stage, graph, protected)
+        elif kind == "reduce":
+            target, reason = _reduce_decision(stage)
+        else:
+            target, reason = "host", "sinks write through the host"
+        decisions.append({"sid": sid, "kind": kind, "target": target,
+                          "reason": reason})
+    return decisions
+
+
+def apply(graph, outputs):
+    """``(graph', section)``: the graph with lowered stages re-targeted
+    (untouched when lowering is off or nothing qualifies) and the
+    ``lowering`` report section."""
+    section = {"enabled": False, "targets": [], "device_stages": 0}
+    if not settings.lower_enabled():
+        section["reason"] = "off (settings.lower={!r})".format(settings.lower)
+        return graph, section
+    decisions = analyze(graph, outputs)
+    lowered = [d["sid"] for d in decisions if d["target"] == "device"]
+    section.update(enabled=True, targets=decisions,
+                   device_stages=len(lowered))
+    if not lowered:
+        return graph, section
+    from ..graph import Graph
+
+    stages = list(graph.stages)
+    for sid in lowered:
+        opts = dict(stages[sid].options or {})
+        opts["exec_target"] = "device"
+        stages[sid] = ir.clone_with_options(stages[sid], opts)
+    return Graph(stages), section

@@ -1,0 +1,410 @@
+"""The scheduler: a sequential stage walk, parallel jobs within a stage.
+
+Reduced port of ``dampr_tpu/runner.py``'s ``MTRunner``: ``run_map``,
+``run_reduce`` (associative folds over key-sorted grouped views) and
+``run_sink``, each stage's jobs on a thread pool.
+
+``run_map`` has the two branches of the reference's map job:
+
+- a **device-lowered** scanner stage (``exec_target == "device"``, set by
+  :mod:`.plan.lower`) drives the chunk's line-aligned windows through
+  :class:`.ops.lower.DeviceTokenFoldSink` — the FNV and segmented-fold
+  kernels on ``settings.device``;
+- everything else runs on host: ``map_blocks`` scanners, identity block
+  pass-through, or the per-record ``mapper.map`` path into blocks.
+
+Either way the job's blocks go through the map-side combine
+(``segment.fold_block``) when the stage carries one, then hash
+partitioning into the store.  ``stats()`` (the emitter's ``stats()``)
+reports the plan, per-stage targets and, under ``device``,
+``device_stages``, ``device_fraction``, the h2d/d2h bytes and each
+kernel's launches during the run.
+
+Mesh execution, mitigation, faults/resume, reuse, the overlap executor and
+the observability plane are later slices.
+"""
+
+import logging
+import os
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from . import base, plan, settings, storage
+from .blocks import Block, BlockBuilder
+from .dataset import BlockDataset, CatDataset, Chunker, Dataset, SinkDataset
+from .graph import GInput, GMap, GReduce, GSink
+from .ops import fnv as _fnv
+from .ops import lower as ops_lower
+from .ops import segfold as _segfold
+from .ops import segment
+
+log = logging.getLogger("dampr_tpu_torch.runner")
+
+#: Map-side partial blocks merge once this many accumulate.
+_PARTIAL_FANIN = 16
+
+#: Every kernel the device path launches, by name.
+KERNELS = {"fnv": _fnv.KERNEL, "segfold": _segfold.KERNEL}
+
+
+class _OrderKey(object):
+    """Total order over record keys: native comparison when the types
+    allow it, type name otherwise (mixed-type outputs stay readable)."""
+
+    __slots__ = ("k",)
+
+    def __init__(self, k):
+        self.k = k
+
+    def __lt__(self, other):
+        try:
+            return bool(self.k < other.k)
+        except TypeError:
+            return type(self.k).__name__ < type(other.k).__name__
+
+
+class OutputDataset(Dataset):
+    """Final-output view over a PartitionSet: records in ascending key
+    order (one stable argsort of the concatenated output)."""
+
+    def __init__(self, pset, store=None):
+        self.pset = pset
+        self.store = store
+
+    def read(self):
+        blk = Block.concat([r.get() for r in self.pset.all_refs()])
+        if not len(blk):
+            return iter(())
+        try:
+            order = np.argsort(blk.keys, kind="stable")
+        except TypeError:
+            keys = blk.keys
+            order = np.asarray(
+                sorted(range(len(blk)), key=lambda i: _OrderKey(keys[i])),
+                dtype=np.int64)
+        return blk.take(order).iter_pairs()
+
+    def delete(self):
+        self.pset.delete(self.store)
+
+
+class _SinkOutput(object):
+    """A sink stage's result: its part files."""
+
+    def __init__(self, paths):
+        self.paths = paths
+
+    def datasets(self):
+        return [SinkDataset(p) for p in self.paths]
+
+
+class StageStats(object):
+    """Per-stage metrics."""
+
+    __slots__ = ("stage_id", "kind", "target", "n_jobs", "records_out",
+                 "seconds")
+
+    def __init__(self, stage_id, kind, target):
+        self.stage_id = stage_id
+        self.kind = kind
+        self.target = target
+        self.n_jobs = 0
+        self.records_out = 0
+        self.seconds = 0.0
+
+    def as_dict(self):
+        return {"stage": self.stage_id, "kind": self.kind,
+                "target": self.target, "jobs": self.n_jobs,
+                "records_out": self.records_out, "seconds": self.seconds}
+
+
+class MTRunner(object):
+    """Sequential stage walk with parallel jobs within each stage."""
+
+    def __init__(self, name, graph, n_maps=None, n_reducers=None,
+                 n_partitions=None, memory_budget=None):
+        # The device is resolved up front: a run asked to use a card that
+        # is absent fails here, before any stage, never on the CPU.
+        self.device = settings.resolve_device()
+        self.name = name
+        self.graph = graph
+        self.n_maps = n_maps or settings.max_processes
+        self.n_reducers = n_reducers or settings.max_processes
+        self.n_partitions = n_partitions or settings.partitions
+        self.store = storage.RunStore(name, budget=memory_budget)
+        self.stats = []
+        self.plan_report = None
+        self.run_summary = None
+        self._lock = threading.Lock()
+        self._device = {"batches": 0, "fallbacks": 0, "stream_seconds": 0.0,
+                        "combine_seconds": 0.0,
+                        "phases": dict.fromkeys(ops_lower.PHASES, 0.0)}
+
+    # -- helpers -----------------------------------------------------------
+    def _pool_map(self, fn, jobs, n_workers):
+        """Run ``fn`` over ``jobs`` on a thread pool; every job's
+        exception surfaces (results are read in order)."""
+        workers = max(1, min(n_workers, len(jobs)))
+        if workers == 1:
+            return [fn(j) for j in jobs]
+        with ThreadPoolExecutor(max_workers=workers,
+                                thread_name_prefix="dampr-job") as pool:
+            return list(pool.map(fn, jobs))
+
+    def _as_chunks(self, entry):
+        """Stage input -> list of job datasets."""
+        if isinstance(entry, storage.PartitionSet):
+            ds = [BlockDataset([ref]) for ref in entry.all_refs()]
+            return ds if ds else [BlockDataset([])]
+        if isinstance(entry, _SinkOutput):
+            return entry.datasets()
+        if not isinstance(entry, Chunker):
+            raise TypeError("unknown stage input {!r}".format(entry))
+        chunks = list(entry.chunks())
+        return chunks if chunks else [BlockDataset([])]
+
+    def _reduce_consumes(self, output):
+        """Does a GReduce consume ``output``?  (Its input must arrive as
+        hash-sorted runs.)"""
+        return any(isinstance(s, GReduce) and output in s.inputs
+                   for s in self.graph.stages)
+
+    def _note_device_sink(self, sink):
+        with self._lock:
+            dev = self._device
+            dev["batches"] += sink.batches
+            dev["fallbacks"] += sink.fallbacks
+            dev["stream_seconds"] += sink.stream_seconds
+            for k, v in sink.seconds.items():
+                dev["phases"][k] += v
+
+    # -- map ---------------------------------------------------------------
+    def run_map(self, stage_id, stage, env):
+        entries = [env[s] for s in stage.inputs]
+        if len(entries) != 1:
+            raise NotImplementedError(
+                "multi-input maps (joins) are not ported yet")
+        chunks = self._as_chunks(entries[0])
+        job = self._map_job(stage)
+        results = self._pool_map(job, chunks, self.n_maps)
+        pset = storage.PartitionSet(self.n_partitions)
+        for mapping in results:
+            for pid, refs in mapping.items():
+                for ref in refs:
+                    pset.add(pid, ref)
+        return pset, pset.total_records(), len(chunks)
+
+    def _map_job(self, stage):
+        """The per-chunk job closure of one map stage."""
+        from .ops.text import _drive_windows
+
+        combine_op = None
+        if isinstance(stage.combiner, base.PartialReduceCombiner):
+            combine_op = stage.combiner.op
+        elif "binop" in stage.options:
+            combine_op = segment.as_assoc_op(stage.options["binop"])
+        P = self.n_partitions
+        feeds_reduce = self._reduce_consumes(stage.output)
+        mapper = stage.mapper
+        # claims() re-checks the mapper, so a foreign annotation can never
+        # dispatch an op the program does not implement.
+        dev_lowered = (stage.options.get("exec_target") == "device"
+                       and ops_lower.claims(mapper) is not None)
+        identity = type(mapper) is base.Map and mapper.mapper is base._identity
+
+        def job(chunk):
+            raw, partials = [], []
+            combine_s = [0.0]
+
+            def push(blk):
+                if blk is None or not len(blk):
+                    return
+                if combine_op is None:
+                    raw.append(blk)
+                    return
+                t0 = time.perf_counter()
+                partials.append(segment.fold_block(blk, combine_op))
+                if len(partials) >= _PARTIAL_FANIN:
+                    merged = segment.fold_block(Block.concat(partials),
+                                                combine_op)
+                    del partials[:]
+                    partials.append(merged)
+                combine_s[0] += time.perf_counter() - t0
+
+            if dev_lowered and (hasattr(chunk, "read_bytes")
+                                or hasattr(chunk, "iter_byte_blocks")):
+                sink = ops_lower.device_window_sink(mapper, self.store)
+                try:
+                    for blk in _drive_windows(mapper, chunk, sink=sink):
+                        push(blk)
+                finally:
+                    self._note_device_sink(sink)
+            elif hasattr(mapper, "map_blocks") and hasattr(chunk,
+                                                           "read_bytes"):
+                for blk in mapper.map_blocks(chunk):
+                    push(blk)
+            elif identity and hasattr(chunk, "iter_blocks"):
+                for blk in chunk.iter_blocks():
+                    push(blk)
+            else:
+                builder = BlockBuilder(settings.batch_size)
+                for k, v in mapper.map(chunk):
+                    push(builder.add(k, v))
+                push(builder.flush())
+
+            blocks = raw
+            if combine_op is not None and partials:
+                t0 = time.perf_counter()
+                blocks = [segment.fold_block(Block.concat(partials),
+                                             combine_op)]
+                combine_s[0] += time.perf_counter() - t0
+            with self._lock:
+                self._device["combine_seconds"] += combine_s[0]
+            out = {}
+            for blk in blocks:
+                if combine_op is None and feeds_reduce:
+                    blk = blk.sort_by_hash()
+                for pid, sub in blk.split_by_partition(P).items():
+                    out.setdefault(pid, []).append(
+                        self.store.register(sub))
+            return out
+
+        return job
+
+    # -- reduce ------------------------------------------------------------
+    def run_reduce(self, stage_id, stage, env):
+        entries = [env[s] for s in stage.inputs]
+        if len(entries) != 1 or not isinstance(entries[0],
+                                               storage.PartitionSet):
+            raise NotImplementedError(
+                "only single-input reduces over materialized partitions "
+                "are ported yet")
+        pset_in = entries[0]
+        reducer = stage.reducer
+
+        def job(pid):
+            view = base.GroupedView([r.get() for r in pset_in.refs(pid)])
+            builder = BlockBuilder(settings.batch_size)
+            refs = []
+            for k, v in reducer.reduce(view):
+                blk = builder.add(k, v)
+                if blk is not None:
+                    refs.append(self.store.register(blk))
+            blk = builder.flush()
+            if blk is not None:
+                refs.append(self.store.register(blk))
+            return pid, refs
+
+        pids = sorted(pset_in.parts)
+        results = self._pool_map(job, pids, self.n_reducers)
+        pset = storage.PartitionSet(self.n_partitions)
+        for pid, refs in results:
+            for ref in refs:
+                pset.add(pid, ref)
+        return pset, pset.total_records(), len(pids)
+
+    # -- sink --------------------------------------------------------------
+    def run_sink(self, stage_id, stage, env):
+        chunks = self._as_chunks(env[stage.inputs[0]])
+        os.makedirs(stage.path, exist_ok=True)
+
+        def job(args):
+            i, chunk = args
+            part = os.path.join(stage.path, "part-{}".format(i))
+            n = 0
+            with open(part, "w", encoding="utf-8") as f:
+                for _k, v in stage.sinker.map(chunk):
+                    f.write("{}\n".format(v))
+                    n += 1
+            return part, n
+
+        results = self._pool_map(job, list(enumerate(chunks)), self.n_maps)
+        return (_SinkOutput([p for p, _ in results]),
+                sum(n for _, n in results), len(chunks))
+
+    # -- the walk ----------------------------------------------------------
+    def run(self, outputs):
+        """Execute the graph; returns one dataset per requested output.
+        Intermediate stage outputs are deleted once the walk ends."""
+        t_start = time.perf_counter()
+        launches0 = {k: kern.launches for k, kern in KERNELS.items()}
+        self.graph, self.plan_report = plan.prepare(self.graph, outputs)
+        env = {}
+        to_delete = []
+        for sid, stage in enumerate(self.graph.stages):
+            if isinstance(stage, GInput):
+                env[stage.output] = stage.tap
+                continue
+            t0 = time.perf_counter()
+            if isinstance(stage, GMap):
+                result, nrec, njobs = self.run_map(sid, stage, env)
+                kind = "map"
+                to_delete.append(stage.output)
+            elif isinstance(stage, GReduce):
+                result, nrec, njobs = self.run_reduce(sid, stage, env)
+                kind = "reduce"
+                to_delete.append(stage.output)
+            elif isinstance(stage, GSink):
+                result, nrec, njobs = self.run_sink(sid, stage, env)
+                kind = "sink"
+            else:
+                raise TypeError("unknown stage type {!r}".format(stage))
+            env[stage.output] = result
+            st = StageStats(sid, kind, stage.options.get("exec_target",
+                                                         "host"))
+            st.n_jobs = njobs
+            st.records_out = nrec
+            st.seconds = time.perf_counter() - t0
+            self.stats.append(st)
+            log.info("stage %d done: %s", sid, st.as_dict())
+
+        ret = []
+        for source in outputs:
+            entry = env[source]
+            if isinstance(entry, storage.PartitionSet):
+                ret.append(OutputDataset(entry, self.store))
+            elif isinstance(entry, _SinkOutput):
+                ret.append(CatDataset(entry.datasets()))
+            else:
+                ret.append(CatDataset(list(entry.chunks())))
+        keep = set(outputs)
+        for source in to_delete:
+            if source not in keep:
+                env[source].delete(self.store)
+        wall = time.perf_counter() - t_start
+        self.run_summary = self._summary(wall, launches0)
+        return ret
+
+    def _summary(self, wall, launches0):
+        dev = self._device
+        phases = dict(dev["phases"])
+        driving = phases["enqueue"] + phases["wait"]
+        device = {
+            "device": str(self.device),
+            "device_stages": self.plan_report["device_stages"],
+            # host seconds spent driving the device (enqueue + waiting on
+            # results) over the run's wall time; jobs overlap, so it can
+            # exceed 1
+            "device_fraction": driving / wall if wall > 0 else 0.0,
+            # summed per-batch stream spans on the card over wall time
+            "stream_fraction": (dev["stream_seconds"] / wall if wall > 0
+                                else 0.0),
+            "stream_seconds": dev["stream_seconds"],
+            "host_phase_seconds": phases,
+            "batches": dev["batches"],
+            "fallbacks": dev["fallbacks"],
+            "h2d_bytes": self.store.h2d_bytes,
+            "d2h_bytes": self.store.d2h_bytes,
+            "kernels": {k: kern.launches - launches0[k]
+                        for k, kern in KERNELS.items()},
+        }
+        return {"name": self.name, "wall_seconds": wall,
+                "stages": [s.as_dict() for s in self.stats],
+                "plan": self.plan_report, "device": device,
+                # host seconds in map-side combine folds, summed over jobs
+                "combine_seconds": dev["combine_seconds"],
+                "spill": {"count": self.store.spill_count,
+                          "bytes": self.store.spill_bytes}}

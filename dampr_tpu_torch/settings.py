@@ -1,0 +1,94 @@
+"""Configuration for dampr_tpu_torch: the knobs the ported slice reads.
+
+Same "assign a module attribute" ergonomics as ``dampr_tpu.settings``; the
+environment overrides carry their own ``DAMPR_TPU_TORCH_`` prefix so the
+two packages can be configured independently in one process.
+
+The device is explicit.  :data:`device` names the ``torch.device`` every
+device stage and kernel runs on ("cuda" by default, "cpu" in the CPU
+tests).  Nothing falls back from a missing card to the CPU:
+:func:`resolve_device` raises when CUDA is asked for and absent.
+"""
+
+import multiprocessing
+import os
+import tempfile
+
+#: Host worker threads for a stage's jobs.
+max_processes = multiprocessing.cpu_count()
+
+#: Number of shuffle partitions.
+partitions = 64
+
+#: Records per host block built from per-record mappers.
+batch_size = 65536
+
+#: Byte budget for RAM-resident blocks; over it, the oldest unpinned
+#: blocks spill to disk under :data:`scratch_root`.
+max_memory_per_stage = int(os.environ.get(
+    "DAMPR_TPU_TORCH_MEMORY_BUDGET", str(512 * 1024 * 1024)))
+
+#: Byte-scanning mappers read chunks in line-aligned windows of this size.
+scan_window_bytes = 256 * 1024 ** 2
+
+#: Where spilled blocks go (under the process temp dir by default).
+scratch_root = os.environ.get("DAMPR_TPU_TORCH_SCRATCH") or os.path.join(
+    tempfile.gettempdir(), "dampr_tpu_torch")
+
+#: The torch device of every device stage and kernel launch.
+device = os.environ.get("DAMPR_TPU_TORCH_DEVICE", "cuda")
+
+#: Keyed batch kernels (hash, sort, segment fold) may run on :data:`device`;
+#: False keeps them all on host numpy.
+use_device = os.environ.get("DAMPR_TPU_TORCH_USE_DEVICE", "1") not in (
+    "0", "false")
+
+_MIN_BATCH_FLOOR = 4096
+
+
+def resolve_device():
+    """The configured ``torch.device``; raises when it is CUDA and no card
+    is visible (never a silent CPU run)."""
+    import torch
+
+    d = torch.device(device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "dampr_tpu_torch.settings.device is {!r} but "
+            "torch.cuda.is_available() is False; set device='cpu' (or "
+            "DAMPR_TPU_TORCH_DEVICE=cpu) to run on the CPU".format(device))
+    return d
+
+
+def _device_type():
+    return str(device).split(":")[0]
+
+
+def use_device_for(n):
+    """Device-dispatch decision for an n-record keyed batch: at least 4096
+    records on the CPU device, 65536 on a card (below that a launch and a
+    copy cost more than the numpy pass)."""
+    if not use_device:
+        return False
+    return n >= (_MIN_BATCH_FLOOR if _device_type() == "cpu" else 1 << 16)
+
+
+#: Device lowering of scanner map -> sum fold stages (:mod:`.plan.lower`):
+#: "on"/"1" force it, "off"/"0" disable it, "auto" enables it iff
+#: :data:`device` is CUDA.  Forcing it with device="cpu" runs the same
+#: torch program through the kernels' plain versions (the CPU test leg).
+lower = os.environ.get("DAMPR_TPU_TORCH_LOWER", "auto")
+
+
+def lower_enabled():
+    s = str(lower).lower()
+    if s in ("on", "1", "true", "yes"):
+        return True
+    if s in ("off", "0", "false", "no"):
+        return False
+    return _device_type() == "cuda"
+
+
+#: Tokens per device program dispatch (padded to a power of two).
+lower_batch = int(os.environ.get("DAMPR_TPU_TORCH_LOWER_BATCH",
+                                 str(1 << 18)))

@@ -1,0 +1,113 @@
+"""dampr_tpu_torch stands alone: no JAX, nothing of dampr_tpu, and no
+silent CPU run when the card it was told to use is missing."""
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|dampr_tpu)(?:[\s.,]|$)",
+    re.MULTILINE)
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _dirs, files in os.walk(os.path.join(ROOT, "dampr_tpu_torch")):
+        out.extend(os.path.join(d, f) for f in files if f.endswith(".py"))
+    return sorted(out)
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    """Every port module imports with ``jax`` made unimportable, and no
+    ``dampr_tpu`` module is loaded along the way."""
+    code = r"""
+import importlib, json, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import dampr_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(dampr_tpu_torch.__path__,
+                                                "dampr_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+loaded = sorted(m for m in sys.modules
+                if m == "dampr_tpu" or m.startswith("dampr_tpu."))
+print(json.dumps({"modules": names, "reference": loaded}))
+"""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    assert report["reference"] == []
+    assert "dampr_tpu_torch.ops.lower" in report["modules"]
+    assert "dampr_tpu_torch.csrc.build" in report["modules"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_source_imports_jax_or_dampr_tpu(path):
+    with open(path, encoding="utf-8") as f:
+        src = f.read()
+    assert not _FORBIDDEN.findall(src), path
+
+
+def test_cuda_device_without_a_card_raises():
+    """device='cuda' on a machine without a card fails the run up front —
+    it never carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the no-card case cannot occur")
+    import operator
+
+    from dampr_tpu_torch import Dampr, settings
+    from dampr_tpu_torch.ops.text import DocFreq
+
+    path = os.path.join(ROOT, "chip_smoke.py")  # any text file will do
+
+    old = settings.device
+    settings.device = "cuda"
+    try:
+        with pytest.raises(RuntimeError, match="is_available"):
+            settings.resolve_device()
+        with pytest.raises(RuntimeError, match="is_available"):
+            (Dampr.text(path)
+             .custom_mapper(DocFreq(pair_values=False))
+             .fold_values(operator.add).read())
+    finally:
+        settings.device = old
+
+
+def test_wrappers_refuse_devices_they_have_no_kernel_for():
+    """A wrapper runs its plain version only for a CPU tensor; any other
+    non-CUDA device raises rather than falling back."""
+    from dampr_tpu_torch.ops import fnv, segfold
+
+    mat = torch.empty((4, 8), dtype=torch.uint8, device="meta")
+    lens = torch.empty(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fnv.fnv(mat, lens)
+    lane = torch.empty(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        segfold.segfold(lane, lane, lane, lane)
+
+
+def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result when there is no
+    card, and when run from a directory holding nothing but itself."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), alone)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for cwd, script in ((ROOT, "chip_smoke.py"), (str(tmp_path), str(alone))):
+        res = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout
