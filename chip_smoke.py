@@ -9,16 +9,26 @@ the kernels build for sm_90a).  Phases, each of which must pass:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel of the main path from ``dampr_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) and report the build time;
-3. K1 (FNV) against its plain torch version, bit for bit, at the main
-   path's shapes ([2^18, 16], [2^18, 32], the corpus batch) and on ragged
-   lengths, high bytes, empty rows and unaligned bases;
-4. K2 (segmented fold) against its plain torch version, bit for bit, at
-   N = 2^18, a ragged N, one segment spanning many blocks, an all-invalid
-   tail and single-element segments;
+3. K1 (FNV) against its plain torch version, bit for bit, in both its
+   entries (the hash lanes, and the sort keys with and without lines) at
+   the main path's shapes ([2^18, 16], [2^18, 32], the corpus batch) and
+   on ragged lengths, high bytes, empty rows and unaligned bases;
+4. K2 (segmented fold) against its plain torch version, bit for bit, in
+   both its entries (``segfold_sorted``'s contract, and the token fold's
+   gather entry with and without dedup) at N = 2^18, ragged N, tile edges
+   (512k - 1, 512k, 512k + 1), one segment over every tile of N = 2^22,
+   an all-invalid tail, single-element segments and rows that collide
+   (at L = 8, 13 and 16); every case runs 100 times, since a look-back
+   race would show only sometimes;
 5. ``token_fold`` with the kernels against ``token_fold`` with the plain
    versions: all six outputs equal, with and without per-line dedup;
-6. times (CUDA events, warm, median of ``--reps``) of each kernel, its
-   plain version and the program, beside the least time the card could
+6. times of each kernel, its plain version and the program at the main
+   path's batch (the corpus batch, N = 2^18, L = 8) and at N = 2^22:
+   ``ms`` per call, wrapper included (CUDA events around one call);
+   ``device_ms``, the card's time alone (the stream sleeps while the host
+   queues the calls, then events time them back to back; the profiler's
+   kernel time beside it where it shows one); ``host_ms``, the host's
+   cost to queue one call; each beside the least time the card could
    take (bytes over 3.35 TB/s, operations over the peak rate);
 7. the main path end to end on a ``--mb`` corpus made from ``--seed``
    (the TF-IDF benchmark's generator): DocFreq and TokenCounts through
@@ -74,7 +84,8 @@ def bound_ms(nbytes, nops):
 
 
 def time_ms(torch, fn, reps):
-    """Median CUDA-event time of ``fn()`` over ``reps`` warm runs."""
+    """Median CUDA-event time of ``fn()`` over ``reps`` warm runs, each
+    timed alone: the wrapper's host work before the launch included."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -88,6 +99,80 @@ def time_ms(torch, fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_split(torch, fn, reps):
+    """``(device_ms, host_ms)`` per call of ``fn``.  The stream first
+    sleeps (``torch.cuda._sleep``) long enough for the host to queue all
+    ``reps`` calls behind it; events around those calls then time the
+    card alone, and the host clock around the queueing (no synchronise
+    inside) times the host alone.  A window counts only if the sleep
+    outlasted the queueing, so the card never waited on the host inside
+    it.  Otherwise either the sleep was short or the CUDA launch queue
+    filled (a call of many launches) and the host waited on the card: the
+    next try sleeps twice as long over half the calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 50 * 1000 * 1000
+    for _ in range(6):
+        before = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        slept = before.elapsed_time(start)
+        if slept > host_ms:
+            return start.elapsed_time(end) / reps, host_ms / reps
+        cycles *= 2
+        reps = max(1, reps // 2)
+    raise PhaseFailed("the stream woke before the host had queued the "
+                      "timed calls")
+
+
+def profiled_ms(torch, fn, reps, pattern):
+    """Device time per call of the kernels whose name matches ``pattern``,
+    from ``torch.profiler``'s ``key_averages()``; None where the profiler
+    shows no device time for them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+    except RuntimeError as e:
+        log("profiler unavailable: {}".format(e))
+        return None
+    total = 0.0
+    for row in rows:
+        if re.search(pattern, row.key):
+            total += (getattr(row, "device_time_total", None)
+                      or getattr(row, "cuda_time_total", 0.0))
+    return total / 1e3 / reps if total > 0 else None
+
+
+def timing(torch, fn, reps, pattern=None, launches=1):
+    """Every time this script reports for one callable of about
+    ``launches`` kernel launches a call (the queued window holds about
+    500 launches, well inside the CUDA launch queue)."""
+    out = {"ms": time_ms(torch, fn, reps)}
+    out["device_ms"], out["host_ms"] = time_split(
+        torch, fn, max(2, min(5 * reps, 500 // launches)))
+    if pattern is not None:
+        out["profiler_ms"] = profiled_ms(torch, fn, reps, pattern)
+    return out
 
 
 def make_corpus(path, mb, seed):
@@ -144,12 +229,30 @@ def exact(torch, a, b):
 
 
 def check_fnv(torch, fnv, dev, rng):
-    """K1 vs its plain version; returns the max abs error seen."""
+    """K1 vs its plain version, in both entries; returns the max abs error
+    seen."""
     import numpy as np
 
     worst = 0.0
+
+    def agree(name, got, want):
+        nonlocal worst
+        for g, w in zip(got, want):
+            ok, err = exact(torch, g, w)
+            worst = max(worst, err)
+            check(ok, "fnv disagrees with its plain version: " + name)
+
+    def both_entries(name, m, ln):
+        agree(name, fnv.fnv(m, ln), fnv.fnv_reference(m, ln))
+        agree(name + " (keys)", fnv.fnv_sort_keys(m, ln),
+              fnv.fnv_sort_keys_reference(m, ln))
+        li = torch.from_numpy(rng.randint(0, 2 ** 31, size=m.shape[0])
+                              .astype(np.int32)).to(dev)
+        agree(name + " (keys, lines)", fnv.fnv_sort_keys(m, ln, li),
+              fnv.fnv_sort_keys_reference(m, ln, li))
+
     cases = []
-    for n, L in ((1 << 18, 16), (1 << 18, 32)):
+    for n, L in ((1 << 18, 8), (1 << 18, 16), (1 << 18, 32)):
         lens = rng.randint(1, L + 1, size=n)
         lens[rng.rand(n) < 0.05] = 0
         cases.append(("random [{}, {}]".format(n, L),
@@ -165,26 +268,22 @@ def check_fnv(torch, fnv, dev, rng):
                   rng.randint(0, 1025, size=33)))
     cases.append(("odd width", rng.randint(0, 256, size=(513, 13)),
                   rng.randint(0, 14, size=513)))
+    cases.append(("ragged tile [1025, 8]", rng.randint(0, 256, size=(1025, 8)),
+                  rng.randint(-1, 10, size=1025)))
     for name, mat, lens in cases:
         m = torch.from_numpy(mat.astype(np.uint8)).to(dev)
         ln = torch.from_numpy(lens.astype(np.int32)).to(dev)
-        got = fnv.fnv(m, ln)
-        want = fnv.fnv_reference(m, ln)
-        for g, w in zip(got, want):
-            ok, err = exact(torch, g, w)
-            worst = max(worst, err)
-            check(ok, "fnv disagrees with fnv_reference: " + name)
-    # an 8-byte-aligned (not 16) base: the kernel must take 8-byte loads
-    n, L = 5000, 16
-    flat = torch.from_numpy(rng.randint(0, 256, size=n * L + 8)
-                            .astype(np.uint8)).to(dev)
-    m = flat[8:].view(n, L)
-    ln = torch.from_numpy(rng.randint(0, 17, size=n).astype(np.int32)).to(dev)
-    check(fnv._vec_width(m) == 8, "unaligned base did not pick 8-byte loads")
-    for g, w in zip(fnv.fnv(m, ln), fnv.fnv_reference(m, ln)):
-        ok, err = exact(torch, g, w)
-        worst = max(worst, err)
-        check(ok, "fnv disagrees with fnv_reference: unaligned base")
+        both_entries(name, m, ln)
+    # bases aligned to 8 and to 4 bytes but not 16: narrower loads
+    for off, L in ((8, 16), (4, 8), (4, 32)):
+        n = 5000
+        flat = torch.from_numpy(rng.randint(0, 256, size=n * L + off)
+                                .astype(np.uint8)).to(dev)
+        m = flat[off:].view(n, L)
+        check(m.data_ptr() % 16 == off, "the unaligned case is aligned")
+        ln = torch.from_numpy(rng.randint(0, L + 1, size=n)
+                              .astype(np.int32)).to(dev)
+        both_entries("base aligned to {} at L = {}".format(off, L), m, ln)
     torch.cuda.synchronize()
     return worst
 
@@ -204,16 +303,65 @@ def sorted_case(torch, dev, rng, n, n_keys, n_invalid, max_v=9):
     return [torch.from_numpy(x).to(dev) for x in (h1, h2, v, inv)]
 
 
-def check_segfold(torch, segfold, dev, rng):
+def gather_case(torch, lower, fnv, dev, rng, n, n_keys, L=8, zero_frac=0.05,
+                dedup=True, collide=0.0):
+    """The gather entry's inputs as token_fold builds them: random rows
+    over ``n_keys`` distinct tokens, their sort keys and the sort.  A
+    ``collide`` share of the rows then gets one byte changed after the
+    hashing, so it differs from rows of the same keys: the collisions a
+    real hash collision would give."""
+    import numpy as np
+
+    vlens = rng.randint(1, L + 1, size=n_keys).astype(np.int32)
+    vocab = (rng.randint(0, 256, size=(n_keys, L))
+             * (np.arange(L)[None, :] < vlens[:, None])).astype(np.uint8)
+    ids = rng.randint(0, n_keys, size=n)
+    lens = vlens[ids]
+    lens[rng.rand(n) < zero_frac] = 0
+    lines = np.sort(rng.randint(0, max(1, n // 10), size=n)).astype(np.int32)
+    rows = vocab[ids]
+    m = torch.from_numpy(rows).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    li = torch.from_numpy(lines).to(dev) if dedup else None
+    low, high = fnv.fnv_sort_keys(m, ln, li)
+    perm, shigh = lower.sort_segments(low, high)
+    if collide:
+        hit = np.flatnonzero(rng.rand(n) < collide)
+        rows[hit, rng.randint(0, L, size=len(hit))] ^= 1
+        m = torch.from_numpy(rows).to(dev)
+    return perm, shigh, low, m, ln
+
+
+REPEATS = 100
+
+
+def check_segfold(torch, lower, fnv, segfold, dev, rng):
+    """K2 vs its plain version in both entries, each case REPEATS times."""
     worst = 0.0
+
+    def agree(name, run, want):
+        nonlocal worst
+        for _ in range(REPEATS):
+            got = run()
+            for g, w in zip(got, want):
+                ok, err = exact(torch, g, w)
+                worst = max(worst, err)
+                check(ok, "segfold disagrees with its plain version: " + name)
+
     n = 1 << 18
     ones = torch.ones(n, dtype=torch.int32, device=dev)
     zeros = torch.zeros(n, dtype=torch.int32, device=dev)
     distinct = torch.arange(n, dtype=torch.int32, device=dev)
+    big = 1 << 22
+    big_ones = torch.ones(big, dtype=torch.int32, device=dev)
+    big_zeros = torch.zeros(big, dtype=torch.int32, device=dev)
+    tile = segfold._TILE
     cases = [
         ("random N=2^18", sorted_case(torch, dev, rng, n, 20000, 1000)),
         ("ragged N", sorted_case(torch, dev, rng, 100003, 50000, 7)),
         ("one segment over many blocks", [zeros, zeros, ones, zeros]),
+        ("one segment over every tile of N=2^22",
+         [big_zeros, big_zeros, big_ones, big_zeros]),
         ("all-invalid tail",
          sorted_case(torch, dev, rng, n, 3000, n // 2)),
         ("all invalid", [zeros, zeros, ones, ones]),
@@ -222,16 +370,39 @@ def check_segfold(torch, segfold, dev, rng):
         ("one record", sorted_case(torch, dev, rng, 1, 1, 0)),
         ("tile edge", sorted_case(torch, dev, rng, 2049, 2049, 0)),
     ]
-    for name, (h1, h2, v, inv) in cases:
-        got = segfold.segfold(h1, h2, v, inv)
-        want = segfold.segfold_reference_torch(h1, h2, v, inv)
-        for g, w in zip(got, want):
-            ok, err = exact(torch, g, w)
-            worst = max(worst, err)
-            check(ok, "segfold disagrees with its plain version: " + name)
-    tot, live = segfold.segfold(zeros, zeros, ones, zeros)
-    check(int(live.sum()) == 1 and int(tot[-1]) == n,
+    for k in (1, 3, 64):
+        for m in (tile * k - 1, tile * k, tile * k + 1):
+            cases.append(("N = {}".format(m),
+                          sorted_case(torch, dev, rng, m, max(1, m // 50),
+                                      m // 7)))
+    for name, lanes in cases:
+        agree(name, lambda: segfold.segfold(*lanes),
+              segfold.segfold_reference_torch(*lanes))
+    tot, live = segfold.segfold(big_zeros, big_zeros, big_ones, big_zeros)
+    check(int(live.sum()) == 1 and int(tot[-1]) == big,
           "one giant segment must total N at its single end")
+
+    gcases = [("corpus-like N=2^18", n, 20000, 0.05, 8, 0.0),
+              ("N=2^22", big, 50000, 0.05, 8, 0.0),
+              ("one token over every tile of N=2^22", big, 1, 0.0, 8, 0.0),
+              ("ragged N", 100003, 3000, 0.3, 8, 0.0),
+              ("tile edge - 1", tile * 3 - 1, 40, 0.5, 8, 0.0),
+              ("tile edge + 1", tile * 3 + 1, 40, 0.5, 8, 0.0),
+              ("all invalid", 5000, 10, 1.0, 8, 0.0),
+              ("collisions", n, 20000, 0.05, 8, 0.01),
+              ("collisions, odd width", 30011, 500, 0.1, 13, 0.02),
+              ("collisions in one segment over every tile", big, 1, 0.0, 16,
+               0.001)]
+    for name, m, keys, zero_frac, L, collide in gcases:
+        for dedup in (True, False):
+            args = gather_case(torch, lower, fnv, dev, rng, m, keys, L=L,
+                               zero_frac=zero_frac, dedup=dedup,
+                               collide=collide)
+            want = segfold.segfold_gather_reference(*args, dedup)
+            check((int(want[5]) > 0) == (collide > 0),
+                  "the gather case {} has the wrong collisions".format(name))
+            agree("gather {} (dedup={})".format(name, dedup),
+                  lambda: segfold.segfold_gather(*args, dedup), want)
     torch.cuda.synchronize()
     return worst
 
@@ -264,8 +435,8 @@ def check_token_fold(torch, lower, fnv, segfold, batches):
     for dedup, (mat, lens, lines, _n) in batches.items():
         got = lower.token_fold(mat, lens, lines, dedup)
         want = lower.token_fold(mat, lens, lines, dedup,
-                                hash_fn=fnv.fnv_reference,
-                                fold_fn=segfold.segfold_reference_torch)
+                                hash_fn=fnv.fnv_sort_keys_reference,
+                                fold_fn=segfold.segfold_gather_reference)
         names = ("sh1", "sh2", "tot", "live", "rep_orig", "collisions")
         for name, g, w in zip(names, got, want):
             ok, _ = exact(torch, g, w)
@@ -274,6 +445,28 @@ def check_token_fold(torch, lower, fnv, segfold, batches):
                                                                  dedup))
         check(int(got[5]) == 0, "unexpected collision in the corpus batch")
     torch.cuda.synchronize()
+
+
+#: Kernel names (regular expressions) in the profiler's table.
+K1_NAMES = r"fnv_(tile|rows)"
+K2_NAMES = r"segscan"
+
+
+def random_batch(torch, dev, rng, n, L):
+    """A token batch like the corpus's at another size: tokens of 1..L
+    bytes from a 24,000-token Zipf vocabulary, ten to a line."""
+    import numpy as np
+
+    vocab_n = 24000
+    vocab = rng.randint(97, 123, size=(vocab_n, L)).astype(np.uint8)
+    vlens = rng.randint(1, L + 1, size=vocab_n).astype(np.int32)
+    probs = 1.0 / np.arange(1, vocab_n + 1) ** 1.1
+    ids = rng.choice(vocab_n, size=n, p=probs / probs.sum())
+    mat = vocab[ids] * (np.arange(L)[None, :] < vlens[ids][:, None])
+    lines = (np.arange(n) // 10).astype(np.int32)
+    return (torch.from_numpy(mat.astype(np.uint8)).to(dev),
+            torch.from_numpy(vlens[ids]).to(dev),
+            torch.from_numpy(lines).to(dev))
 
 
 def run_pipeline(Dampr, scanner, path, chunk):
@@ -332,61 +525,82 @@ def main(argv=None):
             len(KERNELS), time.perf_counter() - t0))
 
         rng = np.random.RandomState(args.seed)
+        t0 = time.perf_counter()
         err = {"fnv": check_fnv(torch, fnv, dev, rng),
-               "segfold": check_segfold(torch, segfold, dev, rng)}
-        log("phase kernels: fnv and segfold equal their plain versions")
+               "segfold": check_segfold(torch, lower, fnv, segfold, dev,
+                                        rng)}
+        log("phase kernels: fnv and segfold equal their plain versions "
+            "in {:.3f} s".format(time.perf_counter() - t0))
 
+        t0 = time.perf_counter()
         batches = {d: corpus_batch(torch, corpus, dev, d)
                    for d in (True, False)}
         check_token_fold(torch, lower, fnv, segfold, batches)
-        log("phase token_fold: six outputs equal, dedup and not")
+        log("phase token_fold: six outputs equal, dedup and not, in {:.3f} "
+            "s".format(time.perf_counter() - t0))
 
-        # -- timings at the main path's shapes ---------------------------
+        # -- timings at the main path's batch and at 2^22 ------------------
         mat, lens, lines, ntok = batches[True]
         N, L = mat.shape
-        live_bytes = int(lens.clamp(0, L).sum())
-        h1, h2 = fnv.fnv(mat, lens)
-        # K2's main-path input, exactly as token_fold builds it
-        _perm, sh1, sh2, sinv, v, _sp = lower.sort_segments(
-            h1, h2, lens, lines, True)
-        sort_key = ((lens <= 0).to(torch.int64) << 32) | (
-            h1.to(torch.int64) & 0xFFFFFFFF)
-        times = {}
-        times["fnv"] = (time_ms(torch, lambda: fnv.fnv(mat, lens), args.reps),
-                        time_ms(torch, lambda: fnv.fnv_reference(mat, lens),
-                                args.reps))
-        times["segfold"] = (
-            time_ms(torch, lambda: segfold.segfold(sh1, sh2, v, sinv),
-                    args.reps),
-            time_ms(torch, lambda: segfold.segfold_reference_torch(
-                sh1, sh2, v, sinv), args.reps))
-        prog = (time_ms(torch, lambda: lower.token_fold(mat, lens, lines,
-                                                        True), args.reps),
-                time_ms(torch, lambda: lower.token_fold(
-                    mat, lens, lines, True, hash_fn=fnv.fnv_reference,
-                    fold_fn=segfold.segfold_reference_torch), args.reps))
-        sort_ms = time_ms(torch, lambda: torch.sort(sort_key, stable=True),
-                          args.reps)
+        sizes = {"main": (mat, lens, lines),
+                 "2^22": random_batch(torch, dev, rng, 1 << 22, L)}
+        t0 = time.perf_counter()
+        times = {"fnv": {}, "segfold": {}}
+        for label, (m, ln, li) in sizes.items():
+            n = m.shape[0]
+            live_bytes = int(ln.clamp(0, L).sum())
+            low, high = fnv.fnv_sort_keys(m, ln, li)
+            perm, shigh = lower.sort_segments(low, high)
+            fold_args = (perm, shigh, low, m, ln, True)
+            k1 = timing(torch, lambda: fnv.fnv_sort_keys(m, ln, li),
+                        args.reps, K1_NAMES)
+            p1 = timing(torch, lambda: fnv.fnv_sort_keys_reference(m, ln, li),
+                        args.reps, launches=20 * L)
+            k2 = timing(torch, lambda: segfold.segfold_gather(*fold_args),
+                        args.reps, K2_NAMES, launches=2)
+            p2 = timing(torch, lambda: segfold.segfold_gather_reference(
+                *fold_args), args.reps, launches=60)
+            times["fnv"][label] = dict(
+                k1, plain=p1, shape=[n, L],
+                bound=bound_ms(n * L + 4 * n + 4 * n + 16 * n,
+                               4 * live_bytes))
+            times["segfold"][label] = dict(
+                k2, plain=p2, shape=[n],
+                bound=bound_ms(28 * n + n * L + 17 * n, 4 * n))
+            for name in ("fnv", "segfold"):
+                t = times[name][label]
+                log("{} at {}: {}".format(name, t["shape"], json.dumps(t)))
         for shape_L in (16, 32):
             m2 = torch.from_numpy(rng.randint(0, 256, size=(N, shape_L))
                                   .astype(np.uint8)).to(dev)
             l2 = torch.from_numpy(rng.randint(1, shape_L + 1, size=N)
                                   .astype(np.int32)).to(dev)
-            b_ms, _ = bound_ms(N * shape_L + 12 * N,
+            b_ms, _ = bound_ms(N * shape_L + 8 * N + 16 * N,
                                4 * int(l2.sum()))
-            log("fnv at [{}, {}]: {:.6f} ms (bound {:.6f} ms)".format(
-                N, shape_L, time_ms(torch, lambda: fnv.fnv(m2, l2),
-                                    args.reps), b_ms))
-        kbound = {
-            "fnv": bound_ms(N * L + 4 * N + 8 * N, 4 * live_bytes),
-            "segfold": bound_ms(16 * N + 5 * N, 4 * N),
-        }
-        pbound = bound_ms(N * L + 8 * N + 25 * N + 8, 4 * live_bytes)
+            t = timing(torch, lambda: fnv.fnv_sort_keys(m2, l2, lines),
+                       args.reps, K1_NAMES)
+            log("fnv at [{}, {}]: {} (bound {:.6f} ms)".format(
+                N, shape_L, json.dumps(t), b_ms))
+        prog = timing(torch, lambda: lower.token_fold(mat, lens, lines, True),
+                      args.reps, launches=30)
+        prog_plain = timing(torch, lambda: lower.token_fold(
+            mat, lens, lines, True, hash_fn=fnv.fnv_sort_keys_reference,
+            fold_fn=segfold.segfold_gather_reference), args.reps,
+            launches=30 + 20 * L + 60)
+        sort_key = fnv.fnv_sort_keys(mat, lens, lines)[1]
+        sort_ms = time_ms(torch, lambda: torch.sort(sort_key, stable=True),
+                          args.reps)
+        live_bytes = int(lens.clamp(0, L).sum())
+        pbound = bound_ms(N * L + 8 * N + 17 * N + 8, 4 * live_bytes)
         log(json.dumps({"programs": [{
             "name": "token_fold", "shape": [N, L], "tokens": ntok,
-            "ms": prog[0], "plain_ms": prog[1], "bound_ms": pbound[0],
+            "ms": prog["ms"], "device_ms": prog["device_ms"],
+            "host_ms": prog["host_ms"], "plain_ms": prog_plain["ms"],
+            "plain_device_ms": prog_plain["device_ms"],
+            "plain_host_ms": prog_plain["host_ms"], "bound_ms": pbound[0],
             "bound_by": pbound[1], "library_ms": sort_ms,
             "library_call": "torch.sort(int64 [N], stable=True)"}]}))
+        log("phase timings: {:.3f} s".format(time.perf_counter() - t0))
 
         # -- the main path end to end -------------------------------------
         t0 = time.perf_counter()
@@ -469,17 +683,34 @@ def main(argv=None):
         shutil.rmtree(workdir, ignore_errors=True)
 
     sources = {"fnv": ("dampr_tpu_torch/csrc/fnv.cu",
-                       "dampr_tpu/ops/pallas_fnv.py:94"),
+                       "dampr_tpu/ops/pallas_fnv.py:94",
+                       "fnv_sort_keys(mat, lens, lines)"),
                "segfold": ("dampr_tpu_torch/csrc/segfold.cu",
-                           "dampr_tpu/ops/pallas_segfold.py:262")}
+                           "dampr_tpu/ops/pallas_segfold.py:262",
+                           "segfold_gather(perm, shigh, low, mat, lens, "
+                           "dedup=True)")}
     kernels = []
     for name in ("fnv", "segfold"):
+        main_t, big_t = times[name]["main"], times[name]["2^22"]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
-            "max_abs_err": err[name], "ms": times[name][0],
-            "plain_ms": times[name][1], "bound_ms": kbound[name][0],
-            "bound_by": kbound[name][1], "library_ms": None})
+            "replaces": sources[name][1], "entry": sources[name][2],
+            "shape": main_t["shape"], "launches": launches[name],
+            "max_abs_err": err[name], "ms": main_t["ms"],
+            "device_ms": main_t["device_ms"], "host_ms": main_t["host_ms"],
+            "profiler_ms": main_t["profiler_ms"],
+            "plain_ms": main_t["plain"]["ms"],
+            "plain_device_ms": main_t["plain"]["device_ms"],
+            "plain_host_ms": main_t["plain"]["host_ms"],
+            "bound_ms": main_t["bound"][0], "bound_by": main_t["bound"][1],
+            "library_ms": None,
+            "at_2_22": {"shape": big_t["shape"], "ms": big_t["ms"],
+                        "device_ms": big_t["device_ms"],
+                        "host_ms": big_t["host_ms"],
+                        "profiler_ms": big_t["profiler_ms"],
+                        "plain_device_ms": big_t["plain"]["device_ms"],
+                        "bound_ms": big_t["bound"][0],
+                        "bound_by": big_t["bound"][1]}})
     log("card: " + card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

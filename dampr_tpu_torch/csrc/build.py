@@ -3,13 +3,16 @@
 Each ``csrc/*.cu`` source compiles on first use, with ``nvcc`` for
 ``sm_90a``, into its own shared library with a plain C interface, and
 loads through :mod:`ctypes`.  Pointers cross as ``data_ptr()`` ints and
-the stream as ``torch.cuda.current_stream().cuda_stream``; every entry
-point returns ``cudaGetLastError()`` after its launches.  No PyTorch
-header is compiled, so a build takes seconds, not minutes.
+the stream as the current stream's raw handle (what
+``torch.cuda.current_stream().cuda_stream`` gives, read without building a
+Stream object); every entry point returns ``cudaGetLastError()`` after its
+launches.  No PyTorch header is compiled, so a build takes seconds, not
+minutes.
 
 Libraries land in ``csrc/_build/`` (gitignored) under a name keyed by a
-hash of the source and the flags: an edited source rebuilds, an unchanged
-one loads the cached library.  :func:`build_all` starts one ``nvcc`` per
+hash of the source, the shared ``csrc/*.cuh`` headers and the flags: an
+edited source or header rebuilds, an unchanged one loads the cached
+library.  :func:`build_all` starts one ``nvcc`` per
 source at once, so a cold start costs the slowest file, not the sum.
 
 Importing this module builds nothing and never touches CUDA.
@@ -46,6 +49,12 @@ def _nvcc():
                        "CUDA toolkit's bin/ on PATH")
 
 
+def _headers():
+    """The shared ``csrc/*.cuh`` headers, which any source may include."""
+    return sorted(os.path.join(_HERE, f) for f in os.listdir(_HERE)
+                  if f.endswith(".cuh"))
+
+
 class Kernel(object):
     """One ``csrc`` source: its build, its loaded entry point, and the
     count of its launches (the main path's proof that it ran)."""
@@ -60,8 +69,10 @@ class Kernel(object):
 
     def _paths(self):
         src = os.path.join(_HERE, self.source)
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read())
+        digest = hashlib.sha256()
+        for path in [src] + _headers():
+            with open(path, "rb") as f:
+                digest.update(f.read())
         digest.update(" ".join(NVCC_FLAGS).encode())
         stem = os.path.splitext(self.source)[0]
         lib = os.path.join(BUILD_DIR, "lib{}-{}.so".format(
@@ -105,10 +116,21 @@ class Kernel(object):
                     self._fn = f
         return self._fn
 
-    def launch(self, *args):
-        """Call the entry point (which launches on the given stream) and
-        count the launch; raise on any CUDA error it reports."""
-        err = self.fn()(*args)
+    def launch(self, device, *args):
+        """Call the entry point with ``args`` and the current stream of
+        ``device`` (a tensor's device, so its index is set; made the
+        current device only when it is not already), count the launch,
+        and raise on any CUDA error it reports."""
+        import torch
+
+        fn = self.fn()
+        index = device.index
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        if index != torch.cuda.current_device():
+            with torch.cuda.device(index):
+                err = fn(*args, stream)
+        else:
+            err = fn(*args, stream)
         with self._lock:
             self.launches += 1
         if err != 0:

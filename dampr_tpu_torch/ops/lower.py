@@ -9,9 +9,10 @@ windows through :func:`token_fold` instead of the host codec:
   (:mod:`.text`), per-line ids, and the padded token byte matrix, written
   straight into pinned buffers for the next batch while the previous
   batch's program runs (double buffering);
-- **device**: :func:`token_fold` — the FNV kernel (:mod:`.fnv`), a stable
-  ``(inv, h1, h2[, line])`` sort, per-line first-occurrence dedup, the
-  segmented-fold kernel (:mod:`.segfold`), segment representatives and a
+- **device**: :func:`token_fold` — the FNV kernel writing the sort keys
+  (:mod:`.fnv`), a stable ``(inv, h1, h2[, line])`` sort, then the
+  segmented-fold kernel (:mod:`.segfold`) in one pass: per-line
+  first-occurrence dedup, segment totals, segment representatives and a
   byte-exact collision check;
 - **host (drain)**: wait for the batch, decode the vocabulary-sized
   survivors' strings, build the partial-count Block the fold consumes.
@@ -82,64 +83,29 @@ def token_fold(mat, lens, lines, dedup, hash_fn=None, fold_fn=None):
     ``(sh1, sh2, tot, live, rep_orig, collisions)`` — the sorted hash
     lanes (int32 bit patterns), segment totals at segment ends (int32),
     the live-end mask (bool), each position's segment representative as
-    an original row index (int64), and the count of valid tokens whose
+    an original row index (int32), and the count of valid tokens whose
     bytes differ from their representative's (0-d int64).
 
     ``mat`` uint8 [n, L], ``lens`` int32 [n] (0 marks a pad row), ``lines``
     int32 [n] (< 2^31; read only when ``dedup``).  ``hash_fn``/``fold_fn``
-    default to the kernels (:func:`.fnv.fnv`, :func:`.segfold.segfold`);
-    the card check passes their plain versions instead."""
-    hash_fn = hash_fn or _fnv.fnv
-    fold_fn = fold_fn or _segfold.segfold
-    h1, h2 = hash_fn(mat, lens)
-    perm, sh1, sh2, sinv, v, start_pos = sort_segments(h1, h2, lens, lines,
-                                                       dedup)
-    tot, live = fold_fn(sh1, sh2, v, sinv)
-
-    # collision check: every token's bytes equal its segment rep's
-    smat = mat[perm]
-    slens = lens[perm]
-    same = ((slens == slens[start_pos])
-            & (smat == smat[start_pos]).all(dim=1))
-    collisions = ((sinv == 0) & ~same).sum()
-    rep_orig = perm[start_pos]
-    return sh1, sh2, tot, live, rep_orig, collisions
+    default to the kernels' fused entries (:func:`.fnv.fnv_sort_keys`,
+    :func:`.segfold.segfold_gather`); the card check passes their plain
+    versions instead."""
+    hash_fn = hash_fn or _fnv.fnv_sort_keys
+    fold_fn = fold_fn or _segfold.segfold_gather
+    low, high = hash_fn(mat, lens, lines if dedup else None)
+    perm, shigh = sort_segments(low, high)
+    return fold_fn(perm, shigh, low, mat, lens, dedup)
 
 
-def sort_segments(h1, h2, lens, lines, dedup):
-    """The sort stage of :func:`token_fold`: ``(perm, sh1, sh2, sinv, v,
-    start_pos)`` — the sorting permutation, the sorted lanes and validity
-    (int32; the segmented fold's inputs), each record's contribution
-    ``v``, and each position's segment start."""
-    n = h1.shape[0]
-    dev = h1.device
-    # Stable sort by (inv, h1, h2[, line]) in UNSIGNED lane order, ties by
-    # original index: two stable passes (least significant keys first)
-    # over int64 keys holding the unsigned values.
-    inv = (lens <= 0).to(torch.int64)
-    u1 = h1.to(torch.int64) & 0xFFFFFFFF
-    u2 = h2.to(torch.int64) & 0xFFFFFFFF
-    if dedup:
-        low = (u2 << 31) | lines.to(torch.int64)
-    else:
-        low = u2
+def sort_segments(low, high):
+    """The sort stage of :func:`token_fold`: the permutation that orders
+    the rows by ``(high, low)``, ties by row — ``(inv, h1, h2[, line])``
+    in unsigned lane order — and the high keys in that order.  torch has
+    no multi-key sort: two stable passes, least significant key first."""
     _, p = torch.sort(low, stable=True)
-    _, q = torch.sort(((inv << 32) | u1)[p], stable=True)
-    perm = p[q]
-
-    sinv = inv[perm].to(torch.int32)
-    sh1 = h1[perm]
-    sh2 = h2[perm]
-    starts = _segfold.adj_new(sinv, sh1, sh2)
-    if dedup:
-        # first occurrence of (token, line) contributes 1
-        v = (_segfold.adj_new(sinv, sh1, sh2, lines[perm])
-             & (sinv == 0)).to(torch.int32)
-    else:
-        v = (sinv == 0).to(torch.int32)
-    pos = torch.arange(n, device=dev)
-    start_pos = torch.cummax(torch.where(starts, pos, -1), 0).values
-    return perm, sh1, sh2, sinv, v, start_pos
+    shigh, q = torch.sort(high[p], stable=True)
+    return p[q], shigh
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +277,6 @@ class DeviceTokenFoldSink(object):
                 mat, lens_d, lines_d = (t.to(self.device, non_blocking=True)
                                         for t in inputs)
                 res = token_fold(mat, lens_d, lines_d, self.dedup)
-                res = res[:4] + (res[4].to(torch.int32), res[5])
                 out = []
                 for r in res:
                     h = self._host_buffer(r.shape, r.dtype)

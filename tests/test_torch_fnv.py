@@ -97,6 +97,85 @@ class TestFnvParity:
             assert port_hashing._len_bucket(n) == ref_hashing._len_bucket(n)
 
 
+def _pr1_sort_keys(mat, lens, lines):
+    """The two int64 sort keys as the token fold built them in torch
+    before the FNV kernel wrote them (from the reference's numpy lanes)."""
+    h1, h2 = ref_hashing._fnv_numpy(mat, lens)
+    inv = (lens <= 0).astype(np.int64)
+    u1, u2 = h1.astype(np.int64), h2.astype(np.int64)
+    low = u2 if lines is None else (u2 << 31) | lines.astype(np.int64)
+    return low, (inv << 32) | u1
+
+
+class TestFnvSortKeys:
+    @pytest.mark.parametrize("dedup", [False, True])
+    @pytest.mark.parametrize("case", CASES + ["lens_past_width"])
+    def test_keys_match_pr1_keys_and_reference_lanes(self, case, dedup):
+        if case == "lens_past_width":
+            rng = np.random.RandomState(3)
+            mat = rng.randint(0, 256, size=(300, 16)).astype(np.uint8)
+            lens = rng.randint(-4, 40, size=300).astype(np.int32)
+        else:
+            mat, lens = _case(case)
+        rng = np.random.RandomState(len(lens))
+        lines = (np.sort(rng.randint(0, 2 ** 31, size=len(lens)))
+                 .astype(np.int32) if dedup else None)
+        low, high = port_fnv.fnv_sort_keys(
+            torch.from_numpy(mat), torch.from_numpy(lens.astype(np.int32)),
+            torch.from_numpy(lines) if dedup else None)
+        low, high = low.numpy(), high.numpy()
+        want_low, want_high = _pr1_sort_keys(mat, lens, lines)
+        np.testing.assert_array_equal(low, want_low)
+        np.testing.assert_array_equal(high, want_high)
+        # the lanes inside the keys are the JAX package's lanes
+        u1 = (high & 0xFFFFFFFF).astype(np.uint32)
+        u2 = ((low >> 31) if dedup else low).astype(np.uint32)
+        j1, j2 = ref_hashing._fnv_jit()(mat, lens)
+        np.testing.assert_array_equal(u1, np.asarray(j1))
+        np.testing.assert_array_equal(u2, np.asarray(j2))
+        k1, k2 = fnv_pallas(mat, lens, interpret=True)
+        np.testing.assert_array_equal(u1, k1)
+        np.testing.assert_array_equal(u2, k2)
+        np.testing.assert_array_equal(high >> 32, (lens <= 0))
+        if dedup:
+            np.testing.assert_array_equal(low & 0x7FFFFFFF, lines)
+
+    @pytest.mark.parametrize("dedup", [False, True])
+    def test_pack_and_unpack_sort_keys_round_trip(self, dedup):
+        """The packing helpers invert each other over the whole range of
+        each field: lanes of 0 and 2^32 - 1, lines of 0 and 2^31 - 1."""
+        rng = np.random.RandomState(11)
+        n = 1000
+        u1 = rng.randint(0, 1 << 32, size=n, dtype=np.uint64)
+        u2 = rng.randint(0, 1 << 32, size=n, dtype=np.uint64)
+        u1[:2], u2[:2] = (0, 2 ** 32 - 1), (2 ** 32 - 1, 0)
+        inv = rng.rand(n) < 0.3
+        lines = rng.randint(0, 2 ** 31, size=n).astype(np.int32)
+        lines[:2] = (0, 2 ** 31 - 1)
+        t = {k: torch.from_numpy(x.astype(np.int64)) for k, x in
+             (("u1", u1), ("u2", u2), ("inv", inv))}
+        low, high = port_fnv.pack_sort_keys(
+            t["u1"], t["u2"], t["inv"],
+            torch.from_numpy(lines) if dedup else None)
+        want_low, want_high = (
+            (u2.astype(np.int64) << 31) | lines if dedup
+            else u2.astype(np.int64)), ((inv.astype(np.int64) << 32)
+                                        | u1.astype(np.int64))
+        np.testing.assert_array_equal(low.numpy(), want_low)
+        np.testing.assert_array_equal(high.numpy(), want_high)
+        g1, g2, ginv = port_fnv.unpack_sort_keys(low, high, dedup)
+        np.testing.assert_array_equal(g1.numpy(), u1.astype(np.int64))
+        np.testing.assert_array_equal(g2.numpy(), u2.astype(np.int64))
+        np.testing.assert_array_equal(ginv.numpy(), inv.astype(np.int64))
+
+    def test_empty_matrix(self):
+        low, high = port_fnv.fnv_sort_keys(
+            torch.zeros((0, 8), dtype=torch.uint8),
+            torch.zeros(0, dtype=torch.int32))
+        assert low.shape == (0,) and high.shape == (0,)
+        assert low.dtype == torch.int64 and high.dtype == torch.int64
+
+
 def _mixed_keys(kind, n, seed):
     rng = np.random.RandomState(seed)
     ints = rng.randint(-2 ** 62, 2 ** 62, size=n, dtype=np.int64)

@@ -19,7 +19,8 @@ _FORBIDDEN = re.compile(
 
 
 def _port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
+                                           "time_first_port.py")]
     for d, _dirs, files in os.walk(os.path.join(ROOT, "dampr_tpu_torch")):
         out.extend(os.path.join(d, f) for f in files if f.endswith(".py"))
     return sorted(out)
@@ -93,9 +94,14 @@ def test_wrappers_refuse_devices_they_have_no_kernel_for():
     lens = torch.empty(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fnv.fnv(mat, lens)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fnv.fnv_sort_keys(mat, lens, lens)
     lane = torch.empty(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         segfold.segfold(lane, lane, lane, lane)
+    key = torch.empty(4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        segfold.segfold_gather(key, key, key, mat, lens, True)
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):

@@ -79,6 +79,46 @@ def _assert_six_equal(mat, lens, lines, dedup, pallas=False):
     return int(collisions)
 
 
+def _reference_stages(mat, lens, lines, dedup):
+    """The reference program's sort, dedup and segment-start expressions
+    (dampr_tpu/ops/lower.py:117-149), evaluated with JAX as written
+    there, on its own FNV lanes."""
+    import jax.numpy as jnp
+    from jax import lax
+
+    from dampr_tpu.ops import hashing as ref_hashing
+
+    n = mat.shape[0]
+    h1, h2 = (jnp.asarray(x) for x in ref_hashing._fnv_jit()(mat, lens))
+    lens, lines = jnp.asarray(lens), jnp.asarray(lines)
+    inv = jnp.where(lens > 0, 0, 1).astype(jnp.int32)
+    iota = jnp.arange(n, dtype=jnp.int32)
+    if dedup:
+        sorted_ = lax.sort((inv, h1, h2, lines.astype(jnp.int32), iota),
+                           num_keys=4, is_stable=True)
+    else:
+        sorted_ = lax.sort((inv, h1, h2, iota), num_keys=3, is_stable=True)
+    sinv, sh1, sh2 = sorted_[0], sorted_[1], sorted_[2]
+
+    def adj_new(*lanes):
+        out = jnp.ones((n,), dtype=bool)
+        neq = jnp.zeros((n - 1,), dtype=bool)
+        for lane in lanes:
+            neq = neq | (lane[1:] != lane[:-1])
+        return out.at[1:].set(neq)
+
+    starts = adj_new(sinv, sh1, sh2)
+    if dedup:
+        v = jnp.where(adj_new(sinv, sh1, sh2, sorted_[3]) & (sinv == 0),
+                      1, 0).astype(jnp.int32)
+    else:
+        v = jnp.where(sinv == 0, 1, 0).astype(jnp.int32)
+    pos = jnp.arange(n, dtype=jnp.int32)
+    start_pos = lax.cummax(jnp.where(starts, pos, -1), axis=0)
+    return {"perm": np.asarray(sorted_[-1]), "sinv": np.asarray(sinv),
+            "v": np.asarray(v), "start_pos": np.asarray(start_pos)}
+
+
 CASES = [("word", True, 1, False), ("whitespace", False, 2, False),
          ("word", True, 3, True), ("whitespace", True, 4, True)]
 
@@ -112,21 +152,55 @@ class TestTokenFoldParity:
         assert mat.shape[0] == 8192
         _assert_six_equal(mat, lens, lines, False, pallas=True)
 
+    @pytest.mark.parametrize("dedup", [True, False])
+    @pytest.mark.parametrize("case", range(len(CASES)))
+    def test_sort_stage_matches_reference_expressions(self, case, dedup):
+        """perm, sinv, the contribution v, start_pos and the representatives
+        of the port's fused stages equal the reference program's
+        expressions (dampr_tpu/ops/lower.py:117-149), evaluated with JAX on
+        the same batch; the replica is tied to ``_token_fold_jit`` through
+        the rep_orig it gives."""
+        mode, lower, seed, exotic = CASES[case]
+        mat, lens, lines = _padded(_corpus(seed, exotic=exotic), mode, lower,
+                                   dedup)
+        ref = _reference_stages(mat, lens, lines, dedup)
+        n, L = mat.shape
+        prog = ref_lower._token_fold_jit(n, L, dedup, False, True)(
+            mat, lens, lines)
+        np.testing.assert_array_equal(ref["perm"][ref["start_pos"]],
+                                      np.asarray(prog[4]))
+
+        from dampr_tpu_torch.ops import fnv as port_fnv
+        from dampr_tpu_torch.ops import segfold as port_segfold
+
+        m, ln, li = interop.program_inputs(mat, lens, lines, "cpu")
+        low, high = port_fnv.fnv_sort_keys(m, ln, li if dedup else None)
+        perm, shigh = port_lower.sort_segments(low, high)
+        rep_orig = port_segfold.segfold_gather(perm, shigh, low, m, ln,
+                                               dedup)[4]
+        starts, v = port_segfold.segment_marks(shigh, low[perm], dedup)
+        start_pos = port_segfold.start_positions(starts)
+        np.testing.assert_array_equal(perm.numpy(), ref["perm"])
+        np.testing.assert_array_equal((shigh >> 32).numpy(), ref["sinv"])
+        np.testing.assert_array_equal(v.numpy(), ref["v"])
+        np.testing.assert_array_equal(start_pos.numpy(), ref["start_pos"])
+        np.testing.assert_array_equal(rep_orig.numpy(), np.asarray(prog[4]))
+
     def test_custom_kernels_are_injected(self):
         """hash_fn/fold_fn select what runs (the card check passes the
         plain versions explicitly)."""
         mat, lens, lines = _padded(_corpus(8), "word", True, True)
         calls = []
 
-        def hash_fn(m, ln):
+        def hash_fn(*a):
             calls.append("hash")
-            from dampr_tpu_torch.ops.fnv import fnv_reference
-            return fnv_reference(m, ln)
+            from dampr_tpu_torch.ops.fnv import fnv_sort_keys_reference
+            return fnv_sort_keys_reference(*a)
 
         def fold_fn(*a):
             calls.append("fold")
-            from dampr_tpu_torch.ops.segfold import segfold_reference_torch
-            return segfold_reference_torch(*a)
+            from dampr_tpu_torch.ops.segfold import segfold_gather_reference
+            return segfold_gather_reference(*a)
 
         port_lower.token_fold(*interop.program_inputs(mat, lens, lines,
                                                       "cpu"),
