@@ -35,7 +35,19 @@ the kernels build for sm_90a).  Phases, each of which must pass:
    ``Dampr.text(...).custom_mapper(...).fold_values(operator.add)``, held
    exactly against a pure-Python Counter oracle, plus a ``sink_tsv``
    readback; launch counters are zeroed just before and read just after,
-   and every kernel must have launched.
+   and every kernel must have launched;
+8. ``tfidf``: the TF-IDF benchmark's pipeline verbatim
+   (``bench_tfidf.py:135-147``: DocFreq -> ``fold_values`` ->
+   ``cross_right(docs.len(), idf, memory=True)`` -> ``sink_tsv``) on the
+   same corpus, every sink line byte-equal to
+   ``"{w}\t{df}\t{log(1 + lines / df)}"`` from the oracle; the DocFreq
+   stage must lower and both kernels must launch in this run;
+9. ``joins``: (a) the TokenCounts and DocFreq fold outputs of the corpus,
+   each filtered by its count, joined by word (inner, left, outer) against
+   a dict oracle; (b) 2^20 and 2^19 seeded integer keys (half shared,
+   repeated) grouped into 4 partitions, so each side's GroupedView sorts
+   more than 65,536 records on the card, joined three ways against a
+   dict oracle, and ``len()`` against ``len(list)``.
 
 Every tolerance is exact: all outputs are integers or bytes.  Prints a
 ``{"kernels": [...]}`` JSON line second to last and
@@ -46,6 +58,7 @@ result, if there is no card or any phase fails.
 import argparse
 import collections
 import json
+import math
 import operator
 import os
 import re
@@ -206,16 +219,19 @@ def make_corpus(path, mb, seed):
 
 
 def oracle(path):
-    """Pure-Python token counts and document frequencies (per line)."""
+    """Pure-Python token counts, document frequencies (per line) and the
+    line count."""
     rx = re.compile(r"[^\w]+")
     tc = collections.Counter()
     df = collections.Counter()
+    n_lines = 0
     with open(path) as f:
         for line in f:
             toks = [t for t in rx.split(line.rstrip("\n").lower()) if t]
             tc.update(toks)
             df.update(set(toks))
-    return tc, df
+            n_lines += 1
+    return tc, df, n_lines
 
 
 def exact(torch, a, b):
@@ -475,6 +491,156 @@ def run_pipeline(Dampr, scanner, path, chunk):
     return em
 
 
+def stage_seconds(stats):
+    return [(s["kind"], s["op"], s["seconds"]) for s in stats["stages"]]
+
+
+def part_lines(d):
+    out = []
+    for part in sorted(os.listdir(d)):
+        with open(os.path.join(d, part)) as f:
+            out.extend(f.read().splitlines())
+    return sorted(out)
+
+
+def phase_tfidf(Dampr, DocFreq, kernels, corpus, chunk, nbytes, df, n_lines,
+                out_dir):
+    """The TF-IDF benchmark's pipeline (``bench_tfidf.py:135-147``) on the
+    port, every sink line held against the oracle; kernel counters are
+    zeroed just before the run and read just after."""
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    docs = Dampr.text(corpus, chunk)
+    doc_freq = (docs.custom_mapper(
+        DocFreq(mode="word", lower=True, pair_values=False))
+        .fold_values(operator.add))
+    idf = doc_freq.cross_right(
+        docs.len(),
+        lambda df, total: (df[0], df[1],
+                           math.log(1 + (float(total) / df[1]))),
+        memory=True)
+    em = idf.sink_tsv(out_dir).run(name="chip-tfidf")
+    secs = time.perf_counter() - t0
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    stats = em.stats()
+    dstat = stats["device"]
+    got = part_lines(out_dir)
+    want = sorted("{}\t{}\t{}".format(w, c, math.log(1 + float(n_lines) / c))
+                  for w, c in df.items())
+    check(got == want, "TF-IDF sink lines differ from the oracle "
+                       "({} lines against {})".format(len(got), len(want)))
+    check(dstat["device_stages"] >= 1, "TF-IDF: no stage lowered")
+    for name, count in launches.items():
+        check(count > 0, "kernel {} never launched in the TF-IDF run"
+              .format(name))
+    run = {"pipeline": "tfidf", "seconds": secs,
+           "mb_per_s": nbytes / 1e6 / secs, "lines": n_lines,
+           "sink_lines": len(got),
+           "device_stages": dstat["device_stages"],
+           "device_fraction": dstat["device_fraction"],
+           "stream_fraction": dstat["stream_fraction"],
+           "host_phase_seconds": dstat["host_phase_seconds"],
+           "combine_seconds": stats["combine_seconds"],
+           "stage_seconds": stage_seconds(stats),
+           "batches": dstat["batches"], "fallbacks": dstat["fallbacks"],
+           "h2d_bytes": dstat["h2d_bytes"], "d2h_bytes": dstat["d2h_bytes"],
+           "kernels": launches}
+    log("e2e " + json.dumps(run))
+    return launches
+
+
+def _join_keys(left, right, how):
+    """The keys an ``how`` join of two dicts' keys reads back, sorted."""
+    keys = set(left) & set(right)
+    if how != "inner":
+        keys |= set(left)
+    if how == "outer":
+        keys |= set(right)
+    return sorted(keys)
+
+
+def _run_joins(Dampr, left, right, joiner, **run_args):
+    """Inner, left and outer joins of two grouped collections in one run;
+    returns ({how: records}, seconds, the run's stats)."""
+    j = left.join(right)
+    t0 = time.perf_counter()
+    ems = Dampr.run(j.reduce(joiner), j.left_reduce(joiner),
+                    j.outer_reduce(joiner), **run_args)
+    out = {how: em.read() for how, em in zip(("inner", "left", "outer"),
+                                              ems)}
+    secs = time.perf_counter() - t0
+    stats = ems[0].stats()
+    for em in ems:
+        em.delete()
+    return out, secs, stats
+
+
+def phase_joins(Dampr, Map, DocFreq, TokenCounts, corpus, chunk, tc, df,
+                seed):
+    """Keyed joins: words of the corpus, then seeded integer keys at a
+    size whose grouped views sort on the card."""
+    import numpy as np
+
+    # (a) the two fold outputs of the corpus, each filtered by its count
+    def fold(scanner):
+        return (Dampr.text(corpus, chunk).custom_mapper(scanner)
+                .fold_values(operator.add))
+
+    left = fold(TokenCounts(mode="word", lower=True, pair_values=False)) \
+        .custom_mapper(Map(lambda k, v: [(k, v)] if v[1] % 2 == 0 else []))
+    right = fold(DocFreq(mode="word", lower=True, pair_values=False)) \
+        .custom_mapper(Map(lambda k, v: [(k, v)] if v[1] % 3 else []))
+    out, secs, stats = _run_joins(
+        Dampr, left, right,
+        lambda l, r: ([v[1] for v in l], [v[1] for v in r]))
+    lw = {w: [c] for w, c in tc.items() if c % 2 == 0}
+    rw = {w: [c] for w, c in df.items() if c % 3}
+    for how, got in out.items():
+        want = [(w, (lw.get(w, []), rw.get(w, [])))
+                for w in _join_keys(lw, rw, how)]
+        check(got == want,
+              "word {} join differs from the dict oracle".format(how))
+    log("joins-words " + json.dumps({
+        "seconds": secs, "left_keys": len(lw), "right_keys": len(rw),
+        "records": {h: len(v) for h, v in out.items()},
+        "stage_seconds": stage_seconds(stats)}))
+
+    # (b) integer keys: half of each side's distinct keys shared, drawn
+    # with repeats; 4 partitions put over 65,536 records in every view
+    rng = np.random.RandomState(seed)
+    n_left, n_right = 1 << 20, 1 << 19
+    pool = rng.permutation(1 << 24)[:3 << 18].astype(np.int64) - (1 << 23)
+    shared, l_only, r_only = np.split(pool, 3)
+    lkeys = rng.choice(np.concatenate([shared, l_only]), n_left).tolist()
+    rkeys = rng.choice(np.concatenate([shared, r_only]), n_right).tolist()
+    lmem = Dampr.memory(lkeys)
+    t0 = time.perf_counter()
+    out, secs, stats = _run_joins(
+        Dampr, lmem.group_by(lambda x: x),
+        Dampr.memory(rkeys).group_by(lambda x: x),
+        lambda l, r: (sum(1 for _ in l), sum(1 for _ in r)), n_partitions=4)
+    cl = collections.Counter(lkeys)
+    cr = collections.Counter(rkeys)
+    for how, got in out.items():
+        want = [(k, (cl.get(k, 0), cr.get(k, 0)))
+                for k in _join_keys(cl, cr, how)]
+        check(got == want,
+              "integer {} join differs from the dict oracle".format(how))
+    t1 = time.perf_counter()
+    n = lmem.len().read()
+    len_secs = time.perf_counter() - t1
+    check(n == [n_left], "len() {} != {}".format(n, n_left))
+    log("joins-ints " + json.dumps({
+        "seconds": secs, "len_seconds": len_secs,
+        "left_records": n_left, "right_records": n_right,
+        "left_keys": len(cl), "right_keys": len(cr),
+        "shared_keys": len(set(cl) & set(cr)), "partitions": 4,
+        "records": {h: len(v) for h, v in out.items()},
+        "stage_seconds": stage_seconds(stats),
+        "phase_seconds": time.perf_counter() - t0}))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mb", type=int, default=128,
@@ -490,7 +656,7 @@ def main(argv=None):
               "(torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     try:
-        from dampr_tpu_torch import Dampr, settings
+        from dampr_tpu_torch import Dampr, Map, settings
         from dampr_tpu_torch.csrc import build
         from dampr_tpu_torch.ops import fnv, lower, segfold
         from dampr_tpu_torch.ops.text import DocFreq, TokenCounts
@@ -604,7 +770,7 @@ def main(argv=None):
 
         # -- the main path end to end -------------------------------------
         t0 = time.perf_counter()
-        tc, df = oracle(corpus)
+        tc, df, n_lines = oracle(corpus)
         log("phase oracle: {} distinct tokens in {:.3f} s".format(
             len(tc), time.perf_counter() - t0))
         chunk = os.path.getsize(corpus) // 8 + 1
@@ -633,8 +799,7 @@ def main(argv=None):
                          "stream_fraction": dstat["stream_fraction"],
                          "host_phase_seconds": dstat["host_phase_seconds"],
                          "combine_seconds": stats["combine_seconds"],
-                         "stage_seconds": [(s["kind"], s["seconds"])
-                                           for s in stats["stages"]],
+                         "stage_seconds": stage_seconds(stats),
                          "batches": dstat["batches"],
                          "fallbacks": dstat["fallbacks"],
                          "h2d_bytes": dstat["h2d_bytes"],
@@ -671,14 +836,26 @@ def main(argv=None):
         (Dampr.text(corpus, chunk)
          .custom_mapper(DocFreq(mode="word", lower=True, pair_values=False))
          .fold_values(operator.add).sink_tsv(sink_dir).run(name="chip-sink"))
-        lines_out = []
-        for part in sorted(os.listdir(sink_dir)):
-            with open(os.path.join(sink_dir, part)) as f:
-                lines_out.extend(f.read().splitlines())
-        check(sorted(lines_out) == sorted(
+        check(part_lines(sink_dir) == sorted(
             "{}\t{}".format(k, c) for k, c in df.items()),
             "sink_tsv lines differ from the oracle")
         log("phase e2e: DocFreq and TokenCounts exact; sink_tsv exact")
+
+        # -- the TF-IDF benchmark's pipeline --------------------------------
+        t0 = time.perf_counter()
+        tfidf_launches = phase_tfidf(Dampr, DocFreq, KERNELS, corpus, chunk,
+                                     nbytes, df, n_lines,
+                                     os.path.join(workdir, "idf"))
+        log("phase tfidf: {} sink lines exact, DocFreq lowered, both "
+            "kernels launched, in {:.3f} s".format(
+                len(df), time.perf_counter() - t0))
+
+        # -- keyed joins ------------------------------------------------------
+        t0 = time.perf_counter()
+        phase_joins(Dampr, Map, DocFreq, TokenCounts, corpus, chunk, tc, df,
+                    args.seed)
+        log("phase joins: words and integer keys exact, in {:.3f} s".format(
+            time.perf_counter() - t0))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -696,6 +873,7 @@ def main(argv=None):
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "entry": sources[name][2],
             "shape": main_t["shape"], "launches": launches[name],
+            "launches_tfidf": tfidf_launches[name],
             "max_abs_err": err[name], "ms": main_t["ms"],
             "device_ms": main_t["device_ms"], "host_ms": main_t["host_ms"],
             "profiler_ms": main_t["profiler_ms"],

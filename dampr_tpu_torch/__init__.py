@@ -6,24 +6,44 @@ the JAX package's two Pallas kernels are hand-written CUDA C++ for Hopper
 (``csrc/fnv.cu``, ``csrc/segfold.cu``), built with ``nvcc`` on first use.
 It imports neither ``jax`` nor ``dampr_tpu``.
 
-This slice runs the main path — text -> token-count / doc-freq scanner ->
-sum fold -> read / sink_tsv — lowered onto the card::
+The port runs the TF-IDF benchmark's pipeline, with the scanner -> sum
+fold edge lowered onto the card::
 
-    >>> import operator
+    >>> import math, operator
     >>> from dampr_tpu_torch import Dampr
     >>> from dampr_tpu_torch.ops.text import DocFreq
-    >>> (Dampr.text("corpus.txt")
-    ...  .custom_mapper(DocFreq(mode="word", lower=True, pair_values=False))
-    ...  .fold_values(operator.add).read())            # doctest: +SKIP
+    >>> docs = Dampr.text("corpus.txt")
+    >>> df = (docs.custom_mapper(DocFreq(mode="word", lower=True,
+    ...                                  pair_values=False))
+    ...       .fold_values(operator.add))
+    >>> idf = df.cross_right(docs.len(), lambda d, total: (
+    ...     d[0], d[1], math.log(1 + float(total) / d[1])), memory=True)
+    >>> idf.sink_tsv("idf").run()                       # doctest: +SKIP
 """
 
 import logging
 
+from .base import (BlockMapper, BlockReducer, Map, Mapper, Reduce, Reducer,
+                   StreamMapper, StreamReducer, Streamable)
 from .blocks import Block, BlockBuilder
-from .dampr import ARReduce, Dampr, PBase, PMap, RunStats, ValueEmitter
+from .dampr import (ARReduce, Dampr, PBase, PJoin, PMap, PReduce, RunStats,
+                    ValueEmitter)
+from .dataset import (BlockDataset, CatDataset, Chunker, Dataset,
+                      EmptyDataset, MemoryDataset, TextLineDataset)
+from .graph import Graph, Source
+from .inputs import MemoryInput, PathInput, TextInput
 from .runner import MTRunner
 
-__all__ = ["Dampr", "PBase", "PMap", "ARReduce", "ValueEmitter", "RunStats",
-           "MTRunner", "Block", "BlockBuilder"]
+__all__ = [
+    "Dampr", "PBase", "PMap", "PReduce", "PJoin", "ARReduce", "ValueEmitter",
+    "RunStats",
+    "Mapper", "Streamable", "Map", "BlockMapper", "StreamMapper",
+    "Reducer", "Reduce", "BlockReducer", "StreamReducer",
+    "Graph", "Source", "MTRunner",
+    "Dataset", "Chunker", "EmptyDataset", "MemoryDataset", "TextLineDataset",
+    "CatDataset", "BlockDataset",
+    "MemoryInput", "PathInput", "TextInput",
+    "Block", "BlockBuilder",
+]
 
 logging.getLogger("dampr_tpu_torch").addHandler(logging.NullHandler())

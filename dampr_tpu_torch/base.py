@@ -1,17 +1,108 @@
 """Mapper / reducer building blocks of the DSL.
 
-Port of the parts of ``dampr_tpu/base.py`` the slice's path uses: the
-``Mapper``/``Reducer`` interfaces, ``Map`` and its identity, the typed
-record ops ``ValueMap`` (``map``) and ``Rekey`` (``fold_by``), the
-key-sorted :class:`GroupedView`, the
-associative-fold reducer behind ``ARReduce.reduce``, and the map-side
-combiner descriptor.  Joins, stream reducers, fused (composed) mappers
-and the batched-UDF lowering of record ops are later slices.
+Port of ``dampr_tpu/base.py`` minus the out-of-core views: the
+``Mapper``/``Streamable``/``Reducer`` interfaces, ``Map`` and its
+identity, the typed record ops ``ValueMap`` (``map``) and ``Rekey``
+(``group_by``/``fold_by``), the lifecycle and whole-partition operators
+(``BlockMapper``, ``StreamMapper``, ``BlockReducer``, ``StreamReducer``,
+``Reduce``), the map-side crosses (``MapCrossJoin``, ``MapAllJoin``), the
+sort-merge joins, the key-sorted :class:`GroupedView`, the associative-fold
+reducer behind ``ARReduce.reduce`` and the map-side combiner descriptor.
+
+The runner clones an operator per job (``copy.deepcopy``).  Lifecycle
+operators and unknown user subclasses are copied, so concurrent jobs never
+share their state; the stateless wrappers share themselves through
+:func:`_shared_instance_deepcopy`, so a user callable is never descended
+into unless it is a callable *object* with instance state.
+
+The streaming (over-budget) grouped view and merge join and the
+batched-UDF lowering of record ops are later slices.
 """
+
+import copy
+import functools
+import logging
+import threading
+import types
 
 import numpy as np
 
 from .ops import segment
+
+log = logging.getLogger("dampr_tpu_torch.base")
+
+#: Callables always safe to share by reference: plain functions, builtins
+#: and classes deep-copy atomically, and a closure's captured state is the
+#: user's explicit choice.  Bound methods are not here: deepcopy copies
+#: their ``__self__``.
+_ATOMIC_CALLABLE_TYPES = (types.FunctionType, types.BuiltinFunctionType,
+                          types.BuiltinMethodType, type)
+
+_share_warned = set()
+_share_warned_lock = threading.Lock()
+
+
+def _stateful_callable(v, _depth=0):
+    """Is ``v`` a callable *object* with per-instance state (held
+    directly, in a ``functools.partial``, as a bound method's receiver, or
+    one or two levels down a list/tuple/dict)?  Shared across concurrent
+    jobs it would see every partition's records interleaved, so the
+    per-job clone copies it instead."""
+    if _depth > 2:
+        return False
+    if isinstance(v, functools.partial):
+        return (_stateful_callable(v.func, _depth + 1)
+                or any(_stateful_callable(a, _depth + 1) for a in v.args)
+                or any(_stateful_callable(a, _depth + 1)
+                       for a in (v.keywords or {}).values()))
+    if isinstance(v, (list, tuple)):
+        return any(_stateful_callable(x, _depth + 1) for x in v)
+    if isinstance(v, dict):
+        return any(_stateful_callable(x, _depth + 1) for x in v.values())
+    if isinstance(v, types.MethodType):
+        recv = v.__self__
+        if isinstance(recv, type):
+            return False  # classmethod: class-level state, always shared
+        return bool(getattr(recv, "__dict__", None))
+    if not callable(v) or isinstance(v, _ATOMIC_CALLABLE_TYPES):
+        return False
+    return bool(getattr(v, "__dict__", None))
+
+
+def _shared_instance_deepcopy(self, memo):
+    """``__deepcopy__`` of the stateless wrapper operators: the per-job
+    clone shares the instance unless it holds a stateful callable object,
+    which is then deep-copied so each job gets its own.  State that
+    resists deepcopy (files, sockets, locks) keeps the shared instance,
+    with a once-per-type warning: it must then be thread-safe."""
+    held = getattr(self, "__dict__", None) or {}
+    if not any(_stateful_callable(v) for v in held.values()):
+        return self
+    pre_keys = set(memo)
+    try:
+        cls = self.__class__
+        clone = cls.__new__(cls)
+        memo[id(self)] = clone
+        for k, v in held.items():
+            object.__setattr__(clone, k, copy.deepcopy(v, memo))
+        return clone
+    except Exception as e:  # noqa: BLE001 - any copy failure shares
+        # Drop every memo entry this attempt added (children may point at
+        # the discarded clone), then map self to the shared original.
+        for k in set(memo) - pre_keys:
+            if k != id(memo):
+                memo.pop(k, None)
+        memo[id(self)] = self
+        key = type(self).__name__
+        with _share_warned_lock:
+            seen = key in _share_warned
+            _share_warned.add(key)
+        if not seen:
+            log.warning("%s holds a stateful callable object whose state "
+                        "cannot be deep-copied (%s); the instance is SHARED "
+                        "across concurrent jobs and must be thread-safe",
+                        key, e)
+        return self
 
 
 class Mapper(object):
@@ -21,6 +112,13 @@ class Mapper(object):
     streams_bytes = False
 
     def map(self, *datasets):
+        raise NotImplementedError()
+
+
+class Streamable(object):
+    """Per-record transform of a (k, v) iterator."""
+
+    def stream(self, kvs):
         raise NotImplementedError()
 
 
@@ -35,10 +133,14 @@ def _one_input(datasets):
     return datasets[0]
 
 
-class Map(Mapper):
+class Map(Mapper, Streamable):
     """Wraps a generator function ``f(k, v) -> iterable[(k, v)]``."""
 
+    __deepcopy__ = _shared_instance_deepcopy
+
     def __init__(self, mapper):
+        if isinstance(mapper, Mapper):
+            raise TypeError("Map wraps a function, not a Mapper")
         self.mapper = mapper
 
     def map(self, *datasets):
@@ -55,8 +157,24 @@ class Map(Mapper):
                                         type(self.mapper)))
 
 
-class RecordOp(Mapper):
+class ComposedMapper(Mapper):
+    """A Mapper whose output streams through a Streamable (how
+    ``custom_mapper`` drives a bare Streamable)."""
+
+    def __init__(self, left, right):
+        if not isinstance(left, Mapper) or not isinstance(right, Streamable):
+            raise TypeError("ComposedMapper takes a Mapper and a Streamable")
+        self.left = left
+        self.right = right
+
+    def map(self, *datasets):
+        return self.right.stream(self.left.map(*datasets))
+
+
+class RecordOp(Mapper, Streamable):
     """A typed per-record transform (``stream`` maps a record iterator)."""
+
+    __deepcopy__ = _shared_instance_deepcopy
 
     def map(self, *datasets):
         return self.stream(_one_input(datasets).read())
@@ -97,24 +215,163 @@ class Rekey(RecordOp):
         return "Rekey[{}]".format(getattr(self.key_f, "__name__", self.key_f))
 
 
+class BlockMapper(Mapper, Streamable):
+    """start/add/finish lifecycle mapper, stateful across one chunk (the
+    runner deep-copies it per job)."""
+
+    def start(self):
+        pass
+
+    def add(self, key, value):
+        raise NotImplementedError()
+
+    def finish(self):
+        return ()
+
+    def map(self, *datasets):
+        return self.stream(_one_input(datasets).read())
+
+    def stream(self, kvs):
+        self.start()
+        for key, value in kvs:
+            for out in self.add(key, value):
+                yield out
+        for out in self.finish():
+            yield out
+
+
+class StreamMapper(Mapper, Streamable):
+    """Whole-chunk generator mapper: ``f(value_iter) -> iterable[(k, v)]``
+    (runs on empty chunks too)."""
+
+    __deepcopy__ = _shared_instance_deepcopy
+
+    def __init__(self, streamer_f):
+        self.streamer_f = streamer_f
+
+    def map(self, *datasets):
+        return self.stream(_one_input(datasets).read())
+
+    def stream(self, kvs):
+        return self.streamer_f(v for _k, v in kvs)
+
+
+def group_datasets(dataset):
+    """A chunker or a list of datasets -> one readable dataset."""
+    from .dataset import CatDataset, Chunker, EmptyDataset
+
+    if isinstance(dataset, Chunker) and not hasattr(dataset, "read"):
+        dataset = list(dataset.chunks())
+    if isinstance(dataset, (list, tuple)):
+        if len(dataset) > 1:
+            return CatDataset(dataset)
+        if len(dataset) == 1:
+            return dataset[0]
+        return EmptyDataset()
+    return dataset
+
+
+def _two_inputs(datasets):
+    if len(datasets) != 2:
+        raise ValueError("this operator consumes exactly two inputs")
+    return datasets
+
+
+class MapCrossJoin(Mapper):
+    """Map-side cross product of the primary chunk with the whole other
+    input: ``crosser(k1, v1, k2, v2)`` per pair, primary-major.  With
+    ``cache`` the other side is read once and held in RAM (broadcast
+    join)."""
+
+    __deepcopy__ = _shared_instance_deepcopy
+
+    def __init__(self, crosser, cache=False):
+        self.crosser = crosser
+        self.cache = cache
+
+    def map(self, *datasets):
+        left, right = [group_datasets(d) for d in _two_inputs(datasets)]
+        if self.cache:
+            cached = list(right.read())
+            read_right = lambda: iter(cached)  # noqa: E731
+        else:
+            read_right = right.read
+        crosser = self.crosser
+        for key, value in left.read():
+            for key2, value2 in read_right():
+                for kv in crosser(key, value, key2, value2):
+                    yield kv
+
+
+class MapAllJoin(Mapper):
+    """Loads the whole other input through ``load_f`` and passes it to
+    every primary record: ``crosser(k, v, loaded)``."""
+
+    __deepcopy__ = _shared_instance_deepcopy
+
+    def __init__(self, crosser, load_f=lambda d: [v for _k, v in d]):
+        self.crosser = crosser
+        self.load_f = load_f
+
+    def map(self, *datasets):
+        left, right = [group_datasets(d) for d in _two_inputs(datasets)]
+        loaded = self.load_f(right.read())
+        crosser = self.crosser
+        for key, value in left.read():
+            for kv in crosser(key, value, loaded):
+                yield kv
+
+
 class GroupedView(object):
-    """Key-sorted grouped view over one partition's blocks: hash-sort,
-    collision repair, then groups ordered by real key (uncomparable mixed
-    keys keep hash order)."""
+    """Key-sorted grouped view over one input's blocks within a partition:
+    hash-sort, collision repair, then groups ordered by real key
+    (uncomparable mixed keys keep hash order).  ``grouped_read()`` yields
+    ``(key, value_iter)`` in that order; within a group, values keep the
+    order of the partition's blocks."""
 
     def __init__(self, blocks):
         from .blocks import Block
 
         self._groups = segment.sort_and_group(Block.concat(blocks))
-        starts = self._groups.starts
-        self._order = np.arange(len(starts))
-        if len(starts):
+        self._starts, self._ends = self._groups.bounds()
+        self._order = np.arange(len(self._starts))
+        if len(self._starts):
             try:
                 self._order = np.argsort(
-                    self._groups.block.keys.take(starts), kind="stable")
+                    self._groups.block.keys.take(self._starts),
+                    kind="stable")
             except TypeError:
                 pass
 
+    @property
+    def n_groups(self):
+        return len(self._starts)
+
+    def grouped_read(self):
+        from .blocks import pylist
+
+        keys = self._groups.block.keys
+        vals = self._groups.block.values
+
+        def group_values(s, e, _W=8192):
+            # boxed a window at a time: a hot key never boxes its whole
+            # group at once
+            for w0 in range(s, e, _W):
+                for v in pylist(vals[w0:min(e, w0 + _W)]):
+                    yield v
+
+        for gi in self._order:
+            s, e = int(self._starts[gi]), int(self._ends[gi])
+            k = keys[s]
+            yield (k.item() if isinstance(k, np.generic) else k,
+                   group_values(s, e))
+
+    def read(self):
+        for k, vs in self.grouped_read():
+            for v in vs:
+                yield k, v
+
+    # Segment-fold accessors (AssocFoldReducer) ----------------------------
     def sorted_groups(self):
         return self._groups
 
@@ -128,11 +385,74 @@ class Reducer(object):
     def reduce(self, *datasets):
         raise NotImplementedError()
 
+    def yield_groups(self, dataset):
+        return dataset.grouped_read()
+
+
+class Reduce(Reducer):
+    """``f(key, value_iter) -> value`` per group."""
+
+    __deepcopy__ = _shared_instance_deepcopy
+
+    def __init__(self, reducer):
+        self.reducer = reducer
+
+    def reduce(self, *datasets):
+        reducer = self.reducer
+        for k, vs in self.yield_groups(_one_input(datasets)):
+            yield k, reducer(k, vs)
+
+
+class KeyedReduce(Reduce):
+    """Reduce whose emitted value is the ``(k, v)`` pair itself."""
+
+    def reduce(self, *datasets):
+        for k, v in super(KeyedReduce, self).reduce(*datasets):
+            yield k, (k, v)
+
+
+class BlockReducer(Reducer):
+    """start/add/finish lifecycle over one partition's groups (deep-copied
+    per partition job)."""
+
+    def start(self):
+        pass
+
+    def add(self, k, it):
+        raise NotImplementedError()
+
+    def finish(self):
+        return ()
+
+    def reduce(self, *datasets):
+        self.start()
+        for k, vs in self.yield_groups(_one_input(datasets)):
+            for nkv in self.add(k, vs):
+                yield nkv
+        for nkv in self.finish():
+            yield nkv
+
+
+class StreamReducer(Reducer):
+    """``f(group_iter) -> iterable[(k, v)]`` over a whole partition, values
+    wrapped as ``(k, v)`` pairs.  Runs on empty partitions too."""
+
+    __deepcopy__ = _shared_instance_deepcopy
+
+    def __init__(self, stream_f):
+        self.stream_f = stream_f
+
+    def reduce(self, *datasets):
+        for nk, nv in self.stream_f(self.yield_groups(_one_input(datasets))):
+            yield nk, (nk, nv)
+
 
 class AssocFoldReducer(Reducer):
     """Final fold of an associative reduce: recognized ops (sum/min/max)
     fold over the sorted groups with the segment folds, opaque binops fold
     on host.  Emits (k, (k, acc)) in key order."""
+
+    __deepcopy__ = _shared_instance_deepcopy
 
     def __init__(self, op):
         self.op = segment.as_assoc_op(op)
@@ -140,13 +460,112 @@ class AssocFoldReducer(Reducer):
     def reduce(self, *datasets):
         from .blocks import pylist
 
-        view = datasets[0]
+        view = _one_input(datasets)
         folded = segment.fold_sorted(view.sorted_groups(), self.op)
         keys = pylist(folded.keys)
         vals = pylist(folded.values)
         for gi in view.key_order():
             k = keys[gi]
             yield k, (k, vals[gi])
+
+
+def _sort_merge_walk(g1, g2):
+    """The sort-merge walk every join shares: ``('both', k, lvals,
+    rvals)`` on matched keys, ``('left', k, lvals)`` / ``('right', k,
+    rvals)`` on exclusives, in ascending key order."""
+    left, right = next(g1, None), next(g2, None)
+    while left is not None and right is not None:
+        if left[0] < right[0]:
+            yield ("left", left[0], left[1])
+            left = next(g1, None)
+        elif left[0] > right[0]:
+            yield ("right", right[0], right[1])
+            right = next(g2, None)
+        else:
+            yield ("both", left[0], left[1], right[1])
+            left, right = next(g1, None), next(g2, None)
+    while left is not None:
+        yield ("left", left[0], left[1])
+        left = next(g1, None)
+    while right is not None:
+        yield ("right", right[0], right[1])
+        right = next(g2, None)
+
+
+class _Join(Reducer):
+    """Sort-merge join over two co-partitioned grouped views.  Sides the
+    join keeps (``sides``) with no match see ``default()`` for the
+    missing one."""
+
+    __deepcopy__ = _shared_instance_deepcopy
+
+    sides = ()
+
+    def __init__(self, joiner_f, default=lambda: iter(())):
+        self.joiner_f = joiner_f
+        self.default = default
+
+    def _joined(self, datasets):
+        left, right = _two_inputs(datasets)
+        walk = _sort_merge_walk(self.yield_groups(left),
+                                self.yield_groups(right))
+        for side, k, *vals in walk:
+            if side == "both":
+                yield k, self.joiner_f(k, vals[0], vals[1])
+            elif side not in self.sides:
+                continue
+            elif side == "left":
+                yield k, self.joiner_f(k, vals[0], self.default())
+            else:
+                yield k, self.joiner_f(k, self.default(), vals[0])
+
+    def reduce(self, *datasets):
+        return self._joined(datasets)
+
+
+class InnerJoin(_Join):
+    """Sort-merge inner join; ``many=True`` flattens each match's
+    iterable into separate records."""
+
+    def __init__(self, joiner_f, many=False):
+        super(InnerJoin, self).__init__(joiner_f)
+        self.many = many
+
+    def reduce(self, *datasets):
+        for k, out in self._joined(datasets):
+            for nv in (out if self.many else (out,)):
+                yield k, nv
+
+
+class LeftJoin(_Join):
+    """Sort-merge left join; unmatched left groups see ``default()``."""
+
+    sides = ("left",)
+
+
+class OuterJoin(_Join):
+    """Sort-merge full outer join; either missing side sees
+    ``default()``."""
+
+    sides = ("left", "right")
+
+
+class KeyedInnerJoin(InnerJoin):
+    def reduce(self, *datasets):
+        for k, v in super(KeyedInnerJoin, self).reduce(*datasets):
+            yield k, (k, v)
+
+
+class KeyedLeftJoin(LeftJoin):
+    def reduce(self, *datasets):
+        for k, v in super(KeyedLeftJoin, self).reduce(*datasets):
+            yield k, (k, v)
+
+
+class KeyedOuterJoin(OuterJoin):
+    def reduce(self, *datasets):
+        for k, v in super(KeyedOuterJoin, self).reduce(*datasets):
+            yield k, (k, v)
 
 
 class PartialReduceCombiner(object):

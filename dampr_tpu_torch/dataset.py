@@ -1,8 +1,8 @@
 """Read-side datasets: the record sources stages consume.
 
-Port of the parts of ``dampr_tpu/dataset.py`` the slice uses.  Every
-dataset yields ``(key, value)`` pairs; text taps yield
-``(byte_offset, line)``.
+Port of ``dampr_tpu/dataset.py`` for plain text and in-memory records
+(gzip taps and ``StreamDataset`` are a later slice).  Every dataset
+yields ``(key, value)`` pairs; text taps yield ``(byte_offset, line)``.
 """
 
 import os
@@ -28,6 +28,21 @@ class Dataset(Chunker):
         yield self
 
 
+class EmptyDataset(Dataset):
+    def read(self):
+        return iter(())
+
+
+class MemoryDataset(Dataset):
+    """An in-memory list of (k, v) pairs."""
+
+    def __init__(self, kvs):
+        self.kvs = kvs
+
+    def read(self):
+        return iter(self.kvs)
+
+
 class BlockDataset(Dataset):
     """View over a list of materialized block refs."""
 
@@ -45,7 +60,8 @@ class BlockDataset(Dataset):
 
 
 class CatDataset(Dataset):
-    """Concatenation of several datasets."""
+    """Concatenation of several datasets; as a stage input each one is a
+    chunk of its own (``Dampr.read_input(*datasets)``)."""
 
     def __init__(self, datasets):
         self.datasets = list(datasets)
@@ -54,6 +70,10 @@ class CatDataset(Dataset):
         for ds in self.datasets:
             for kv in ds.read():
                 yield kv
+
+    def chunks(self):
+        for ds in self.datasets:
+            yield ds
 
     def delete(self):
         for ds in self.datasets:

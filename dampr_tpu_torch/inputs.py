@@ -1,8 +1,9 @@
-"""Ingest: chunk planning over plain text files.
+"""Ingest: chunk planning over plain text files and in-memory lists.
 
 Port of the plain-text part of ``dampr_tpu/inputs.py``: :func:`plan_chunks`
 walks files, directories and globs (names sorted at every level, dotfiles
-hidden) into line-aligned byte-range chunks.  Compressed inputs (gzip,
+hidden) into line-aligned byte-range chunks; :class:`MemoryInput` cuts a
+list into chunks exactly as the reference does.  Compressed inputs (gzip,
 BGZF) and the readahead prefetcher are a later slice; a gzip file is
 refused with an error, never read as text.
 """
@@ -11,7 +12,7 @@ import collections
 import glob
 import os
 
-from .dataset import Chunker, TextLineDataset
+from .dataset import Chunker, MemoryDataset, TextLineDataset
 
 #: One planned unit of ingest: a byte range ``[start, end)`` of a file.
 ChunkSpec = collections.namedtuple("ChunkSpec", "path start end size")
@@ -95,6 +96,23 @@ class PathInput(Chunker):
         for spec in plan_chunks(self.path, self.chunk_size,
                                 self.follow_links):
             yield _spec_dataset(spec)
+
+
+class MemoryInput(Chunker):
+    """An in-memory (k, v) list cut into about ``partitions`` chunks of
+    ``len // partitions`` records (the last chunk takes the remainder)."""
+
+    def __init__(self, items, partitions=50):
+        self.items = items
+        self.partitions = min(len(items), partitions)
+
+    def chunks(self):
+        if self.partitions == 0:
+            yield MemoryDataset(self.items)
+            return
+        chunk_size = max(1, len(self.items) // self.partitions)
+        for start in range(0, len(self.items), chunk_size):
+            yield MemoryDataset(self.items[start:start + chunk_size])
 
 
 class TextInput(Chunker):

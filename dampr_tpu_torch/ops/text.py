@@ -7,6 +7,7 @@ their bytes; token *strings* materialize only for the distinct keys.
 
 - :class:`TokenCounts` — (token, occurrences).
 - :class:`DocFreq` — (token, number of lines containing it).
+- :class:`CountRecords` — the ``len()`` map, one (1, count) per chunk.
 
 'word' mode matches ``re.split(r'[^\\w]+')`` and ``.lower()`` byte-wise,
 exact for ASCII; non-ASCII bytes ride inside tokens.
@@ -14,7 +15,7 @@ exact for ASCII; non-ASCII bytes ride inside tokens.
 
 import numpy as np
 
-from ..base import Mapper
+from ..base import Mapper, _one_input
 from . import hashing
 
 # --- byte classification tables -------------------------------------------
@@ -338,6 +339,54 @@ class TokenCounts(Mapper):
     def map(self, *datasets):
         return _per_record_counts(datasets, self.mode, self.lower, False,
                                   self.pair_values)
+
+
+class CountRecords(Mapper):
+    """The ``len()`` map: one ``(1, count)`` record per chunk.  A text
+    chunk's count is its owned newlines, plus one for an unterminated
+    last line, counted over the same line-aligned windows the scanners
+    read; a block-backed chunk sums its block lengths."""
+
+    streams_bytes = True
+
+    class _Sink(object):
+        """Window sink whose newline count carries across windows (the
+        aligned windows hold every byte of the chunk exactly once)."""
+
+        def __init__(self):
+            self.n = 0
+            self.last = b"\n"
+
+        def add(self, win):
+            if isinstance(win, memoryview):
+                # a numpy view counts without copying the window
+                self.n += int(np.count_nonzero(
+                    np.frombuffer(win, dtype=np.uint8) == 10))
+            else:
+                self.n += win.count(b"\n")
+            if len(win):
+                self.last = bytes(win[-1:])
+            return ()
+
+        def finish(self):
+            from ..blocks import Block
+
+            if self.last != b"\n":
+                self.n += 1
+            return (Block.from_pairs([(1, self.n)]),)
+
+    def window_sink(self):
+        return CountRecords._Sink()
+
+    def map_blocks(self, dataset):
+        return _drive_windows(self, dataset)
+
+    def map(self, *datasets):
+        ds = _one_input(datasets)
+        if hasattr(ds, "iter_blocks"):
+            yield 1, sum(len(b) for b in ds.iter_blocks())
+        else:
+            yield 1, sum(1 for _ in ds.read())
 
 
 class DocFreq(Mapper):

@@ -1,7 +1,7 @@
 """Plan-level views over a Graph (port of the helpers of
-``dampr_tpu/plan/ir.py`` that the lowering pass and the combiner hoist
-use).  The port does not fuse mappers yet, so a stage's mapper is always
-one leaf."""
+``dampr_tpu/plan/ir.py`` that the lowering pass, the combiner hoist and
+the run's stage stats use).  The port does not fuse mappers yet, so a
+stage's mapper is always one leaf."""
 
 from .. import base
 from ..graph import GInput, GMap, GReduce, GSink
@@ -30,8 +30,11 @@ def stage_kind(stage):
 
 
 def part_name(p):
+    """An operator's label: its type, with the name of the function it
+    wraps when that has one."""
     fn = None
-    for attr in ("mapper", "f", "key_f", "reducer", "sinker"):
+    for attr in ("mapper", "f", "key_f", "streamer_f", "reducer",
+                 "stream_f", "crosser", "joiner_f", "sinker"):
         fn = getattr(p, attr, None)
         if fn is not None:
             break

@@ -1,8 +1,14 @@
 """The scheduler: a sequential stage walk, parallel jobs within a stage.
 
 Reduced port of ``dampr_tpu/runner.py``'s ``MTRunner``: ``run_map``,
-``run_reduce`` (associative folds over key-sorted grouped views) and
-``run_sink``, each stage's jobs on a thread pool.
+``run_reduce`` and ``run_sink``, each stage's jobs on a thread pool, each
+job with its own clone of the stage's operator (:func:`_clone_op`).
+
+A map stage runs one job per chunk of its first input; its other inputs
+(the broadcast side of a cross) reach every job whole, as chunk lists.  A
+reduce stage runs one job per partition id, empty ones included, over one
+in-memory key-sorted :class:`~.base.GroupedView` per input: folds, user
+reducers and the sort-merge joins of co-partitioned inputs.
 
 ``run_map`` has the two branches of the reference's map job:
 
@@ -20,10 +26,13 @@ reports the plan, per-stage targets and, under ``device``,
 ``device_stages``, ``device_fraction``, the h2d/d2h bytes and each
 kernel's launches during the run.
 
-Mesh execution, mitigation, faults/resume, reuse, the overlap executor and
-the observability plane are later slices.
+Mesh execution, mitigation, faults/resume, reuse, the overlap executor,
+the observability plane, the tiny-input and tiny-fold fast paths, scan
+sharing and the out-of-core (over-budget) reduce and join paths are
+later slices.
 """
 
+import copy
 import logging
 import os
 import threading
@@ -48,6 +57,15 @@ _PARTIAL_FANIN = 16
 
 #: Every kernel the device path launches, by name.
 KERNELS = {"fnv": _fnv.KERNEL, "segfold": _segfold.KERNEL}
+
+
+def _clone_op(op):
+    """The per-job operator instance.  The stateless wrappers share
+    themselves (``base._shared_instance_deepcopy``), so user callables
+    are not descended into; lifecycle operators (BlockMapper,
+    BlockReducer) and unknown user subclasses are deep-copied, so
+    concurrent jobs never share their state."""
+    return copy.deepcopy(op)
 
 
 class _OrderKey(object):
@@ -104,19 +122,20 @@ class _SinkOutput(object):
 class StageStats(object):
     """Per-stage metrics."""
 
-    __slots__ = ("stage_id", "kind", "target", "n_jobs", "records_out",
-                 "seconds")
+    __slots__ = ("stage_id", "kind", "op", "target", "n_jobs",
+                 "records_out", "seconds")
 
-    def __init__(self, stage_id, kind, target):
+    def __init__(self, stage_id, kind, op, target):
         self.stage_id = stage_id
         self.kind = kind
+        self.op = op
         self.target = target
         self.n_jobs = 0
         self.records_out = 0
         self.seconds = 0.0
 
     def as_dict(self):
-        return {"stage": self.stage_id, "kind": self.kind,
+        return {"stage": self.stage_id, "kind": self.kind, "op": self.op,
                 "target": self.target, "jobs": self.n_jobs,
                 "records_out": self.records_out, "seconds": self.seconds}
 
@@ -183,12 +202,13 @@ class MTRunner(object):
 
     # -- map ---------------------------------------------------------------
     def run_map(self, stage_id, stage, env):
+        """One job per chunk of the first input; every other input (a
+        cross's broadcast side) reaches each job whole, as a chunk list:
+        ``mapper.map(chunk, *supplementary)``."""
         entries = [env[s] for s in stage.inputs]
-        if len(entries) != 1:
-            raise NotImplementedError(
-                "multi-input maps (joins) are not ported yet")
         chunks = self._as_chunks(entries[0])
-        job = self._map_job(stage)
+        supplementary = [self._as_chunks(e) for e in entries[1:]]
+        job = self._map_job(stage, supplementary)
         results = self._pool_map(job, chunks, self.n_maps)
         pset = storage.PartitionSet(self.n_partitions)
         for mapping in results:
@@ -197,7 +217,7 @@ class MTRunner(object):
                     pset.add(pid, ref)
         return pset, pset.total_records(), len(chunks)
 
-    def _map_job(self, stage):
+    def _map_job(self, stage, supplementary):
         """The per-chunk job closure of one map stage."""
         from .ops.text import _drive_windows
 
@@ -208,14 +228,15 @@ class MTRunner(object):
             combine_op = segment.as_assoc_op(stage.options["binop"])
         P = self.n_partitions
         feeds_reduce = self._reduce_consumes(stage.output)
-        mapper = stage.mapper
         # claims() re-checks the mapper, so a foreign annotation can never
         # dispatch an op the program does not implement.
         dev_lowered = (stage.options.get("exec_target") == "device"
-                       and ops_lower.claims(mapper) is not None)
-        identity = type(mapper) is base.Map and mapper.mapper is base._identity
+                       and ops_lower.claims(stage.mapper) is not None)
+        identity = (type(stage.mapper) is base.Map
+                    and stage.mapper.mapper is base._identity)
 
         def job(chunk):
+            mapper = _clone_op(stage.mapper)
             raw, partials = [], []
             combine_s = [0.0]
 
@@ -251,7 +272,7 @@ class MTRunner(object):
                     push(blk)
             else:
                 builder = BlockBuilder(settings.batch_size)
-                for k, v in mapper.map(chunk):
+                for k, v in mapper.map(chunk, *supplementary):
                     push(builder.add(k, v))
                 push(builder.flush())
 
@@ -276,20 +297,26 @@ class MTRunner(object):
 
     # -- reduce ------------------------------------------------------------
     def run_reduce(self, stage_id, stage, env):
+        """One job per partition id, empty partitions included (a
+        ``StreamReducer`` runs on every one).  Each job hands the reducer
+        one in-memory :class:`GroupedView` per input over that partition;
+        the inputs are co-partitioned by the same hash and ``P``.  The
+        output registers under the job's pid, keyed as the reducer
+        emitted."""
         entries = [env[s] for s in stage.inputs]
-        if len(entries) != 1 or not isinstance(entries[0],
-                                               storage.PartitionSet):
-            raise NotImplementedError(
-                "only single-input reduces over materialized partitions "
-                "are ported yet")
-        pset_in = entries[0]
-        reducer = stage.reducer
+        for e in entries:
+            if not isinstance(e, storage.PartitionSet):
+                raise TypeError(
+                    "reduce inputs must be materialized partitions, got "
+                    "{!r}".format(e))
 
         def job(pid):
-            view = base.GroupedView([r.get() for r in pset_in.refs(pid)])
+            views = [base.GroupedView([r.get() for r in pset.refs(pid)])
+                     for pset in entries]
+            reducer = _clone_op(stage.reducer)
             builder = BlockBuilder(settings.batch_size)
             refs = []
-            for k, v in reducer.reduce(view):
+            for k, v in reducer.reduce(*views):
                 blk = builder.add(k, v)
                 if blk is not None:
                     refs.append(self.store.register(blk))
@@ -298,13 +325,13 @@ class MTRunner(object):
                 refs.append(self.store.register(blk))
             return pid, refs
 
-        pids = sorted(pset_in.parts)
-        results = self._pool_map(job, pids, self.n_reducers)
-        pset = storage.PartitionSet(self.n_partitions)
+        P = self.n_partitions
+        results = self._pool_map(job, list(range(P)), self.n_reducers)
+        pset = storage.PartitionSet(P)
         for pid, refs in results:
             for ref in refs:
                 pset.add(pid, ref)
-        return pset, pset.total_records(), len(pids)
+        return pset, pset.total_records(), P
 
     # -- sink --------------------------------------------------------------
     def run_sink(self, stage_id, stage, env):
@@ -341,20 +368,20 @@ class MTRunner(object):
             t0 = time.perf_counter()
             if isinstance(stage, GMap):
                 result, nrec, njobs = self.run_map(sid, stage, env)
-                kind = "map"
+                kind, op = "map", stage.mapper
                 to_delete.append(stage.output)
             elif isinstance(stage, GReduce):
                 result, nrec, njobs = self.run_reduce(sid, stage, env)
-                kind = "reduce"
+                kind, op = "reduce", stage.reducer
                 to_delete.append(stage.output)
             elif isinstance(stage, GSink):
                 result, nrec, njobs = self.run_sink(sid, stage, env)
-                kind = "sink"
+                kind, op = "sink", stage.sinker
             else:
                 raise TypeError("unknown stage type {!r}".format(stage))
             env[stage.output] = result
-            st = StageStats(sid, kind, stage.options.get("exec_target",
-                                                         "host"))
+            st = StageStats(sid, kind, plan.ir.part_name(op),
+                            stage.options.get("exec_target", "host"))
             st.n_jobs = njobs
             st.records_out = nrec
             st.seconds = time.perf_counter() - t0

@@ -26,11 +26,13 @@ def _port_sources():
     return sorted(out)
 
 
-def test_port_imports_without_jax_or_the_jax_package():
+def test_port_imports_without_jax_or_the_jax_package(tmp_path):
     """Every port module imports with ``jax`` made unimportable, and no
-    ``dampr_tpu`` module is loaded along the way."""
+    ``dampr_tpu`` module is loaded along the way, not even when the
+    two-input stages run: the TF-IDF pipeline (cross, ``len()``) and the
+    joins, on the CPU."""
     code = r"""
-import importlib, json, pkgutil, sys
+import importlib, json, math, operator, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
 import dampr_tpu_torch
@@ -38,18 +40,45 @@ names = [m.name for m in pkgutil.walk_packages(dampr_tpu_torch.__path__,
                                                 "dampr_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+from dampr_tpu_torch import Dampr, settings
+from dampr_tpu_torch.ops.text import DocFreq
+settings.device = "cpu"
+settings.lower = "on"
+docs = Dampr.text(sys.argv[1], 4)
+df = docs.custom_mapper(DocFreq(pair_values=False)).fold_values(operator.add)
+idf = df.cross_right(docs.len(), lambda d, t: (d[0], d[1], t), memory=True)
+left = Dampr.memory([("a", 1), ("b", 2)]).group_by(lambda x: x[0])
+right = Dampr.memory([("b", 3), ("c", 4)]).group_by(lambda x: x[0])
+joins = [left.join(right).reduce(lambda l, r: (list(l), list(r))),
+         left.join(right).left_reduce(lambda l, r: (list(l), list(r))),
+         left.join(right).outer_reduce(lambda l, r: (list(l), list(r))),
+         Dampr.memory([1, 2, 3]).cross_set(Dampr.memory([2]),
+                                            lambda x, y: x in y)]
 loaded = sorted(m for m in sys.modules
                 if m == "dampr_tpu" or m.startswith("dampr_tpu."))
-print(json.dumps({"modules": names, "reference": loaded}))
+print(json.dumps({"modules": names, "reference": loaded,
+                  "idf": idf.read(), "len": docs.len().read(),
+                  "joins": [j.read() for j in joins]}))
 """
+    corpus = tmp_path / "c.txt"
+    corpus.write_bytes(b"a b\nb\n\nc a")
     env = dict(os.environ, PYTHONPATH=ROOT)
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-c", code, str(corpus)], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
     assert res.returncode == 0, res.stderr
     report = json.loads(res.stdout.strip().splitlines()[-1])
     assert report["reference"] == []
-    assert "dampr_tpu_torch.ops.lower" in report["modules"]
-    assert "dampr_tpu_torch.csrc.build" in report["modules"]
+    for name in ("ops.lower", "ops.text", "csrc.build", "base", "dampr",
+                 "dataset", "inputs", "runner", "plan.lower"):
+        assert "dampr_tpu_torch." + name in report["modules"]
+    assert report["idf"] == [["a", 2, 4], ["b", 2, 4], ["c", 1, 4]]
+    assert report["len"] == [4]
+    pair = [["b", [[["b", 2]], [["b", 3]]]]]
+    assert report["joins"] == [
+        pair, [["a", [[["a", 1]], []]]] + pair,
+        [["a", [[["a", 1]], []]]] + pair + [["c", [[], [["c", 4]]]]],
+        [True]]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -81,6 +110,26 @@ def test_cuda_device_without_a_card_raises():
             (Dampr.text(path)
              .custom_mapper(DocFreq(pair_values=False))
              .fold_values(operator.add).read())
+    finally:
+        settings.device = old
+
+
+def test_cuda_join_without_a_card_raises():
+    """A join (a host-only stage shape) asked to run on a missing card
+    fails up front too: the device is resolved before any stage runs."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the no-card case cannot occur")
+    from dampr_tpu_torch import Dampr, settings
+
+    old = settings.device
+    settings.device = "cuda"
+    try:
+        left = Dampr.memory([("a", 1), ("b", 2)]).group_by(lambda x: x[0])
+        right = Dampr.memory([("b", 3)]).group_by(lambda x: x[0])
+        with pytest.raises(RuntimeError, match="is_available"):
+            left.join(right).reduce(lambda l, r: (list(l), list(r))).read()
+        with pytest.raises(RuntimeError, match="is_available"):
+            Dampr.run(left.join(right), Dampr.memory([1]).len())
     finally:
         settings.device = old
 

@@ -83,17 +83,17 @@ def _ref_graph(kind, path):
     docs = dampr_tpu.Dampr.text(path, 1000)
     x = docs.custom_mapper(ref_text.DocFreq(mode="word", lower=True,
                                             pair_values=False))
-    return _shape(kind, x, dampr_tpu)
+    return _shape(kind, x, docs)
 
 
 def _port_graph(kind, path):
     docs = dampr_tpu_torch.Dampr.text(path, 1000)
     x = docs.custom_mapper(port_text.DocFreq(mode="word", lower=True,
                                              pair_values=False))
-    return _shape(kind, x, dampr_tpu_torch)
+    return _shape(kind, x, docs)
 
 
-def _shape(kind, x, pkg):
+def _shape(kind, x, docs):
     if kind == "sum":
         out = x.fold_values(operator.add)
         return out.pmer.graph, ()
@@ -110,12 +110,24 @@ def _shape(kind, x, pkg):
         return folded.pmer.graph.union(branch.pmer.graph), ()
     if kind == "requested":
         return x.pmer.graph, (x.source,)
+    if kind == "tfidf":
+        # the tap feeds DocFreq and the len() scan; the cross has two
+        # inputs
+        idf = x.fold_values(operator.add).cross_right(
+            docs.len(), lambda d, t: (d[0], d[1], t), memory=True)
+        return idf.pmer.graph, (idf.source,)
+    if kind == "join":
+        out = (x.fold_values(operator.add)
+               .join(docs.group_by(lambda line: line.split(" ")[0]))
+               .outer_reduce(lambda l, r: (list(l), list(r))))
+        return out.pmer.graph, (out.source,)
     raise ValueError(kind)
 
 
 class TestLoweringDecisions:
     @pytest.mark.parametrize("kind", ["sum", "min", "opaque_fold",
-                                      "branched", "requested"])
+                                      "branched", "requested", "tfidf",
+                                      "join"])
     def test_targets_match_reference(self, tmp_path, kind):
         path = _write(tmp_path, "c.txt", b"a b\n")
         rg, routs = _ref_graph(kind, path)
