@@ -47,9 +47,25 @@ the kernels build for sm_90a).  Phases, each of which must pass:
    a dict oracle; (b) 2^20 and 2^19 seeded integer keys (half shared,
    repeated) grouped into 4 partitions, so each side's GroupedView sorts
    more than 65,536 records on the card, joined three ways against a
-   dict oracle, and ``len()`` against ``len(list)``.
+   dict oracle, and ``len()`` against ``len(list)``;
+10. ``wc``: ``examples/wc.py``'s pipeline (``flat_map(line.split())`` ->
+    ``fold_by(word, lambda x, y: x + y, value=1)``) on the same corpus in
+    8 chunks, every ``(word, count)`` against a ``split()`` Counter; the
+    plan must fuse the chain into one executed map stage, and K1's lanes
+    entry (the map-side combine hashes each 65,536-word block on the card)
+    must launch in the run; then one chunk's job, phase by phase, on one
+    thread (``read_lists``, each op's batch, block building, the key
+    encoding, K1 with its copies, the sort, the Python fold);
+11. ``word_stats``: ``examples/word_stats.py``'s four outputs in one
+    ``Dampr.run`` on a ``--ws-mb`` corpus from the same generator and seed,
+    each against values computed from its ``split()`` Counter
+    (``top_words``' records that tie on their count compared as
+    multisets).
 
-Every tolerance is exact: all outputs are integers or bytes.  Prints a
+K1's lanes entry is also checked and timed at the ``wc`` batch shape (the
+corpus's first 65,536 words, padded as the combine pads them).  Every
+tolerance is exact: all outputs are integers, bytes or one float
+division of equal integers.  Prints a
 ``{"kernels": [...]}`` JSON line second to last and
 ``{"ok": true, "device": {...}}`` last; exits non-zero, printing no
 result, if there is no card or any phase fails.
@@ -219,19 +235,21 @@ def make_corpus(path, mb, seed):
 
 
 def oracle(path):
-    """Pure-Python token counts, document frequencies (per line) and the
-    line count."""
+    """Pure-Python token counts, document frequencies (per line), the line
+    count, and the ``split()`` word counts ``examples/wc.py`` computes."""
     rx = re.compile(r"[^\w]+")
     tc = collections.Counter()
     df = collections.Counter()
+    wc = collections.Counter()
     n_lines = 0
     with open(path) as f:
         for line in f:
             toks = [t for t in rx.split(line.rstrip("\n").lower()) if t]
             tc.update(toks)
             df.update(set(toks))
+            wc.update(line.split())
             n_lines += 1
-    return tc, df, n_lines
+    return tc, df, n_lines, wc
 
 
 def exact(torch, a, b):
@@ -641,12 +659,248 @@ def phase_joins(Dampr, Map, DocFreq, TokenCounts, corpus, chunk, tc, df,
         "phase_seconds": time.perf_counter() - t0}))
 
 
+def wc_pipeline(Dampr, path, chunk_size):
+    """``examples/wc.py``'s ``build()``, verbatim but for the chunk size."""
+    return (Dampr.text(path, chunk_size=chunk_size)
+            .flat_map(lambda line: line.split())
+            .fold_by(lambda w: w, binop=lambda x, y: x + y,
+                     value=lambda w: 1))
+
+
+def word_stats_pipelines(Dampr, fname, chunk_size):
+    """``examples/word_stats.py``'s ``build()``, verbatim but for the chunk
+    size."""
+    words = Dampr.text(fname, chunk_size).flat_map(lambda line: line.split())
+
+    top_words = (words.count(lambda x: x)
+                 .sort_by(lambda word_count: -word_count[1]))
+
+    total_count = top_words.fold_by(
+        key=lambda word: 1,
+        value=lambda x: x[1],
+        binop=lambda x, y: x + y)
+
+    word_lengths = (top_words
+                    .fold_by(lambda tc: len(tc[0]),
+                             value=lambda tc: tc[1],
+                             binop=lambda x, y: x + y)
+                    .sort_by(lambda cl: cl[0]))
+
+    avg_word_lengths = (word_lengths
+                        .map(lambda wl: wl[0] * wl[1])
+                        .a_group_by(lambda x: 1)
+                        .sum()
+                        .join(total_count)
+                        .reduce(lambda awl, tc:
+                                next(awl)[1] / float(next(tc)[1])))
+
+    return total_count, top_words, word_lengths, avg_word_lengths
+
+
+def run_line(stats, secs, nbytes, launches):
+    """The e2e-style JSON fields of one pipeline run."""
+    dstat = stats["device"]
+    plan = stats["plan"]
+    return {"seconds": secs, "mb_per_s": nbytes / 1e6 / secs,
+            "stage_seconds": stage_seconds(stats),
+            "combine_seconds": stats["combine_seconds"],
+            "kernels": launches, "keyed": dstat["keyed"],
+            "h2d_bytes": dstat["h2d_bytes"], "d2h_bytes": dstat["d2h_bytes"],
+            "stages_before": plan["stages_before"],
+            "stages_after": plan["stages_after"], "rules": plan["rules"],
+            "device_stages": dstat["device_stages"]}
+
+
+def phase_wc(Dampr, kernels, corpus, chunk, nbytes, wc):
+    """``examples/wc.py`` on the port against the ``split()`` Counter;
+    kernel counters are zeroed just before the run and read just after."""
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    em = wc_pipeline(Dampr, corpus, chunk).run(name="chip-wc")
+    got = em.read()
+    secs = time.perf_counter() - t0
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    stats = em.stats()
+    em.delete()
+    check(got == sorted(wc.items()),
+          "wc differs from the split() Counter ({} words against {})"
+          .format(len(got), len(wc)))
+    check(launches["fnv"] > 0, "K1 never launched in the wc run")
+    check(stats["device"]["h2d_bytes"] > 0
+          and stats["device"]["d2h_bytes"] > 0,
+          "the wc run counted no copies: {}".format(stats["device"]))
+    maps = [s for s in stats["stages"] if s["kind"] == "map"]
+    check(len(maps) == 1 and maps[0]["op"] == "FlatMap . Rekey",
+          "wc's record chain did not fuse into one map stage: {}".format(
+              stage_seconds(stats)))
+    check(stats["plan"]["rules"]["fuse_maps"] == 1
+          and stats["plan"]["rules"]["hoist_combiners"] == 1,
+          "wc's plan fired {}".format(stats["plan"]["rules"]))
+    run = dict(run_line(stats, secs, nbytes, launches), pipeline="wc",
+               words=sum(wc.values()), distinct=len(wc))
+    log("e2e " + json.dumps(run))
+    return launches
+
+
+def wc_breakdown(corpus, chunk):
+    """One wc job over the corpus's first chunk on this thread, run as the
+    runner's batched path runs it (``_record_batches`` into
+    ``_run_record_chain``: survivors coalesce into full blocks and the
+    FlatMap takes its input in adaptive slices; the map-side combine folds
+    each block and merges its partials every ``_PARTIAL_FANIN`` blocks
+    and at the end), timed phase by phase: ``read_lists``, the FlatMap
+    and Rekey batches, block building (coalescing and
+    ``Block.from_lists``), then in the combine the key hashing (the key
+    encoding and K1 with its copies for blocks that reach
+    ``use_device_for``, the host FNV for the smaller ones, each with its
+    block count), the stable sort and grouping, and the fold."""
+    from dampr_tpu_torch import runner, settings
+    from dampr_tpu_torch.base import FlatMap, Rekey
+    from dampr_tpu_torch.blocks import Block
+    from dampr_tpu_torch.dataset import TextLineDataset
+    from dampr_tpu_torch.ops import hashing, segment
+
+    B = settings.batch_size
+    op = segment.as_assoc_op(lambda x, y: x + y)
+    t = dict.fromkeys(("read_lists", "flat_map", "rekey", "build_blocks",
+                       "encode", "k1_with_copies", "host_hash",
+                       "sort_and_group", "fold"), 0.0)
+    n = {"words": 0, "blocks": 0, "k1_blocks": 0, "host_hash_blocks": 0,
+         "merges": 0}
+    combine = [0.0]
+
+    def timed(name, fn, when=lambda *a: True):
+        def call(*a):
+            if not when(*a):
+                return fn(*a)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                t[name] += time.perf_counter() - t0
+        return call
+
+    flat = FlatMap(lambda line: line.split())
+    rekey = Rekey(lambda w: w, lambda w: 1)
+    # instance attributes: the chain still sees a FlatMap and slices it
+    flat.apply_batch = timed("flat_map", flat.apply_batch)
+    rekey.apply_batch = timed("rekey", rekey.apply_batch)
+
+    def fold(blk):
+        t0 = time.perf_counter()
+        if blk.h1 is None:
+            on_card = settings.use_device_for(len(blk))
+            blk.hashes()
+            dt = time.perf_counter() - t0
+            if on_card:
+                n["k1_blocks"] += 1
+                t["encode"] += dt  # K1's share comes off below
+            else:
+                n["host_hash_blocks"] += 1
+                t["host_hash"] += dt
+        t1 = time.perf_counter()
+        groups = segment.sort_and_group(blk)
+        t2 = time.perf_counter()
+        out = segment.fold_sorted(groups, op)
+        t3 = time.perf_counter()
+        t["sort_and_group"] += t2 - t1
+        t["fold"] += t3 - t2
+        combine[0] += t3 - t0
+        return out
+
+    partials = []
+
+    def push(blk):
+        n["words"] += len(blk)
+        n["blocks"] += 1
+        partials.append(fold(blk))
+        if len(partials) >= runner._PARTIAL_FANIN:
+            merged = fold(Block.concat(partials))
+            del partials[:]
+            partials.append(merged)
+            n["merges"] += 1
+
+    orig_fnv = hashing._fnv
+    hashing._fnv = timed("k1_with_copies", orig_fnv,
+                         lambda mat, lens: settings.use_device_for(len(mat)))
+    try:
+        t0 = time.perf_counter()
+        batches = list(runner._record_batches(
+            TextLineDataset(corpus, 0, chunk), B))
+        t1 = time.perf_counter()
+        runner._run_record_chain([flat, rekey], iter(batches), B, push)
+        t2 = time.perf_counter()
+        in_chain = combine[0]
+        fold(Block.concat(partials))
+    finally:
+        hashing._fnv = orig_fnv
+    t["read_lists"] = t1 - t0
+    t["build_blocks"] = t2 - t1 - t["flat_map"] - t["rekey"] - in_chain
+    t["encode"] -= t["k1_with_copies"]
+    return dict(n, chunk_bytes=chunk, seconds=t,
+                total_seconds=sum(t.values()))
+
+
+def phase_word_stats(Dampr, kernels, corpus, chunk, nbytes, wc):
+    """``examples/word_stats.py``'s four outputs in one run against values
+    computed from the corpus's ``split()`` Counter."""
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    ems = Dampr.run(*word_stats_pipelines(Dampr, corpus, chunk),
+                    name="chip-word-stats")
+    tc, tw, wl, awl = [em.read() for em in ems]
+    secs = time.perf_counter() - t0
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    stats = ems[0].stats()
+    for em in ems:
+        em.delete()
+    total = sum(wc.values())
+    check(tc == [(1, total)], "total_count {} != {}".format(tc, total))
+    check([c for _w, c in tw] == sorted(wc.values(), reverse=True)
+          and sorted(tw) == sorted(wc.items()),
+          "top_words differs from the Counter (ties as multisets)")
+    lengths = collections.Counter()
+    for w, c in wc.items():
+        lengths[len(w)] += c
+    check(wl == sorted(lengths.items()), "word_lengths differs")
+    want_avg = sum(n * c for n, c in lengths.items()) / float(total)
+    check(awl == [(1, want_avg)], "avg_word_lengths {} != {}".format(
+        awl, want_avg))
+    run = dict(run_line(stats, secs, nbytes, launches),
+               pipeline="word_stats", corpus_bytes=nbytes,
+               records={"total_count": len(tc), "top_words": len(tw),
+                        "word_lengths": len(wl),
+                        "avg_word_lengths": len(awl)})
+    log("e2e " + json.dumps(run))
+
+
+def wc_batch(torch, hashing, path, dev):
+    """K1's lanes entry's inputs at the wc batch: the corpus's first
+    65,536 ``split()`` words, encoded as the map-side combine encodes
+    them."""
+    import numpy as np
+
+    words = []
+    with open(path) as f:
+        for line in f:
+            words.extend(line.split())
+            if len(words) >= 1 << 16:
+                break
+    mat, lens = hashing.encode_str_keys(words[:1 << 16])
+    return (torch.from_numpy(mat).to(dev),
+            torch.from_numpy(lens.astype(np.int32)).to(dev))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mb", type=int, default=128,
                     help="corpus size for the end-to-end phase")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--ws-mb", type=int, default=32,
+                    help="corpus size for the word_stats phase")
     args = ap.parse_args(argv)
 
     import torch
@@ -658,7 +912,7 @@ def main(argv=None):
     try:
         from dampr_tpu_torch import Dampr, Map, settings
         from dampr_tpu_torch.csrc import build
-        from dampr_tpu_torch.ops import fnv, lower, segfold
+        from dampr_tpu_torch.ops import fnv, hashing, lower, segfold
         from dampr_tpu_torch.ops.text import DocFreq, TokenCounts
         from dampr_tpu_torch.runner import KERNELS
     except ImportError as e:
@@ -758,6 +1012,23 @@ def main(argv=None):
                           args.reps)
         live_bytes = int(lens.clamp(0, L).sum())
         pbound = bound_ms(N * L + 8 * N + 17 * N + 8, 4 * live_bytes)
+        # K1's lanes entry at the wc batch (the map-side combine's hash)
+        wm, wl = wc_batch(torch, hashing, corpus, dev)
+        for g, w in zip(fnv.fnv(wm, wl), fnv.fnv_reference(wm, wl)):
+            ok, e = exact(torch, g, w)
+            err["fnv"] = max(err["fnv"], e)
+            check(ok, "fnv lanes disagree with the plain version at the wc "
+                      "batch")
+        wn, wL = wm.shape
+        lanes = timing(torch, lambda: fnv.fnv(wm, wl), args.reps, K1_NAMES)
+        lanes_plain = timing(torch, lambda: fnv.fnv_reference(wm, wl),
+                             args.reps, launches=20 * wL)
+        times["fnv"]["wc"] = dict(
+            lanes, plain=lanes_plain, shape=[wn, wL],
+            bound=bound_ms(wn * wL + 4 * wn + 8 * wn,
+                           4 * int(wl.clamp(0, wL).sum())))
+        log("fnv lanes at the wc batch {}: {}".format(
+            [wn, wL], json.dumps(times["fnv"]["wc"])))
         log(json.dumps({"programs": [{
             "name": "token_fold", "shape": [N, L], "tokens": ntok,
             "ms": prog["ms"], "device_ms": prog["device_ms"],
@@ -770,7 +1041,7 @@ def main(argv=None):
 
         # -- the main path end to end -------------------------------------
         t0 = time.perf_counter()
-        tc, df, n_lines = oracle(corpus)
+        tc, df, n_lines, wc = oracle(corpus)
         log("phase oracle: {} distinct tokens in {:.3f} s".format(
             len(tc), time.perf_counter() - t0))
         chunk = os.path.getsize(corpus) // 8 + 1
@@ -856,6 +1127,25 @@ def main(argv=None):
                     args.seed)
         log("phase joins: words and integer keys exact, in {:.3f} s".format(
             time.perf_counter() - t0))
+
+        # -- examples/wc.py and examples/word_stats.py ----------------------
+        t0 = time.perf_counter()
+        wc_launches = phase_wc(Dampr, KERNELS, corpus, chunk, nbytes, wc)
+        log("wc-breakdown " + json.dumps(wc_breakdown(corpus, chunk)))
+        log("phase wc: {} words exact, one fused map stage, fnv launched "
+            "{} times, in {:.3f} s".format(len(wc), wc_launches["fnv"],
+                                          time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        if args.ws_mb == args.mb:
+            ws_corpus, ws_bytes, ws_wc = corpus, nbytes, wc
+        else:
+            ws_corpus = os.path.join(workdir, "corpus_ws.txt")
+            ws_bytes = make_corpus(ws_corpus, args.ws_mb, args.seed)
+            ws_wc = oracle(ws_corpus)[3]
+        phase_word_stats(Dampr, KERNELS, ws_corpus,
+                         os.path.getsize(ws_corpus) // 8 + 1, ws_bytes, ws_wc)
+        log("phase word_stats: four outputs exact on {} bytes, in {:.3f} s"
+            .format(ws_bytes, time.perf_counter() - t0))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -874,6 +1164,7 @@ def main(argv=None):
             "replaces": sources[name][1], "entry": sources[name][2],
             "shape": main_t["shape"], "launches": launches[name],
             "launches_tfidf": tfidf_launches[name],
+            "launches_wc": wc_launches[name],
             "max_abs_err": err[name], "ms": main_t["ms"],
             "device_ms": main_t["device_ms"], "host_ms": main_t["host_ms"],
             "profiler_ms": main_t["profiler_ms"],
@@ -889,6 +1180,16 @@ def main(argv=None):
                         "plain_device_ms": big_t["plain"]["device_ms"],
                         "bound_ms": big_t["bound"][0],
                         "bound_by": big_t["bound"][1]}})
+    lanes = times["fnv"]["wc"]
+    kernels[0]["at_wc_batch"] = {
+        "entry": "fnv(mat, lens)", "shape": lanes["shape"],
+        "launches": wc_launches["fnv"], "ms": lanes["ms"],
+        "device_ms": lanes["device_ms"], "host_ms": lanes["host_ms"],
+        "profiler_ms": lanes["profiler_ms"],
+        "plain_ms": lanes["plain"]["ms"],
+        "plain_device_ms": lanes["plain"]["device_ms"],
+        "bound_ms": lanes["bound"][0], "bound_by": lanes["bound"][1],
+        "library_ms": None}
     log("card: " + card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,19 @@ the JAX package's two Pallas kernels are hand-written CUDA C++ for Hopper
 (``csrc/fnv.cu``, ``csrc/segfold.cu``), built with ``nvcc`` on first use.
 It imports neither ``jax`` nor ``dampr_tpu``.
 
-The port runs the TF-IDF benchmark's pipeline, with the scanner -> sum
-fold edge lowered onto the card::
+The port runs ``examples/wc.py``'s word count (a ``flat_map`` of
+lambdas, fused with its re-key into one batched map stage, whose
+map-side combine hashes on the card)::
+
+    >>> from dampr_tpu_torch import Dampr
+    >>> wc = (Dampr.text("corpus.txt")
+    ...       .flat_map(lambda line: line.split())
+    ...       .fold_by(lambda w: w, binop=lambda x, y: x + y,
+    ...                value=lambda w: 1))
+    >>> wc.read()                                       # doctest: +SKIP
+
+and the TF-IDF benchmark's pipeline, with the scanner -> sum fold edge
+lowered onto the card::
 
     >>> import math, operator
     >>> from dampr_tpu_torch import Dampr
@@ -27,7 +38,7 @@ from .base import (BlockMapper, BlockReducer, Map, Mapper, Reduce, Reducer,
                    StreamMapper, StreamReducer, Streamable)
 from .blocks import Block, BlockBuilder
 from .dampr import (ARReduce, Dampr, PBase, PJoin, PMap, PReduce, RunStats,
-                    ValueEmitter)
+                    ValueEmitter, setup_logging)
 from .dataset import (BlockDataset, CatDataset, Chunker, Dataset,
                       EmptyDataset, MemoryDataset, TextLineDataset)
 from .graph import Graph, Source
@@ -44,6 +55,7 @@ __all__ = [
     "CatDataset", "BlockDataset",
     "MemoryInput", "PathInput", "TextInput",
     "Block", "BlockBuilder",
+    "setup_logging",
 ]
 
 logging.getLogger("dampr_tpu_torch").addHandler(logging.NullHandler())

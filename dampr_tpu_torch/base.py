@@ -2,8 +2,11 @@
 
 Port of ``dampr_tpu/base.py`` minus the out-of-core views: the
 ``Mapper``/``Streamable``/``Reducer`` interfaces, ``Map`` and its
-identity, the typed record ops ``ValueMap`` (``map``) and ``Rekey``
-(``group_by``/``fold_by``), the lifecycle and whole-partition operators
+identity, composition (``ComposedStreamable``, ``ComposedMapper``,
+:func:`fuse`), the typed record ops with their batch lowering
+(``ValueMap``, ``MapValues``, ``MapKeys``, ``Prefix``, ``Suffix``,
+``Filter``, ``FlatMap``, ``Rekey``, ``Sample``, ``Inspect``;
+:func:`record_op_chain`), ``Splitter``, the lifecycle and whole-partition operators
 (``BlockMapper``, ``StreamMapper``, ``BlockReducer``, ``StreamReducer``,
 ``Reduce``), the map-side crosses (``MapCrossJoin``, ``MapAllJoin``), the
 sort-merge joins, the key-sorted :class:`GroupedView`, the associative-fold
@@ -15,21 +18,31 @@ share their state; the stateless wrappers share themselves through
 :func:`_shared_instance_deepcopy`, so a user callable is never descended
 into unless it is a callable *object* with instance state.
 
-The streaming (over-budget) grouped view and merge join and the
-batched-UDF lowering of record ops are later slices.
+The streaming (over-budget) grouped view and merge join are a later
+slice.
 """
 
 import copy
 import functools
+import itertools
 import logging
 import threading
 import types
 
 import numpy as np
 
-from .ops import segment
+from .ops import hashing, segment
 
 log = logging.getLogger("dampr_tpu_torch.base")
+
+
+class Splitter(object):
+    """Partition routing of one key by its hash lanes, so it agrees with
+    ``Block.partition_ids``."""
+
+    def partition(self, key, n_partitions):
+        h1, _ = hashing.hash_keys([key])
+        return int(h1[0] % np.uint32(n_partitions))
 
 #: Callables always safe to share by reference: plain functions, builtins
 #: and classes deep-copy atomically, and a closure's captured state is the
@@ -157,9 +170,23 @@ class Map(Mapper, Streamable):
                                         type(self.mapper)))
 
 
+class ComposedStreamable(Streamable):
+    """Two Streamables chained: ``right`` streams ``left``'s output."""
+
+    def __init__(self, left, right):
+        if not isinstance(left, Streamable) or not isinstance(right,
+                                                              Streamable):
+            raise TypeError("ComposedStreamable takes two Streamables")
+        self.left = left
+        self.right = right
+
+    def stream(self, kvs):
+        return self.right.stream(self.left.stream(kvs))
+
+
 class ComposedMapper(Mapper):
-    """A Mapper whose output streams through a Streamable (how
-    ``custom_mapper`` drives a bare Streamable)."""
+    """A Mapper whose output streams through a Streamable (a fused stage,
+    or ``custom_mapper`` driving a bare Streamable)."""
 
     def __init__(self, left, right):
         if not isinstance(left, Mapper) or not isinstance(right, Streamable):
@@ -171,13 +198,57 @@ class ComposedMapper(Mapper):
         return self.right.stream(self.left.map(*datasets))
 
 
+def fuse(aggs):
+    """Compose a list of Streamables into one Mapper (map fusion: a chain
+    of record ops costs one pass)."""
+    if len(aggs) == 1:
+        return aggs[0]
+    s = aggs[1]
+    for agg in aggs[2:]:
+        s = ComposedStreamable(s, agg)
+    return ComposedMapper(aggs[0], s)
+
+
+def is_pure_record_stream(m):
+    """True when a (possibly fused) mapper chains only plain ``Map`` and
+    ``RecordOp`` steps, so records transform independently; False for
+    anything with per-chunk semantics (a ``StreamMapper`` sees a whole
+    partition, a ``BlockMapper`` has a per-chunk lifecycle)."""
+    if type(m) is Map or isinstance(m, RecordOp):
+        return True
+    if type(m) in (ComposedMapper, ComposedStreamable):
+        return is_pure_record_stream(m.left) and is_pure_record_stream(m.right)
+    return False
+
+
+# ---------------------------------------------------------------------------
+# Typed record ops: per-record transforms with a batch lowering
+# ---------------------------------------------------------------------------
+
 class RecordOp(Mapper, Streamable):
-    """A typed per-record transform (``stream`` maps a record iterator)."""
+    """A typed per-record transform.  ``apply_batch(keys, values) ->
+    (keys, values)`` runs it over parallel lists in one tight loop per op
+    per batch; ``stream`` is the record-at-a-time lowering.
+
+    A fused generator chain interleaves the ops per record; the batch
+    lowering runs op 1 over the whole batch first.  Each op still sees
+    records in stream order, so a self-contained stateful UDF (a dedupe
+    filter's seen-set) behaves the same either way; only state shared
+    across two ops of one chain could tell, and the batch size bounds
+    that.  Clones share the wrapper unless it holds a stateful callable
+    object (:func:`_shared_instance_deepcopy`)."""
 
     __deepcopy__ = _shared_instance_deepcopy
 
     def map(self, *datasets):
         return self.stream(_one_input(datasets).read())
+
+    def apply_batch(self, ks, vs):
+        raise NotImplementedError()
+
+
+def _fn_name(f):
+    return getattr(f, "__name__", f)
 
 
 class ValueMap(RecordOp):
@@ -186,21 +257,148 @@ class ValueMap(RecordOp):
     def __init__(self, f):
         self.f = f
 
+    def apply_batch(self, ks, vs):
+        f = self.f
+        return ks, [f(v) for v in vs]
+
     def stream(self, kvs):
         f = self.f
         for k, v in kvs:
             yield k, f(v)
 
     def __repr__(self):
-        return "ValueMap[{}]".format(getattr(self.f, "__name__", self.f))
+        return "ValueMap[{}]".format(_fn_name(self.f))
+
+
+class MapValues(RecordOp):
+    """(a, b) -> (a, f(b))  (PMap.map_values)."""
+
+    def __init__(self, f):
+        self.f = f
+
+    def apply_batch(self, ks, vs):
+        f = self.f
+        return ks, [(v[0], f(v[1])) for v in vs]
+
+    def stream(self, kvs):
+        f = self.f
+        for k, v in kvs:
+            yield k, (v[0], f(v[1]))
+
+
+class MapKeys(RecordOp):
+    """(a, b) -> (f(a), b)  (PMap.map_keys)."""
+
+    def __init__(self, f):
+        self.f = f
+
+    def apply_batch(self, ks, vs):
+        f = self.f
+        return ks, [(f(v[0]), v[1]) for v in vs]
+
+    def stream(self, kvs):
+        f = self.f
+        for k, v in kvs:
+            yield k, (f(v[0]), v[1])
+
+
+class Prefix(RecordOp):
+    """value -> (f(value), value)."""
+
+    def __init__(self, f):
+        self.f = f
+
+    def apply_batch(self, ks, vs):
+        f = self.f
+        return ks, [(f(v), v) for v in vs]
+
+    def stream(self, kvs):
+        f = self.f
+        for k, v in kvs:
+            yield k, (f(v), v)
+
+
+class Suffix(RecordOp):
+    """value -> (value, f(value))."""
+
+    def __init__(self, f):
+        self.f = f
+
+    def apply_batch(self, ks, vs):
+        f = self.f
+        return ks, [(v, f(v)) for v in vs]
+
+    def stream(self, kvs):
+        f = self.f
+        for k, v in kvs:
+            yield k, (v, f(v))
+
+
+class Filter(RecordOp):
+    """Keep records whose value satisfies the predicate."""
+
+    def __init__(self, f):
+        self.f = f
+
+    def apply_batch(self, ks, vs):
+        sel = list(map(self.f, vs))
+        if all(sel):
+            return ks, vs
+        return (list(itertools.compress(ks, sel)),
+                list(itertools.compress(vs, sel)))
+
+    def stream(self, kvs):
+        f = self.f
+        for k, v in kvs:
+            if f(v):
+                yield k, v
+
+    def __repr__(self):
+        return "Filter[{}]".format(_fn_name(self.f))
+
+
+class FlatMap(RecordOp):
+    """value -> iterable, flattened; the key repeats per emitted element,
+    in the input's order."""
+
+    def __init__(self, f):
+        self.f = f
+
+    def apply_batch(self, ks, vs):
+        repeat = itertools.repeat
+        f = self.f
+        nks, nvs = [], []
+        ext_k, ext_v = nks.extend, nvs.extend
+        for k, v in zip(ks, vs):
+            out = f(v)
+            if not isinstance(out, (list, tuple)):
+                out = list(out)
+            ext_v(out)
+            ext_k(repeat(k, len(out)))
+        return nks, nvs
+
+    def stream(self, kvs):
+        f = self.f
+        for k, v in kvs:
+            for vi in f(v):
+                yield k, vi
+
+    def __repr__(self):
+        return "FlatMap[{}]".format(_fn_name(self.f))
 
 
 class Rekey(RecordOp):
-    """(k, v) -> (key_f(v), value_f(v)): the re-key of a_group_by."""
+    """(k, v) -> (key_f(v), value_f(v)): the re-key of group_by,
+    a_group_by and sort_by."""
 
     def __init__(self, key_f, value_f=None):
         self.key_f = key_f
         self.value_f = value_f
+
+    def apply_batch(self, ks, vs):
+        key_f, value_f = self.key_f, self.value_f
+        nks = [key_f(v) for v in vs]
+        return nks, (vs if value_f is None else [value_f(v) for v in vs])
 
     def stream(self, kvs):
         key_f, value_f = self.key_f, self.value_f
@@ -212,7 +410,67 @@ class Rekey(RecordOp):
                 yield key_f(v), value_f(v)
 
     def __repr__(self):
-        return "Rekey[{}]".format(getattr(self.key_f, "__name__", self.key_f))
+        return "Rekey[{}]".format(_fn_name(self.key_f))
+
+
+class Sample(RecordOp):
+    """Keep each record with probability ``prob``.  Draws come from the
+    thread-local RNG that ``rand_factory`` returns, one per record in
+    stream order, so both lowerings consume the same random sequence."""
+
+    def __init__(self, prob, rand_factory):
+        self.prob = prob
+        self.rand_factory = rand_factory
+
+    def apply_batch(self, ks, vs):
+        rnd = self.rand_factory().random
+        prob = self.prob
+        sel = [rnd() < prob for _ in vs]
+        return ([k for k, s in zip(ks, sel) if s],
+                [v for v, s in zip(vs, sel) if s])
+
+    def stream(self, kvs):
+        rnd = self.rand_factory().random
+        prob = self.prob
+        for k, v in kvs:
+            if rnd() < prob:
+                yield k, v
+
+
+class Inspect(RecordOp):
+    """Debug pass-through: print each value as it streams."""
+
+    def __init__(self, prefix=""):
+        self.prefix = prefix
+
+    def apply_batch(self, ks, vs):
+        for v in vs:
+            print("{}: {}".format(self.prefix, v))
+        return ks, vs
+
+    def stream(self, kvs):
+        for k, v in kvs:
+            print("{}: {}".format(self.prefix, v))
+            yield k, v
+
+
+def record_op_chain(m):
+    """A (possibly fused) mapper as its ordered list of RecordOps, or None
+    when a link has no batch lowering.  ``Map(_identity)`` links drop
+    out."""
+    out = []
+
+    def walk(node):
+        if isinstance(node, RecordOp):
+            out.append(node)
+            return True
+        if type(node) is Map and node.mapper is _identity:
+            return True
+        if type(node) in (ComposedMapper, ComposedStreamable):
+            return walk(node.left) and walk(node.right)
+        return False
+
+    return out if walk(m) else None
 
 
 class BlockMapper(Mapper, Streamable):

@@ -110,6 +110,15 @@ class Block(object):
                    _column_from_list(vs, composite=True))
 
     @classmethod
+    def from_lists(cls, ks, vs):
+        """A block from parallel key/value lists (the batched record
+        path's native shape: no per-record tuple boxing)."""
+        if len(ks) != len(vs):
+            raise ValueError("key and value lists differ in length")
+        return cls(_column_from_list(ks),
+                   _column_from_list(vs, composite=True))
+
+    @classmethod
     def empty(cls):
         return cls(np.empty(0, dtype=object), np.empty(0, dtype=object),
                    np.empty(0, dtype=np.uint32), np.empty(0, dtype=np.uint32))

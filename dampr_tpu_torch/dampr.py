@@ -1,24 +1,38 @@
 """The fluent DSL: lazy, value-semantic pipeline construction.
 
-Port of ``dampr_tpu/dampr.py`` without the per-record RecordOps
-(``map_values``, ``filter``, ``flat_map``, ``count``, ``mean``,
-``sort_by``, ``topk``, ...), ``checkpoint``/``cached`` and the URL,
-JSON, ``explain``/``validate``/``submit`` surfaces: the sources
-(``Dampr.text``/``memory``/``read_input``/``from_dataset``), ``map``,
-the associative folds, ``group_by`` -> :class:`PReduce`, ``len()``, the
-custom operators, the joins (:class:`PJoin`) and map-side crosses, the
-sinks, and single- and multi-output runs.  Handles are immutable: every
-op returns a new handle over a copied graph; results read back
-key-sorted.
+Port of ``dampr_tpu/dampr.py`` without the URL input and the
+``explain``/``validate``/``submit``/resume surfaces: the sources
+(``Dampr.text``/``json``/``memory``/``read_input``/``from_dataset``),
+the per-record ops (``map``, ``map_values``, ``map_keys``, ``prefix``,
+``suffix``, ``filter``, ``flat_map``, ``sample``, ``inspect``), the
+associative folds (``fold_by``, ``a_group_by`` -> ``reduce``/``sum``/
+``first``, ``count``, ``mean``), ``sort_by``, ``topk``, ``group_by`` ->
+:class:`PReduce`, ``len()``, the custom operators, the joins
+(:class:`PJoin`) and map-side crosses, ``checkpoint``/``cached``, the
+sinks, and single- and multi-output runs.
+
+Every chained call is its own stage node; the plan (:mod:`.plan`) fuses
+chains of per-record stages into one executed map stage at ``run()``
+time, and ``checkpoint()`` is the barrier it never fuses across.
+Handles are immutable: every op returns a new handle over a copied
+graph; results read back key-sorted.
 """
 
+import itertools
+import json
+import logging
 import random
+import sys
+import threading
 
-from .base import (AssocFoldReducer, ComposedMapper, KeyedInnerJoin,
-                   KeyedLeftJoin, KeyedOuterJoin, KeyedReduce, Map,
-                   MapAllJoin, MapCrossJoin, Mapper, PartialReduceCombiner,
-                   Reducer, Rekey, StreamMapper, StreamReducer, Streamable,
-                   ValueMap, _identity)
+from . import settings
+from .base import (AssocFoldReducer, ComposedMapper, Filter, FlatMap,
+                   Inspect, KeyedInnerJoin, KeyedLeftJoin, KeyedOuterJoin,
+                   KeyedReduce, Map, MapAllJoin, MapCrossJoin, MapKeys,
+                   MapValues, Mapper, PartialReduceCombiner, Prefix, Reducer,
+                   Rekey, Sample, StreamMapper, StreamReducer, Streamable,
+                   Suffix, ValueMap, _identity, _one_input,
+                   _shared_instance_deepcopy)
 from .dataset import CatDataset, Chunker
 from .graph import GMap, Graph, Source
 from .inputs import MemoryInput, PathInput
@@ -73,6 +87,8 @@ class PBase(object):
         carries the run's metrics."""
         if name is None:
             name = "dampr/{}".format(random.random())
+        if settings.seed is not None:
+            _reset_sample_rngs()
         runner = self.pmer.runner(name, self.pmer.graph, **kwargs)
         ds = runner.run([self.source])
         em = ValueEmitter(ds[0])
@@ -85,8 +101,49 @@ class PBase(object):
         return self.run(**kwargs).read(k)
 
 
+class _TopKBlocks(Mapper):
+    """A chunk's top-k candidates: numeric 1D value lanes select with one
+    ``np.argpartition`` per block, then the per-block winners merge
+    through ``nlargest``; anything else streams through ``nlargest`` over
+    ``(x, x)`` pairs.  Either way the candidates are ``(1, (x, x))``."""
+
+    __deepcopy__ = _shared_instance_deepcopy
+
+    def __init__(self, k):
+        self.k = k
+
+    def map(self, *datasets):
+        import heapq
+
+        import numpy as np
+
+        from .blocks import pylist
+
+        ds = _one_input(datasets)
+        k = self.k
+        if k <= 0:
+            return
+        if hasattr(ds, "iter_blocks"):
+            blocks = [b for b in ds.iter_blocks() if len(b)]
+            if all(b.values.dtype != object and b.values.ndim == 1
+                   for b in blocks):
+                cands = []
+                for b in blocks:
+                    v = b.values
+                    if len(v) > k:
+                        v = v[np.argpartition(v, len(v) - k)[len(v) - k:]]
+                    cands.extend((x, x) for x in pylist(v))
+                for p in heapq.nlargest(k, cands):
+                    yield 1, p
+                return
+        it = (v for _k, v in ds.read())
+        for p in heapq.nlargest(k, ((x, x) for x in it)):
+            yield 1, p
+
+
 class PMap(PBase):
-    """A lazy collection; every chained op is its own stage node."""
+    """A lazy collection; every chained op is its own stage node (the plan
+    fuses per-record chains at run time)."""
 
     def _add_mapper(self, mapper, options=None):
         source, pmer = self.pmer._add_mapper([self.source], mapper,
@@ -107,9 +164,66 @@ class PMap(PBase):
                 break
         return self._add_mapper(Map(_identity))
 
+    def checkpoint(self, force=False, combiner=None, options=None):
+        """An explicit materialization barrier: the stage's output is
+        computed at this boundary and the plan never fuses across it
+        (``options["barrier"]``).  ``force`` is accepted for API
+        compatibility (every checkpoint materializes)."""
+        opts = dict(options) if options else {}
+        opts.setdefault("barrier", True)
+        source, pmer = self.pmer._add_mapper([self.source], Map(_identity),
+                                             combiner=combiner, options=opts)
+        return PMap(source, pmer)
+
+    def cached(self, **options):
+        """Materialize this stage's output and pin it in RAM (it never
+        spills)."""
+        options["memory"] = True
+        return self.checkpoint(force=True, options=options)
+
+    # -- per-record ops: typed RecordOps, run a batch at a time ------------
     def map(self, f):
         """Map each value through ``f``."""
         return self._add_mapper(ValueMap(f))
+
+    def map_values(self, f):
+        """Map the second element of two-tuple values."""
+        return self._add_mapper(MapValues(f))
+
+    def map_keys(self, f):
+        """Map the first element of two-tuple values."""
+        return self._add_mapper(MapKeys(f))
+
+    def prefix(self, f):
+        """value -> (f(value), value)."""
+        return self._add_mapper(Prefix(f))
+
+    def suffix(self, f):
+        """value -> (value, f(value))."""
+        return self._add_mapper(Suffix(f))
+
+    def filter(self, f):
+        """Keep the values for which ``f`` holds."""
+        return self._add_mapper(Filter(f))
+
+    def flat_map(self, f):
+        """Map each value to an iterable and flatten."""
+        return self._add_mapper(FlatMap(f))
+
+    def sample(self, prob):
+        """Keep each record with probability ``prob``."""
+        if not 0 <= prob <= 1.0:
+            raise ValueError("sample probability must lie in [0, 1]")
+        return self._add_mapper(Sample(prob, _get_rand))
+
+    def inspect(self, prefix="", exit=False):
+        """Print records as they stream through (a debug pass-through);
+        ``exit=True`` runs up to here and exits."""
+        ins = self._add_mapper(Inspect(prefix))
+        if exit:
+            ins.run()
+            sys.exit(0)
+        return ins
 
     def group_by(self, key, vf=None):
         """General (non-associative) grouping; returns a PReduce.  ``vf``
@@ -129,6 +243,57 @@ class PMap(PBase):
         """Fold values by each record's existing key (no re-key pass):
         scanner blocks keep their cached hash lanes and numeric counts."""
         return ARReduce(self).reduce(binop, **options)
+
+    def sort_by(self, key, **options):
+        """Sort values globally by ``key``: the final read is key-sorted.
+        The re-key is a plain map stage, so per-record ops after it fuse
+        with it."""
+        return self._add_mapper(Rekey(key), options=options or None)
+
+    def count(self, key=lambda x: x, **options):
+        """Count values per key (a segment sum)."""
+        return self.a_group_by(key, lambda v: 1).reduce(segment.SUM,
+                                                        **options)
+
+    def mean(self, key=lambda x: 1, value=lambda x: x, **options):
+        """Per-key mean.  The (sum, count) pair is the value: int or float
+        values build a 2D lane that ``PAIR_SUM`` folds in one vectorized
+        pass; anything else folds pairwise on host."""
+        def _pair(v):
+            x = value(v)
+            # the count takes the value's lane type, so the pair stays
+            # type-uniform (a (float, int) tuple would be an object lane)
+            return (x, 1.0) if type(x) is float else (x, 1)
+
+        def _avg(x):
+            return (x[0], x[1][0] / float(x[1][1]))
+
+        return (self.a_group_by(key, _pair)
+                .reduce(segment.PAIR_SUM, **options)
+                .map(_avg))
+
+    def topk(self, k, value=None):
+        """The ``k`` largest values by ``value`` (the value itself by
+        default), ordered by the (sort key, value) pair.  Each chunk
+        offers its candidates; one partition reduce merges them."""
+        import heapq
+
+        vf = value
+
+        def _cands(values):
+            pairs = (((x, x) for x in values) if vf is None
+                     else ((vf(x), x) for x in values))
+            return ((1, p) for p in heapq.nlargest(k, pairs))
+
+        def _select(groups):
+            cands = (p for _one, ps in groups for p in ps)
+            return ((p[1], 1) for p in heapq.nlargest(k, cands))
+
+        if vf is None:
+            head = self.custom_mapper(_TopKBlocks(k))
+        else:
+            head = self.partition_map(_cands)
+        return head.partition_reduce(_select).map(lambda x: x[0])
 
     def len(self):
         """Count the collection's records, as a one-value collection.  The
@@ -234,6 +399,10 @@ class PMap(PBase):
         """Tab-join tuple values, then sink."""
         return self.map(lambda x: u"\t".join(str(p) for p in x)).sink(path)
 
+    def sink_json(self, path):
+        """JSON-serialize values, one a line, then sink."""
+        return self.map(json.dumps).sink(path)
+
 
 class ARReduce(object):
     """Associative reduce handle: fold map-side, shuffle the partials,
@@ -254,6 +423,14 @@ class ARReduce(object):
         new_source, pmer = pmer._add_reducer(
             [source], AssocFoldReducer(op), options=options)
         return PMap(new_source, pmer)
+
+    def first(self, **options):
+        """The first value seen per key."""
+        return self.reduce(segment.FIRST, **options)
+
+    def sum(self, **options):
+        """Sum the values per key (a segment sum for numeric values)."""
+        return self.reduce(segment.SUM, **options)
 
 
 def _pair_lists(left, right):
@@ -374,6 +551,11 @@ class Dampr(object):
         return cls.read_input(PathInput(fname, chunk_size, followlinks))
 
     @classmethod
+    def json(cls, *args, **kwargs):
+        """Line-delimited JSON records."""
+        return cls.text(*args, **kwargs).map(json.loads)
+
+    @classmethod
     def run(cls, *pmers, **kwargs):
         """Run several collections in one pass (shared stages run once);
         returns one ValueEmitter per argument, sharing the run's stats."""
@@ -388,6 +570,8 @@ class Dampr(object):
                      else pm.pmer.graph.union(graph))
             sources.append(pm.source)
         name = kwargs.pop("name", None) or "dampr/{}".format(random.random())
+        if settings.seed is not None:
+            _reset_sample_rngs()
         runner = pm.pmer.runner(name, graph, **kwargs)
         datasets = runner.run(sources)
         stats = RunStats([s.as_dict() for s in runner.stats],
@@ -411,3 +595,51 @@ class Dampr(object):
     def _add_sink(self, inputs, sinker, path):
         output, ng = self.graph.add_sink(inputs, sinker, path)
         return output, Dampr(ng, self.runner)
+
+
+# sample()'s per-thread RNG: jobs run on threads, and one shared Random
+# would serialize them on its lock and interleave their draws.  With
+# settings.seed set, each thread's RNG derives from (seed, the thread's
+# index in this run), re-derived at every run start, so a serial run
+# reproduces exactly and a parallel one per thread stream.  Without a
+# seed, each thread's RNG seeds from the OS.
+_RAND_LOCAL = threading.local()
+_RAND_LOCK = threading.Lock()
+_RAND_STATE = {"epoch": 0, "next_index": None}
+
+
+def _reset_sample_rngs():
+    """Start a new RNG generation: every thread re-seeds from (seed,
+    index within the run) at its next draw."""
+    with _RAND_LOCK:
+        _RAND_STATE["epoch"] += 1
+        _RAND_STATE["next_index"] = itertools.count()
+
+
+def _get_rand():
+    seed = settings.seed
+    st = _RAND_LOCAL
+    if seed is None:
+        r = getattr(st, "rand", None)
+        if r is None or getattr(st, "seeded", False):
+            r = random.Random()
+            st.rand, st.seeded = r, False
+        return r
+    epoch = _RAND_STATE["epoch"]
+    if (getattr(st, "epoch", None) != epoch
+            or not getattr(st, "seeded", False)):
+        with _RAND_LOCK:
+            counter = _RAND_STATE["next_index"]
+            if counter is None:  # a seeded draw before any run
+                counter = _RAND_STATE["next_index"] = itertools.count()
+            idx = next(counter)
+        st.rand = random.Random(seed * 1000003 + idx * 7919)
+        st.epoch, st.seeded = epoch, True
+    return st.rand
+
+
+def setup_logging(debug=False):
+    level = logging.DEBUG if debug else logging.INFO
+    logging.basicConfig(
+        level=level,
+        format="%(asctime)s [%(levelname)s] %(name)s: %(message)s")

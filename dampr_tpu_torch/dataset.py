@@ -3,9 +3,14 @@
 Port of ``dampr_tpu/dataset.py`` for plain text and in-memory records
 (gzip taps and ``StreamDataset`` are a later slice).  Every dataset
 yields ``(key, value)`` pairs; text taps yield ``(byte_offset, line)``.
+The batched record path reads through ``read_lists(batch)`` where a
+dataset has it: parallel key and value lists of at most ``batch``
+records, the same records in the same order as ``read()``.
 """
 
 import os
+
+import numpy as np
 
 
 class Chunker(object):
@@ -42,6 +47,12 @@ class MemoryDataset(Dataset):
     def read(self):
         return iter(self.kvs)
 
+    def read_lists(self, batch):
+        kvs = self.kvs if isinstance(self.kvs, list) else list(self.kvs)
+        for i in range(0, len(kvs), batch):
+            part = kvs[i:i + batch]
+            yield [k for k, _ in part], [v for _, v in part]
+
 
 class BlockDataset(Dataset):
     """View over a list of materialized block refs."""
@@ -57,6 +68,15 @@ class BlockDataset(Dataset):
         for blk in self.iter_blocks():
             for kv in blk.iter_pairs():
                 yield kv
+
+    def read_lists(self, batch):
+        """Each block's lanes unboxed a whole lane at a time."""
+        for blk in self.iter_blocks():
+            if not len(blk):
+                continue
+            ks, vs = blk.to_lists()
+            for i in range(0, len(ks), batch):
+                yield ks[i:i + batch], vs[i:i + batch]
 
 
 class CatDataset(Dataset):
@@ -111,6 +131,31 @@ class TextLineDataset(Dataset):
                 pos += len(raw)
                 if self.end is not None and pos > self.end:
                     break
+
+    def read_lists(self, batch):
+        """``read()``'s records as parallel lists: lines split at the C
+        level over the bounded byte blocks, keys from a cumulative sum of
+        the line lengths."""
+        carry = b""
+        with open(self.path, "rb") as f:
+            pos = self._owned_start(f)
+        for buf in self.iter_byte_blocks():
+            data = carry + buf if carry else buf
+            lines = data.split(b"\n")
+            carry = lines.pop()  # the partial last line, or b""
+            if not lines:
+                continue
+            lens = np.fromiter(map(len, lines), dtype=np.int64,
+                               count=len(lines)) + 1
+            offs = pos + np.concatenate(
+                ([0], np.cumsum(lens[:-1], dtype=np.int64)))
+            pos += int(lens.sum())
+            ks = offs.tolist()
+            vs = [r.decode("utf-8") for r in lines]
+            for i in range(0, len(ks), batch):
+                yield ks[i:i + batch], vs[i:i + batch]
+        if carry:
+            yield [pos], [carry.decode("utf-8")]
 
     def read_bytes(self):
         """The chunk's owned bytes as one buffer."""

@@ -33,14 +33,16 @@ class Source(object):
 
 class StageNode(object):
     """Base for stage nodes; ``options`` carries per-op settings (binop,
-    exec_target, ...)."""
+    exec_target, ...).  ``_provenance`` is set on a node the plan fused:
+    the descriptions of the stages it was built from."""
 
-    __slots__ = ("inputs", "output", "options")
+    __slots__ = ("inputs", "output", "options", "_provenance")
 
     def __init__(self, inputs, output, options=None):
         self.inputs = list(inputs)
         self.output = output
         self.options = options or {}
+        self._provenance = None
 
 
 class GInput(StageNode):

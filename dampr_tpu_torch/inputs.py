@@ -59,6 +59,11 @@ def iter_files(paths, follow_links=True):
                     yield item
 
 
+def read_paths(paths, follow_links=True):
+    """Just the paths of :func:`iter_files`."""
+    return (p for p, _size in iter_files(paths, follow_links))
+
+
 def plan_file(path, size, chunk_size):
     """Byte-range chunk specs for one plain text file."""
     if size:

@@ -17,9 +17,12 @@ as int64 holding the unsigned value and multiplies modulo 2^32 with
 int64, exactly as in the reference.
 """
 
+import time
+
 import numpy as np
 
 from .. import settings
+from . import devtime
 
 _FNV_OFFSET1 = np.uint32(2166136261)
 _FNV_OFFSET2 = np.uint32(0x9747B28C)
@@ -41,18 +44,21 @@ def _len_bucket(max_len):
 
 
 def encode_str_keys(keys):
-    """Encode str/bytes keys as (padded uint8 [N, L], lengths int32 [N])."""
+    """Encode str/bytes keys as (padded uint8 [N, L], lengths int32 [N]):
+    the keys' bytes joined once and scattered into their rows by one
+    vectorized store."""
     bs = [k.encode("utf-8") if isinstance(k, str) else bytes(k) for k in keys]
     n = len(bs)
-    max_len = max((len(b) for b in bs), default=1)
-    L = _len_bucket(max(max_len, 1))
+    lens = np.fromiter(map(len, bs), dtype=np.int64, count=n)
+    L = _len_bucket(max(int(lens.max()) if n else 1, 1))
     mat = np.zeros((n, L), dtype=np.uint8)
-    lens = np.empty(n, dtype=np.int32)
-    for i, b in enumerate(bs):
-        lens[i] = len(b)
-        if b:
-            mat[i, : len(b)] = np.frombuffer(b, dtype=np.uint8)
-    return mat, lens
+    total = int(lens.sum())
+    if total:
+        # byte j of key i goes to flat position i * L + j
+        shift = np.arange(n, dtype=np.int64) * L - (np.cumsum(lens) - lens)
+        dest = np.arange(total, dtype=np.int64) + np.repeat(shift, lens)
+        mat.reshape(-1)[dest] = np.frombuffer(b"".join(bs), dtype=np.uint8)
+    return mat, lens.astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -144,11 +150,16 @@ def _fnv(mat, lens):
     from . import fnv
 
     dev = settings.resolve_device()
-    h1, h2 = fnv.fnv(torch.from_numpy(np.ascontiguousarray(mat)).to(dev),
-                     torch.from_numpy(np.ascontiguousarray(
-                         lens, dtype=np.int32)).to(dev))
-    return (h1.cpu().numpy().view(np.uint32).copy(),
-            h2.cpu().numpy().view(np.uint32).copy())
+    t0 = time.perf_counter()
+    mat = np.ascontiguousarray(mat)
+    lens = np.ascontiguousarray(lens, dtype=np.int32)
+    h1, h2 = fnv.fnv(torch.from_numpy(mat).to(dev),
+                     torch.from_numpy(lens).to(dev))
+    out = (h1.cpu().numpy().view(np.uint32).copy(),
+           h2.cpu().numpy().view(np.uint32).copy())
+    devtime.add("fnv_lanes", time.perf_counter() - t0,
+                mat.nbytes + lens.nbytes, 8 * n)
+    return out
 
 
 def _mix_int(vals_i64):
@@ -158,10 +169,13 @@ def _mix_int(vals_i64):
     import torch
 
     dev = settings.resolve_device()
+    t0 = time.perf_counter()
     h1, h2 = _mix_int_torch(torch.from_numpy(
         np.ascontiguousarray(vals_i64, dtype=np.int64)).to(dev))
-    return (h1.cpu().numpy().astype(np.uint32),
-            h2.cpu().numpy().astype(np.uint32))
+    out = (h1.cpu().numpy().astype(np.uint32),
+           h2.cpu().numpy().astype(np.uint32))
+    devtime.add("mix_int", time.perf_counter() - t0, 8 * n, 16 * n)
+    return out
 
 
 # ---------------------------------------------------------------------------

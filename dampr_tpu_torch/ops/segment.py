@@ -11,9 +11,12 @@ stable ``torch.sort`` over an order-preserving int64 packing of the
 unsigned lanes, and ``index_add_``/``scatter_reduce`` per segment.
 """
 
+import time
+
 import numpy as np
 
 from .. import settings
+from . import devtime
 
 # ---------------------------------------------------------------------------
 # Associative fold descriptors
@@ -22,14 +25,18 @@ from .. import settings
 
 class AssocOp(object):
     """An associative binop.  ``kind`` is a device-foldable tag
-    ('sum'|'min'|'max') or None for an opaque Python binop; ``fn`` is the
-    Python binop."""
+    ('sum'|'min'|'max'|'first') or None for an opaque Python binop; ``fn``
+    is the Python binop.  ``elementwise`` marks ops whose ``fn`` is
+    elementwise over tuple values, so 2D composite lanes may fold
+    vectorized (a plain ``min`` over tuples is lexicographic, not
+    elementwise, and stays on the ``fn`` path)."""
 
-    __slots__ = ("kind", "fn")
+    __slots__ = ("kind", "fn", "elementwise")
 
-    def __init__(self, kind, fn):
+    def __init__(self, kind, fn, elementwise=False):
         self.kind = kind
         self.fn = fn
+        self.elementwise = elementwise
 
     def __call__(self, a, b):
         return self.fn(a, b)
@@ -38,6 +45,12 @@ class AssocOp(object):
 SUM = AssocOp("sum", lambda a, b: a + b)
 MIN = AssocOp("min", lambda a, b: a if a <= b else b)
 MAX = AssocOp("max", lambda a, b: a if a >= b else b)
+FIRST = AssocOp("first", lambda a, _b: a)
+#: Elementwise pair sum: composite (sum, count) accumulators (``mean()``).
+#: The "sum" kind folds 2D lanes vectorized; the fn gives object-lane
+#: tuples an exact pairwise fold (plain SUM.fn would concatenate them).
+PAIR_SUM = AssocOp("sum", lambda a, b: (a[0] + b[0], a[1] + b[1]),
+                   elementwise=True)
 
 
 def as_assoc_op(binop):
@@ -69,11 +82,14 @@ def hash_sort_perm(h1, h2):
         import torch
 
         dev = settings.resolve_device()
+        t0 = time.perf_counter()
         key = packed_lane_key(
             torch.from_numpy(h1.astype(np.int64)).to(dev),
             torch.from_numpy(h2.astype(np.int64)).to(dev))
         _, perm = torch.sort(key, stable=True)
-        return perm.to(torch.int32).cpu().numpy()
+        out = perm.to(torch.int32).cpu().numpy()
+        devtime.add("hash_sort", time.perf_counter() - t0, 16 * n, 4 * n)
+        return out
     return np.lexsort((h2, h1)).astype(np.int32)
 
 
@@ -207,11 +223,13 @@ def _device_fold(vals, starts, ends, kind):
     import torch
 
     dev = settings.resolve_device()
+    t0 = time.perf_counter()
     ng = len(starts)
     seg = torch.repeat_interleave(
         torch.arange(ng, device=dev),
         torch.from_numpy((ends - starts).astype(np.int64)).to(dev))
-    v = torch.from_numpy(np.ascontiguousarray(vals)).to(dev)
+    vals = np.ascontiguousarray(vals)
+    v = torch.from_numpy(vals).to(dev)
     out = torch.zeros((ng,) + tuple(v.shape[1:]), dtype=v.dtype, device=dev)
     if kind == "sum":
         out.index_add_(0, seg, v)
@@ -220,13 +238,17 @@ def _device_fold(vals, starts, ends, kind):
             seg = seg[:, None].expand_as(v)
         out.scatter_reduce_(0, seg, v, reduce="amin" if kind == "min"
                             else "amax", include_self=False)
-    return out.cpu().numpy()
+    folded = out.cpu().numpy()
+    devtime.add("segment_fold", time.perf_counter() - t0,
+                vals.nbytes + 8 * ng, folded.nbytes)
+    return folded
 
 
 def fold_sorted(groups, op):
     """Fold each group's values with ``op`` -> compacted Block (one record
-    per group, hashes preserved): device segment folds when ``op.kind`` is
-    recognized and the lane qualifies, host otherwise."""
+    per group, hashes preserved): ``first`` gathers each group's first
+    record; device segment folds when ``op.kind`` is sum/min/max and the
+    lane qualifies (1D, or 2D under an elementwise op); host otherwise."""
     from ..blocks import Block, _column_from_list, pylist
 
     sb = groups.block
@@ -240,10 +262,16 @@ def fold_sorted(groups, op):
     kh2 = sb.h2.take(starts)
     keys = sb.keys.take(starts)
 
-    # 2D composite lanes fold through the binop: a generic add/min/max over
-    # tuples concatenates or compares lexicographically, never elementwise.
+    if op.kind == "first":
+        # The stable sort keeps arrival order within a group, so its first
+        # record sits at its start: a gather, any dtype.
+        return Block(keys, sb.values[starts], kh1, kh2)
+
+    # 2D composite lanes fold vectorized only under an elementwise op
+    # (PAIR_SUM); a generic add/min/max over tuples concatenates or
+    # compares lexicographically and takes the fn path below.
     if (op.kind in _NP_FOLD and sb.numeric_values
-            and sb.values.ndim == 1):
+            and (sb.values.ndim == 1 or op.elementwise)):
         vals = sb.values
         if vals.dtype == np.bool_:
             vals = vals.astype(np.int64)  # Python semantics: True + True == 2
@@ -258,22 +286,46 @@ def fold_sorted(groups, op):
                 and vals.dtype.itemsize < 8):
             vals = vals.astype(np.int64)  # narrow int sums would wrap
         if settings.use_device_for(n) and _device_fold_exact(vals, op.kind):
-            # segment ids from the collision-repaired group bounds
+            # segment ids from the collision-repaired group bounds; a 2D
+            # lane folds its rows with one index_add_
             folded = _device_fold(vals, starts, ends, op.kind)
         else:
             folded = _NP_FOLD[op.kind].reduceat(vals, starts)
         return Block(keys, folded, kh1, kh2)
 
-    # Host generic fold over boxed values.
+    # Host generic fold over boxed values, converted a bounded window at a
+    # time: a run of whole groups fitting one window boxes once, and one
+    # oversized group folds across windows carrying its accumulator.
+    W = 65536
     fn = op.fn
     out_vals = [None] * ng
     varr = sb.values
-    for gi in range(ng):
-        it = iter(pylist(varr[int(starts[gi]):int(ends[gi])]))
-        acc = next(it)
-        for v in it:
-            acc = fn(acc, v)
-        out_vals[gi] = acc
+    gi = 0
+    while gi < ng:
+        s0, e0 = int(starts[gi]), int(ends[gi])
+        if e0 - s0 > W:
+            acc, first = None, True
+            for w0 in range(s0, e0, W):
+                it = iter(pylist(varr[w0:min(e0, w0 + W)]))
+                if first:
+                    acc, first = next(it), False
+                for v in it:
+                    acc = fn(acc, v)
+            out_vals[gi] = acc
+            gi += 1
+            continue
+        ge = gi + 1
+        while ge < ng and int(ends[ge]) - s0 <= W:
+            ge += 1
+        win = pylist(varr[s0:int(ends[ge - 1])])
+        ls = (starts[gi:ge] - s0).tolist()
+        le = (ends[gi:ge] - s0).tolist()
+        for i in range(ge - gi):
+            acc = win[ls[i]]
+            for j in range(ls[i] + 1, le[i]):
+                acc = fn(acc, win[j])
+            out_vals[gi + i] = acc
+        gi = ge
     return Block(keys, _column_from_list(out_vals), kh1, kh2)
 
 

@@ -3,10 +3,12 @@
 Port of ``dampr_tpu/plan/lower.py`` (``analyze``/``apply``; history-driven
 placement, the handoff edges and shuffle routing are later slices):
 
-- a **map** stage lowers when its mapper is a native-vocabulary scanner
-  (:func:`dampr_tpu_torch.ops.lower.claims`), its map-side combiner (if
-  any) is a ``sum``, and every consumer of its output folds it with a
-  keyed ``sum``.  The device
+- a **map** stage lowers when the head of its (possibly fused) mapper
+  chain is a native-vocabulary scanner
+  (:func:`dampr_tpu_torch.ops.lower.claims`) and the rest of the chain is
+  identity, its map-side combiner (if any) is a ``sum``, and every
+  consumer of its output (through bare checkpoints) folds it with a keyed
+  ``sum``.  The device
   program emits partial counts per batch where the host scanner emits them
   per window; only a summing consumer is invariant to that regrouping.
 - a **reduce** stage lowers when it is an associative ``sum``/``min``/
@@ -35,12 +37,11 @@ def _fold_kind(stage):
     return getattr(op, "kind", None)
 
 
-def _consumers_all_sum_folds(graph, output, protected):
-    """Does every consumer of ``output`` fold it with a keyed associative
-    ``sum``?  A requested output (``protected``) is read directly and so
-    never qualifies.  (The reference also looks through bare checkpoints;
-    the port has no ``checkpoint()`` yet.)"""
-    if output in protected:
+def _consumers_all_sum_folds(graph, output, protected, _depth=0):
+    """Does every consumer of ``output`` (looking through bare
+    checkpoints) fold it with a keyed associative ``sum``?  A requested
+    output (``protected``) is read directly and so never qualifies."""
+    if _depth > len(graph.stages) or output in protected:
         return False
     consumers = [s for s in graph.stages
                  if output in getattr(s, "inputs", ())]
@@ -53,9 +54,15 @@ def _consumers_all_sum_folds(graph, output, protected):
                     and red.op.kind == "sum"):
                 continue
             return False
-        if (isinstance(stage, GMap) and ir.is_identity_mapper(stage.mapper)
-                and _fold_kind(stage) == "sum"):
-            continue
+        if isinstance(stage, GMap) and ir.is_identity_mapper(stage.mapper):
+            kind = _fold_kind(stage)
+            if kind == "sum":
+                continue
+            if kind is None and not ir.has_combiner(stage) and \
+                    _consumers_all_sum_folds(graph, stage.output, protected,
+                                             _depth + 1):
+                continue  # a bare checkpoint: its consumers decide
+            return False
         return False
     return True
 
@@ -67,10 +74,15 @@ def _map_decision(stage, graph, protected):
         return "host", "killed by stage option lower=False"
     if len(stage.inputs) != 1:
         return "host", "multi-input map (join shapes stay host)"
-    head = stage.mapper
+    leaves = ir.flatten_mapper(stage.mapper)
+    head, tail = leaves[0], leaves[1:]
     if ops_lower.claims(head) is None:
         return "host", "no device lowering for {} (opaque UDF)".format(
             ir.part_name(head))
+    bad = [p for p in tail if not ir.is_identity_mapper(p)]
+    if bad:
+        return "host", "post-scan ops not in the device vocabulary: " + \
+            ", ".join(ir.part_name(p) for p in bad)
     kind = _fold_kind(stage)
     if ir.has_combiner(stage) and kind != "sum":
         return "host", "combiner kind {!r} not sum — partial-count " \

@@ -10,29 +10,37 @@ reduce stage runs one job per partition id, empty ones included, over one
 in-memory key-sorted :class:`~.base.GroupedView` per input: folds, user
 reducers and the sort-merge joins of co-partitioned inputs.
 
-``run_map`` has the two branches of the reference's map job:
+``run_map`` has the branches of the reference's map job:
 
 - a **device-lowered** scanner stage (``exec_target == "device"``, set by
   :mod:`.plan.lower`) drives the chunk's line-aligned windows through
   :class:`.ops.lower.DeviceTokenFoldSink` — the FNV and segmented-fold
   kernels on ``settings.device``;
 - everything else runs on host: ``map_blocks`` scanners, identity block
-  pass-through, or the per-record ``mapper.map`` path into blocks.
+  pass-through, the **batched record path** (a chain of typed record ops,
+  ``base.record_op_chain``, run a batch at a time through each op's
+  ``apply_batch``), or the per-record ``mapper.map`` path into blocks.
 
 Either way the job's blocks go through the map-side combine
 (``segment.fold_block``) when the stage carries one, then hash
-partitioning into the store.  ``stats()`` (the emitter's ``stats()``)
-reports the plan, per-stage targets and, under ``device``,
-``device_stages``, ``device_fraction``, the h2d/d2h bytes and each
-kernel's launches during the run.
+partitioning into the store; a ``cached()`` stage registers them pinned.
+``stats()`` (the emitter's ``stats()``) reports the plan (rules fired,
+stages before and after fusion, per-stage targets) and, under
+``device``, ``device_stages``, ``device_fraction``, the h2d/d2h bytes,
+each kernel's launches and the keyed batch ops' device calls
+(``keyed``) during the run; every job charges its keyed calls to the
+run's store (:mod:`.ops.devtime`), so their copies count in the h2d/d2h
+bytes.
 
-Mesh execution, mitigation, faults/resume, reuse, the overlap executor,
-the observability plane, the tiny-input and tiny-fold fast paths, scan
+Mesh execution, mitigation, faults/resume and quarantine, reuse, the
+overlap executor, the observability plane and per-operator profiler, the
+certified lane programs, the tiny-input and tiny-fold fast paths, scan
 sharing and the out-of-core (over-budget) reduce and join paths are
 later slices.
 """
 
 import copy
+import itertools
 import logging
 import os
 import threading
@@ -45,6 +53,7 @@ from . import base, plan, settings, storage
 from .blocks import Block, BlockBuilder
 from .dataset import BlockDataset, CatDataset, Chunker, Dataset, SinkDataset
 from .graph import GInput, GMap, GReduce, GSink
+from .ops import devtime
 from .ops import fnv as _fnv
 from .ops import lower as ops_lower
 from .ops import segfold as _segfold
@@ -82,6 +91,72 @@ class _OrderKey(object):
             return bool(self.k < other.k)
         except TypeError:
             return type(self.k).__name__ < type(other.k).__name__
+
+
+def _record_batches(chunk, B):
+    """The chunk's records as parallel ``(keys, values)`` lists of at most
+    ``B``: ``read_lists`` where the dataset has it, else slices of
+    ``read()``."""
+    reader = getattr(chunk, "read_lists", None)
+    if reader is not None:
+        return reader(B)
+
+    def slices(it=iter(chunk.read())):
+        while True:
+            ks, vs = [], []
+            for k, v in itertools.islice(it, B):
+                ks.append(k)
+                vs.append(v)
+            if not ks:
+                return
+            yield ks, vs
+
+    return slices()
+
+
+def _run_record_chain(chain, batches, B, push):
+    """Run a record-op chain over ``batches`` through each op's
+    ``apply_batch`` and push the survivors as ``B``-record blocks.
+
+    Survivors accumulate across input batches, so a selective filter
+    still emits full blocks; a ``FlatMap`` takes its input in slices sized
+    to its observed fan-out, so ``B x fan-out`` records never exist at
+    once.  Slices keep stream order, so results equal the streamed
+    chain's."""
+    pk, pv = [], []
+
+    def emit(ks, vs):
+        pk.extend(ks)
+        pv.extend(vs)
+        while len(pk) >= B:
+            push(Block.from_lists(pk[:B], pv[:B]))
+            del pk[:B]
+            del pv[:B]
+
+    def run(ks, vs, start):
+        for i in range(start, len(chain)):
+            op = chain[i]
+            if type(op) is base.FlatMap and len(ks) > 1024:
+                n, at, step = len(ks), 0, 1024
+                while at < n:
+                    took = min(step, n - at)
+                    sks, svs = op.apply_batch(ks[at:at + took],
+                                              vs[at:at + took])
+                    at += took
+                    if sks:
+                        fan = -(-len(sks) // took)
+                        step = max(64, min(B, B // fan))
+                        run(sks, svs, i + 1)
+                return
+            ks, vs = op.apply_batch(ks, vs)
+            if not ks:
+                return
+        emit(ks, vs)
+
+    for ks, vs in batches:
+        run(ks, vs, 0)
+    if pk:
+        push(Block.from_lists(pk, pv))
 
 
 class OutputDataset(Dataset):
@@ -165,13 +240,18 @@ class MTRunner(object):
     # -- helpers -----------------------------------------------------------
     def _pool_map(self, fn, jobs, n_workers):
         """Run ``fn`` over ``jobs`` on a thread pool; every job's
-        exception surfaces (results are read in order)."""
+        exception surfaces (results are read in order) and its keyed
+        device calls are charged to this run's store."""
+        def charged(j):
+            with devtime.charging(self.store):
+                return fn(j)
+
         workers = max(1, min(n_workers, len(jobs)))
         if workers == 1:
-            return [fn(j) for j in jobs]
+            return [charged(j) for j in jobs]
         with ThreadPoolExecutor(max_workers=workers,
                                 thread_name_prefix="dampr-job") as pool:
-            return list(pool.map(fn, jobs))
+            return list(pool.map(charged, jobs))
 
     def _as_chunks(self, entry):
         """Stage input -> list of job datasets."""
@@ -227,6 +307,8 @@ class MTRunner(object):
         elif "binop" in stage.options:
             combine_op = segment.as_assoc_op(stage.options["binop"])
         P = self.n_partitions
+        B = settings.batch_size
+        pin = bool(stage.options.get("memory"))
         feeds_reduce = self._reduce_consumes(stage.output)
         # claims() re-checks the mapper, so a foreign annotation can never
         # dispatch an op the program does not implement.
@@ -255,6 +337,13 @@ class MTRunner(object):
                     partials.append(merged)
                 combine_s[0] += time.perf_counter() - t0
 
+            use_blocks = (not supplementary and hasattr(mapper, "map_blocks")
+                          and hasattr(chunk, "read_bytes"))
+            ident_blocks = (not supplementary and identity
+                            and hasattr(chunk, "iter_blocks"))
+            chain = (base.record_op_chain(mapper)
+                     if not supplementary and not dev_lowered
+                     and not use_blocks and not ident_blocks else None)
             if dev_lowered and (hasattr(chunk, "read_bytes")
                                 or hasattr(chunk, "iter_byte_blocks")):
                 sink = ops_lower.device_window_sink(mapper, self.store)
@@ -263,15 +352,16 @@ class MTRunner(object):
                         push(blk)
                 finally:
                     self._note_device_sink(sink)
-            elif hasattr(mapper, "map_blocks") and hasattr(chunk,
-                                                           "read_bytes"):
+            elif use_blocks:
                 for blk in mapper.map_blocks(chunk):
                     push(blk)
-            elif identity and hasattr(chunk, "iter_blocks"):
+            elif ident_blocks:
                 for blk in chunk.iter_blocks():
                     push(blk)
+            elif chain is not None:
+                _run_record_chain(chain, _record_batches(chunk, B), B, push)
             else:
-                builder = BlockBuilder(settings.batch_size)
+                builder = BlockBuilder(B)
                 for k, v in mapper.map(chunk, *supplementary):
                     push(builder.add(k, v))
                 push(builder.flush())
@@ -290,7 +380,7 @@ class MTRunner(object):
                     blk = blk.sort_by_hash()
                 for pid, sub in blk.split_by_partition(P).items():
                     out.setdefault(pid, []).append(
-                        self.store.register(sub))
+                        self.store.register(sub, pin=pin))
             return out
 
         return job
@@ -380,7 +470,7 @@ class MTRunner(object):
             else:
                 raise TypeError("unknown stage type {!r}".format(stage))
             env[stage.output] = result
-            st = StageStats(sid, kind, plan.ir.part_name(op),
+            st = StageStats(sid, kind, plan.ir.chain_name(op),
                             stage.options.get("exec_target", "host"))
             st.n_jobs = njobs
             st.records_out = nrec
@@ -427,6 +517,10 @@ class MTRunner(object):
             "d2h_bytes": self.store.d2h_bytes,
             "kernels": {k: kern.launches - launches0[k]
                         for k, kern in KERNELS.items()},
+            # the keyed batch ops' device calls (hash lanes, sort, segment
+            # fold): calls and host seconds summed over jobs; their bytes
+            # are in h2d_bytes/d2h_bytes
+            "keyed": {k: dict(v) for k, v in self.store.keyed.items()},
         }
         return {"name": self.name, "wall_seconds": wall,
                 "stages": [s.as_dict() for s in self.stats],

@@ -45,6 +45,12 @@ use_device = os.environ.get("DAMPR_TPU_TORCH_USE_DEVICE", "1") not in (
 
 _MIN_BATCH_FLOOR = 4096
 
+#: Seed of ``sample()``'s per-thread RNGs (re-derived at each run start):
+#: sampled pipelines reproduce exactly when the job -> thread assignment
+#: does (serial runs).  None keeps them seeded from the OS.
+seed = (int(os.environ["DAMPR_TPU_TORCH_SEED"])
+        if os.environ.get("DAMPR_TPU_TORCH_SEED") else None)
+
 
 def resolve_device():
     """The configured ``torch.device``; raises when it is CUDA and no card

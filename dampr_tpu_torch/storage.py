@@ -4,9 +4,10 @@ Port of the :class:`RunStore` subset of ``dampr_tpu/storage.py`` that the
 slice needs: block registration, get/delete, byte accounting against the
 memory budget, and the synchronous spill/reload path (the reference's
 ``spill_write_threads=0`` behaviour).  Over budget, the oldest
-RAM-resident blocks pickle to the run's scratch directory and reload on
-``get()``; a spilled file goes with its ref's deletion.  The async writer pool, chunked spill frames and the HBM tier
-are later slices.
+unpinned RAM-resident blocks pickle to the run's scratch directory and
+reload on ``get()``; a spilled file goes with its ref's deletion.  A
+pinned block (``cached()``) never spills.  The async writer pool, chunked
+spill frames and the HBM tier are later slices.
 """
 
 import os
@@ -20,14 +21,15 @@ from . import settings
 class BlockRef(object):
     """A handle to one materialized block, RAM-resident or spilled."""
 
-    __slots__ = ("_block", "path", "nbytes", "nrecords", "store")
+    __slots__ = ("_block", "path", "nbytes", "nrecords", "store", "pin")
 
-    def __init__(self, block, store=None):
+    def __init__(self, block, store=None, pin=False):
         self._block = block
         self.path = None
         self.nbytes = block.nbytes()
         self.nrecords = len(block)
         self.store = store
+        self.pin = pin
 
     def __len__(self):
         return self.nrecords
@@ -79,6 +81,18 @@ class RunStore(object):
         self.spill_bytes = 0
         self.h2d_bytes = 0
         self.d2h_bytes = 0
+        #: {op: {"calls", "seconds"}} of the keyed batch ops' device calls
+        self.keyed = {}
+
+    def count_keyed(self, name, seconds, h2d, d2h):
+        """One device call of a keyed batch op (:mod:`.ops.devtime`): its
+        host seconds, and its copies into the h2d/d2h counters."""
+        with self._lock:
+            c = self.keyed.setdefault(name, {"calls": 0, "seconds": 0.0})
+            c["calls"] += 1
+            c["seconds"] += seconds
+            self.h2d_bytes += int(h2d)
+            self.d2h_bytes += int(d2h)
 
     def count_h2d(self, n):
         with self._lock:
@@ -88,8 +102,11 @@ class RunStore(object):
         with self._lock:
             self.d2h_bytes += int(n)
 
-    def register(self, block):
-        ref = BlockRef(block, store=self)
+    def register(self, block, pin=False):
+        """A ref to ``block``, RAM-resident; over budget, the oldest
+        unpinned refs spill.  ``pin=True`` (a ``cached()`` stage's output)
+        keeps this one in RAM for its life."""
+        ref = BlockRef(block, store=self, pin=pin)
         with self._lock:
             self._resident.append(ref)
             self.ram_bytes += ref.nbytes
@@ -101,7 +118,8 @@ class RunStore(object):
         os.makedirs(self.root, exist_ok=True)
         keep = []
         for ref in self._resident:
-            if self.ram_bytes <= self.budget or not ref.resident:
+            if (self.ram_bytes <= self.budget or not ref.resident
+                    or ref.pin):
                 keep.append(ref)
                 continue
             freed = ref.spill(self.root)

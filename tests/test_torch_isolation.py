@@ -54,11 +54,18 @@ joins = [left.join(right).reduce(lambda l, r: (list(l), list(r))),
          left.join(right).outer_reduce(lambda l, r: (list(l), list(r))),
          Dampr.memory([1, 2, 3]).cross_set(Dampr.memory([2]),
                                             lambda x, y: x in y)]
+from dampr_tpu_torch.utils import filter_by_count
+words = docs.flat_map(lambda line: line.split())
+records = {"count": words.count().read(),
+           "mean": words.mean(len, len).read(),
+           "sorted": [c for _w, c in
+                      words.count().sort_by(lambda wc: -wc[1]).read()],
+           "kept": filter_by_count(words, lambda w: w, lambda c: c > 1).read()}
 loaded = sorted(m for m in sys.modules
                 if m == "dampr_tpu" or m.startswith("dampr_tpu."))
 print(json.dumps({"modules": names, "reference": loaded,
                   "idf": idf.read(), "len": docs.len().read(),
-                  "joins": [j.read() for j in joins]}))
+                  "joins": [j.read() for j in joins], "records": records}))
 """
     corpus = tmp_path / "c.txt"
     corpus.write_bytes(b"a b\nb\n\nc a")
@@ -69,8 +76,10 @@ print(json.dumps({"modules": names, "reference": loaded,
     assert res.returncode == 0, res.stderr
     report = json.loads(res.stdout.strip().splitlines()[-1])
     assert report["reference"] == []
-    for name in ("ops.lower", "ops.text", "csrc.build", "base", "dampr",
-                 "dataset", "inputs", "runner", "plan.lower"):
+    for name in ("ops.lower", "ops.text", "ops.devtime", "csrc.build",
+                 "base", "dampr", "dataset", "inputs", "runner", "plan.lower",
+                 "plan.passes", "plan.ir", "utils", "utils.common",
+                 "utils.indexer"):
         assert "dampr_tpu_torch." + name in report["modules"]
     assert report["idf"] == [["a", 2, 4], ["b", 2, 4], ["c", 1, 4]]
     assert report["len"] == [4]
@@ -79,6 +88,11 @@ print(json.dumps({"modules": names, "reference": loaded,
         pair, [["a", [[["a", 1]], []]]] + pair,
         [["a", [[["a", 1]], []]]] + pair + [["c", [[], [["c", 4]]]]],
         [True]]
+    assert report["records"] == {
+        "count": [["a", 2], ["b", 2], ["c", 1]],
+        "mean": [[1, 1.0]],
+        "sorted": [2, 2, 1],
+        "kept": ["a", "a", "b", "b"]}
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -130,6 +144,25 @@ def test_cuda_join_without_a_card_raises():
             left.join(right).reduce(lambda l, r: (list(l), list(r))).read()
         with pytest.raises(RuntimeError, match="is_available"):
             Dampr.run(left.join(right), Dampr.memory([1]).len())
+    finally:
+        settings.device = old
+
+
+def test_cuda_record_ops_without_a_card_raise():
+    """The batched record path and its keyed combine asked to run on a
+    missing card fail up front too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the no-card case cannot occur")
+    from dampr_tpu_torch import Dampr, settings
+
+    old = settings.device
+    settings.device = "cuda"
+    try:
+        words = Dampr.memory(["a b", "b c"]).flat_map(lambda s: s.split())
+        with pytest.raises(RuntimeError, match="is_available"):
+            words.count().read()
+        with pytest.raises(RuntimeError, match="is_available"):
+            Dampr.run(words.count(), words.filter(bool).sort_by(len))
     finally:
         settings.device = old
 

@@ -149,15 +149,15 @@ class TestLoweringDecisions:
         assert "lower=False" in scanner["reason"]
 
     def test_hoisted_sum_combiner_still_lowers(self, tmp_path):
-        from dampr_tpu_torch import plan
+        from dampr_tpu_torch.plan import passes
 
         path = _write(tmp_path, "c.txt", b"a b\n")
         pipe = (dampr_tpu_torch.Dampr.text(path)
                 .custom_mapper(port_text.DocFreq(pair_values=False))
                 .fold_values(operator.add))
-        graph, hoisted = plan.hoist_combiners(pipe.pmer.graph,
-                                              [pipe.source])
-        assert hoisted == 1
+        graph, report = passes.optimize(pipe.pmer.graph, [pipe.source])
+        assert report["rules"] == {"fuse_maps": 0, "hoist_combiners": 1,
+                                   "fuse_sinks": 0, "dead_stages": 0}
         assert len(graph.stages) == len(pipe.pmer.graph.stages) - 1
         decisions = port_plan_lower.analyze(graph, outputs=[pipe.source])
         assert [(d["kind"], d["target"]) for d in decisions] == [
