@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of dampr_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--mb 128] [--seed 1234] [--reps 20]
+    python3 chip_smoke.py [--mb 128] [--seed 1234] [--reps 20] [--ooc-mb 256]
 
 Run from the repository root on a machine with an NVIDIA card (Hopper:
 the kernels build for sm_90a).  Phases, each of which must pass:
@@ -60,7 +60,24 @@ the kernels build for sm_90a).  Phases, each of which must pass:
     ``Dampr.run`` on a ``--ws-mb`` corpus from the same generator and seed,
     each against values computed from its ``split()`` Counter
     (``top_words``' records that tie on their count compared as
-    multisets).
+    multisets);
+12. ``ooc``, the out-of-core tier, four runs, each printing an ``ooc`` JSON
+    line (budget, partitions, chunk, seconds, MB/s, spills, the ``io``
+    section, merge generations, streamed reduces, kernel launches):
+    ``ooc-sort``, ``benchmarks/sort_bench.py``'s external sort
+    (``ParseNumbers`` -> ``checkpoint(force=True)`` -> ``read()``) of
+    ``--ooc-mb`` MiB of random int64 lines (its generator, seed 7) under a
+    quarter of that as the budget, once in 8 chunks (8 sorted runs, no
+    merge generation) and once in 32 chunks with ``merge_fanin = 4``
+    (merge generations), each against ``np.sort`` of the keys written;
+    ``ooc-fold``, ``fold_by(line, 1, add)`` over the first eighth of those
+    lines (nearly every line distinct) in 8 partitions under a 32nd as the
+    budget, against a Counter; ``ooc-join``, inner and left joins of that
+    fold against the lines of the first 32nd, a streaming merge join on
+    both sides, against dict joins; ``ooc-tfidf``, the ``tfidf`` phase's
+    pipeline with the DocFreq map output spilling and every fold partition
+    over the streaming threshold, its sink lines equal to the ``tfidf``
+    phase's and the oracle's.
 
 K1's lanes entry is also checked and timed at the ``wc`` batch shape (the
 corpus's first 65,536 words, padded as the combine pads them).  Every
@@ -521,14 +538,9 @@ def part_lines(d):
     return sorted(out)
 
 
-def phase_tfidf(Dampr, DocFreq, kernels, corpus, chunk, nbytes, df, n_lines,
-                out_dir):
-    """The TF-IDF benchmark's pipeline (``bench_tfidf.py:135-147``) on the
-    port, every sink line held against the oracle; kernel counters are
-    zeroed just before the run and read just after."""
-    for k in kernels.values():
-        k.launches = 0
-    t0 = time.perf_counter()
+def tfidf_pipeline(Dampr, DocFreq, corpus, chunk, out_dir):
+    """``bench_tfidf.py:135-147``: DocFreq -> ``fold_values`` ->
+    ``cross_right(docs.len(), idf, memory=True)`` -> ``sink_tsv``."""
     docs = Dampr.text(corpus, chunk)
     doc_freq = (docs.custom_mapper(
         DocFreq(mode="word", lower=True, pair_values=False))
@@ -538,14 +550,30 @@ def phase_tfidf(Dampr, DocFreq, kernels, corpus, chunk, nbytes, df, n_lines,
         lambda df, total: (df[0], df[1],
                            math.log(1 + (float(total) / df[1]))),
         memory=True)
-    em = idf.sink_tsv(out_dir).run(name="chip-tfidf")
+    return idf.sink_tsv(out_dir)
+
+
+def tfidf_oracle_lines(df, n_lines):
+    return sorted("{}\t{}\t{}".format(w, c, math.log(1 + float(n_lines) / c))
+                  for w, c in df.items())
+
+
+def phase_tfidf(Dampr, DocFreq, kernels, corpus, chunk, nbytes, df, n_lines,
+                out_dir):
+    """The TF-IDF benchmark's pipeline (``bench_tfidf.py:135-147``) on the
+    port, every sink line held against the oracle; kernel counters are
+    zeroed just before the run and read just after."""
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    em = tfidf_pipeline(Dampr, DocFreq, corpus, chunk, out_dir).run(
+        name="chip-tfidf")
     secs = time.perf_counter() - t0
     launches = {k: kern.launches for k, kern in kernels.items()}
     stats = em.stats()
     dstat = stats["device"]
     got = part_lines(out_dir)
-    want = sorted("{}\t{}\t{}".format(w, c, math.log(1 + float(n_lines) / c))
-                  for w, c in df.items())
+    want = tfidf_oracle_lines(df, n_lines)
     check(got == want, "TF-IDF sink lines differ from the oracle "
                        "({} lines against {})".format(len(got), len(want)))
     check(dstat["device_stages"] >= 1, "TF-IDF: no stage lowered")
@@ -893,6 +921,279 @@ def wc_batch(torch, hashing, path, dev):
             torch.from_numpy(lens.astype(np.int32)).to(dev))
 
 
+#: The sizes of ooc-fold and ooc-join, cut from the suggested ones.
+OOC_CUT = ("fold input 1/8 of the records file (suggested 1/4), budget and "
+           "join subset 1/32 (suggested 1/16)")
+
+
+def make_records(path, mb, seed=7):
+    """``benchmarks/sort_bench.py::make_records``: blocks of 50,000 random
+    int64 keys below 2^62 from ``seed``, one a line, until ``mb`` MiB are
+    written.  Returns (bytes written, the keys written)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    target = mb * 1024 ** 2
+    written = 0
+    keys = []
+    with open(path, "w") as f:
+        while written < target:
+            ks = rng.randint(0, 1 << 62, size=50000)
+            chunk = "\n".join(str(k) for k in ks) + "\n"
+            f.write(chunk)
+            written += len(chunk)
+            keys.append(ks)
+    return written, np.concatenate(keys)
+
+
+def head_lines(src, dst, nbytes):
+    """The whole lines of ``src``'s first ``nbytes`` bytes into ``dst``;
+    returns the bytes written."""
+    with open(src, "rb") as f:
+        data = f.read(nbytes)
+    data = data[:data.rfind(b"\n") + 1]
+    with open(dst, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def zero_launches(kernels):
+    for k in kernels.values():
+        k.launches = 0
+
+
+def read_launches(kernels):
+    return {k: kern.launches for k, kern in kernels.items()}
+
+
+def ooc_line(run, stats, secs, nbytes, launches, **extra):
+    """The ``ooc`` JSON line of one out-of-core run."""
+    line = dict(run=run, seconds=secs, mb_per_s=nbytes / 1e6 / secs,
+                input_bytes=nbytes, spill=stats["spill"],
+                merge_gens=stats["spill"]["merge_gens"], io=stats["io"],
+                streamed_assoc_folds=stats["streamed_assoc_folds"],
+                streamed_views=stats["streamed_views"],
+                streamed_joins=stats["streamed_joins"],
+                stage_seconds=stage_seconds(stats),
+                stage_spills=[s["spill_count"] for s in stats["stages"]],
+                kernels=launches)
+    line.update(extra)
+    log("ooc " + json.dumps(line))
+    return line
+
+
+def ascending(keys):
+    return all(a < b for a, b in zip(keys, keys[1:]))
+
+
+def phase_ooc_sort(Dampr, ParseNumbers, settings, kernels, path, nbytes, want,
+                   budget, chunk, fanin):
+    """One external sort of the records file against ``np.sort`` of the
+    keys written, count and order."""
+    import numpy as np
+
+    old = settings.merge_fanin
+    if fanin is not None:
+        settings.merge_fanin = fanin
+    try:
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        em = (Dampr.text(path, chunk).custom_mapper(ParseNumbers())
+              .checkpoint(force=True)
+              .run(name="chip-ooc-sort", memory_budget=budget))
+        got = np.fromiter(em.stream(), dtype=np.int64)
+        secs = time.perf_counter() - t0
+        launches = read_launches(kernels)
+    finally:
+        settings.merge_fanin = old
+    stats = em.stats()
+    runs = em.dataset.pset
+    check(got.shape == want.shape and np.array_equal(got, want),
+          "ooc-sort: {} records differ from np.sort of the {} written"
+          .format(len(got), len(want)))
+    check(runs.key_sorted_runs, "ooc-sort: the map did not register sorted "
+                                "runs")
+    check(stats["spill"]["count"] > 0, "ooc-sort: nothing spilled")
+    if fanin is None:
+        check(stats["spill"]["merge_gens"] == 0,
+              "ooc-sort: a merge generation ran under the default fan-in")
+    else:
+        check(stats["spill"]["merge_gens"] >= 1,
+              "ooc-sort: no merge generation past merge_fanin = {}".format(
+                  fanin))
+    line = ooc_line("ooc-sort", stats, secs, nbytes, launches,
+                    budget=budget, partitions=settings.partitions,
+                    chunk=chunk,
+                    merge_fanin=fanin or settings.merge_fanin,
+                    records=len(got), runs_read=len(list(runs.all_refs())))
+    em.delete()
+    return line
+
+
+def fold_lines(Dampr, path, chunk):
+    """``fold_by(line, value=1, add)``: a count of each distinct line."""
+    return (Dampr.text(path, chunk)
+            .fold_by(lambda l: l, value=lambda l: 1, binop=operator.add))
+
+
+def phase_ooc_fold(Dampr, kernels, path, nbytes, budget, counts):
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    em = fold_lines(Dampr, path, nbytes // 8 + 1).run(
+        name="chip-ooc-fold", n_partitions=8, memory_budget=budget)
+    got = em.read()
+    secs = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    stats = em.stats()
+    em.delete()
+    check(len(got) == len(counts) and ascending([k for k, _c in got])
+          and dict(got) == counts,
+          "ooc-fold differs from the Counter ({} keys against {})".format(
+              len(got), len(counts)))
+    check(stats["streamed_assoc_folds"] + stats["streamed_views"] > 0,
+          "ooc-fold: no reduce partition streamed")
+    check(launches["fnv"] > 0, "ooc-fold: K1 never launched")
+    return ooc_line("ooc-fold", stats, secs, nbytes, launches,
+                    budget=budget, partitions=8, chunk=nbytes // 8 + 1,
+                    threshold=budget, keys=len(got), cut=OOC_CUT)
+
+
+def phase_ooc_join(Dampr, settings, kernels, path, nbytes, sub_path,
+                   sub_bytes, budget, counts, sub_counts):
+    """Inner and left joins of the line counts against the lines of the
+    subset file, grouped by line, in one run (the fold runs once)."""
+    threshold = budget // 4
+    old = settings.streaming_reduce_threshold
+    settings.streaming_reduce_threshold = threshold
+    try:
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        right = Dampr.text(sub_path, sub_bytes // 8 + 1).group_by(
+            lambda l: l)
+        j = fold_lines(Dampr, path, nbytes // 8 + 1).join(right)
+
+        def joiner(left, r):
+            return [c for _k, c in left], sum(1 for _ in r)
+
+        ems = Dampr.run(j.reduce(joiner), j.left_reduce(joiner),
+                        name="chip-ooc-join", n_partitions=8,
+                        memory_budget=budget)
+        inner, left = [em.read() for em in ems]
+        secs = time.perf_counter() - t0
+        launches = read_launches(kernels)
+    finally:
+        settings.streaming_reduce_threshold = old
+    stats = ems[0].stats()
+    for em in ems:
+        em.delete()
+    # values read back as (line, (the left values, the right count))
+    want_inner = {k: ([c], sub_counts[k]) for k, c in counts.items()
+                  if k in sub_counts}
+    check(len(inner) == len(want_inner)
+          and ascending([k for k, _v in inner])
+          and dict(inner) == want_inner,
+          "ooc-join inner differs from the dict join")
+    check(len(left) == len(counts) and ascending([k for k, _v in left])
+          and dict(left) == {k: ([c], sub_counts.get(k, 0))
+                             for k, c in counts.items()},
+          "ooc-join left differs from the dict join")
+    check(stats["streamed_joins"] > 0, "ooc-join: no join partition "
+                                       "streamed")
+    check(launches["fnv"] > 0, "ooc-join: K1 never launched")
+    return ooc_line("ooc-join", stats, secs, nbytes + sub_bytes, launches,
+                    budget=budget, partitions=8, chunk=nbytes // 8 + 1,
+                    threshold=threshold, inner=len(inner), left=len(left),
+                    right_bytes=sub_bytes, cut=OOC_CUT)
+
+
+def phase_ooc_tfidf(Dampr, DocFreq, settings, kernels, corpus, chunk, nbytes,
+                    df, n_lines, out_dir, in_budget_lines):
+    """The ``tfidf`` phase's pipeline with the DocFreq map output spilling
+    (the budget a quarter of it) and every fold partition over the
+    streaming threshold while its folded accumulator is under it: each
+    word recurs in all 8 chunks, so a partition holds about 8 records a
+    word and the accumulator one (80 bytes a record with a string key)."""
+    part_bytes = 8 * len(df) * 80 // settings.partitions
+    threshold = 3 * part_bytes // 8
+    budget = 8 * len(df) * 80 // 4
+    old = settings.streaming_reduce_threshold
+    settings.streaming_reduce_threshold = threshold
+    try:
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        em = tfidf_pipeline(Dampr, DocFreq, corpus, chunk, out_dir).run(
+            name="chip-ooc-tfidf", memory_budget=budget)
+        secs = time.perf_counter() - t0
+        launches = read_launches(kernels)
+    finally:
+        settings.streaming_reduce_threshold = old
+    stats = em.stats()
+    got = part_lines(out_dir)
+    check(got == in_budget_lines,
+          "ooc-tfidf sink lines differ from the in-budget tfidf run's")
+    check(got == tfidf_oracle_lines(df, n_lines),
+          "ooc-tfidf sink lines differ from the oracle")
+    check(stats["spill"]["count"] > 0, "ooc-tfidf: nothing spilled")
+    check(stats["streamed_assoc_folds"] > 0,
+          "ooc-tfidf: no fold partition took the streaming fold")
+    check(stats["device"]["device_stages"] >= 1, "ooc-tfidf: no stage "
+                                                 "lowered")
+    for name, count in launches.items():
+        check(count > 0, "kernel {} never launched in the ooc-tfidf run"
+              .format(name))
+    return ooc_line("ooc-tfidf", stats, secs, nbytes, launches,
+                    budget=budget, partitions=settings.partitions,
+                    chunk=chunk, threshold=threshold,
+                    sink_lines=len(got))
+
+
+def phase_ooc(Dampr, ParseNumbers, DocFreq, settings, kernels, workdir, mb,
+              corpus, chunk, nbytes, df, n_lines, in_budget_lines):
+    """The four out-of-core runs; returns each kernel's launches summed
+    over them."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    records = os.path.join(workdir, "records.txt")
+    rec_bytes, keys = make_records(records, mb)
+    want = np.sort(keys)
+    del keys
+    log("phase ooc records: {} bytes, {} keys in {:.3f} s".format(
+        rec_bytes, len(want), time.perf_counter() - t0))
+    budget = mb * 1024 ** 2 // 4
+    lines = []
+    for chunk_div, fanin in ((8, None), (32, 4)):
+        lines.append(phase_ooc_sort(
+            Dampr, ParseNumbers, settings, kernels, records, rec_bytes, want,
+            budget, rec_bytes // chunk_div + 1, fanin))
+    del want
+
+    t0 = time.perf_counter()
+    fold_path = os.path.join(workdir, "records_fold.txt")
+    sub_path = os.path.join(workdir, "records_sub.txt")
+    # cut to half of the suggested sizes (the fold over a quarter of the
+    # records, the budget and the join subset a 16th) to keep the phase
+    # near two minutes: both streaming paths are per-record Python
+    fold_bytes = head_lines(records, fold_path, mb * 1024 ** 2 // 8)
+    sub_bytes = head_lines(records, sub_path, mb * 1024 ** 2 // 32)
+    with open(fold_path) as f:
+        counts = collections.Counter(f.read().splitlines())
+    with open(sub_path) as f:
+        sub_counts = collections.Counter(f.read().splitlines())
+    log("phase ooc oracle: {} and {} distinct lines in {:.3f} s".format(
+        len(counts), len(sub_counts), time.perf_counter() - t0))
+    fold_budget = mb * 1024 ** 2 // 32
+    lines.append(phase_ooc_fold(Dampr, kernels, fold_path, fold_bytes,
+                                fold_budget, counts))
+    lines.append(phase_ooc_join(Dampr, settings, kernels, fold_path,
+                                fold_bytes, sub_path, sub_bytes, fold_budget,
+                                counts, sub_counts))
+    lines.append(phase_ooc_tfidf(
+        Dampr, DocFreq, settings, kernels, corpus, chunk, nbytes, df, n_lines,
+        os.path.join(workdir, "idf_ooc"), in_budget_lines))
+    return {k: sum(line["kernels"][k] for line in lines) for k in kernels}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mb", type=int, default=128,
@@ -901,6 +1202,10 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ws-mb", type=int, default=32,
                     help="corpus size for the word_stats phase")
+    ap.add_argument("--ooc-mb", type=int, default=256,
+                    help="record file size (MiB) of the ooc phase's external "
+                         "sort; its budgets, chunks and the fold and join "
+                         "inputs scale with it")
     args = ap.parse_args(argv)
 
     import torch
@@ -913,7 +1218,8 @@ def main(argv=None):
         from dampr_tpu_torch import Dampr, Map, settings
         from dampr_tpu_torch.csrc import build
         from dampr_tpu_torch.ops import fnv, hashing, lower, segfold
-        from dampr_tpu_torch.ops.text import DocFreq, TokenCounts
+        from dampr_tpu_torch.ops.text import (DocFreq, ParseNumbers,
+                                              TokenCounts)
         from dampr_tpu_torch.runner import KERNELS
     except ImportError as e:
         print("chip_smoke: dampr_tpu_torch is not importable ({}); run "
@@ -1146,6 +1452,15 @@ def main(argv=None):
                          os.path.getsize(ws_corpus) // 8 + 1, ws_bytes, ws_wc)
         log("phase word_stats: four outputs exact on {} bytes, in {:.3f} s"
             .format(ws_bytes, time.perf_counter() - t0))
+
+        # -- the out-of-core tier -------------------------------------------
+        t0 = time.perf_counter()
+        ooc_launches = phase_ooc(
+            Dampr, ParseNumbers, DocFreq, settings, KERNELS, workdir,
+            args.ooc_mb, corpus, chunk, nbytes, df, n_lines,
+            part_lines(os.path.join(workdir, "idf")))
+        log("phase ooc: sort, fold, join and tfidf out of core exact, in "
+            "{:.3f} s".format(time.perf_counter() - t0))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1165,6 +1480,7 @@ def main(argv=None):
             "shape": main_t["shape"], "launches": launches[name],
             "launches_tfidf": tfidf_launches[name],
             "launches_wc": wc_launches[name],
+            "launches_ooc": ooc_launches[name],
             "max_abs_err": err[name], "ms": main_t["ms"],
             "device_ms": main_t["device_ms"], "host_ms": main_t["host_ms"],
             "profiler_ms": main_t["profiler_ms"],

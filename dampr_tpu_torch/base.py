@@ -1,6 +1,6 @@
 """Mapper / reducer building blocks of the DSL.
 
-Port of ``dampr_tpu/base.py`` minus the out-of-core views: the
+Port of ``dampr_tpu/base.py``: the
 ``Mapper``/``Streamable``/``Reducer`` interfaces, ``Map`` and its
 identity, composition (``ComposedStreamable``, ``ComposedMapper``,
 :func:`fuse`), the typed record ops with their batch lowering
@@ -9,17 +9,16 @@ identity, composition (``ComposedStreamable``, ``ComposedMapper``,
 :func:`record_op_chain`), ``Splitter``, the lifecycle and whole-partition operators
 (``BlockMapper``, ``StreamMapper``, ``BlockReducer``, ``StreamReducer``,
 ``Reduce``), the map-side crosses (``MapCrossJoin``, ``MapAllJoin``), the
-sort-merge joins, the key-sorted :class:`GroupedView`, the associative-fold
-reducer behind ``ARReduce.reduce`` and the map-side combiner descriptor.
+sort-merge joins, the key-sorted :class:`GroupedView`, the out-of-core
+:class:`StreamingGroupedView` and :func:`streaming_merge_join` (groups in
+hash order), the associative-fold reducer behind ``ARReduce.reduce`` and
+the map-side combiner descriptor.
 
 The runner clones an operator per job (``copy.deepcopy``).  Lifecycle
 operators and unknown user subclasses are copied, so concurrent jobs never
 share their state; the stateless wrappers share themselves through
 :func:`_shared_instance_deepcopy`, so a user callable is never descended
 into unless it is a callable *object* with instance state.
-
-The streaming (over-budget) grouped view and merge join are a later
-slice.
 """
 
 import copy
@@ -580,6 +579,177 @@ class MapAllJoin(Mapper):
                 yield kv
 
 
+class StreamingGroupedView(object):
+    """Out-of-core grouped view: a k-way merge over hash-sorted runs,
+    holding one bounded window per run instead of the whole partition.
+
+    Groups stream in **hash order**, not key order (key order would need
+    the whole partition).  Records that share a 64-bit hash sub-group
+    exactly by their real key.  Windows read back from disk carry their
+    hash lanes, so nothing is hashed again."""
+
+    def __init__(self, refs):
+        self.refs = refs
+
+    def _run_stream(self, ref, run_idx):
+        from .blocks import pylist
+
+        for window in ref.iter_windows():
+            h1, h2 = window.hashes()
+            for a, b, k, v in zip(h1.tolist(), h2.tolist(),
+                                  pylist(window.keys), pylist(window.values)):
+                yield (a, b, run_idx, k, v)
+
+    def _merged(self):
+        import heapq
+
+        streams = [self._run_stream(ref, i)
+                   for i, ref in enumerate(self.refs)]
+        return heapq.merge(*streams, key=lambda r: (r[0], r[1], r[2]))
+
+    def grouped_read(self):
+        """``(key, value_iter)`` per group, groupby-style: advancing to the
+        next group drains the previous iterator.  A hash group's values
+        stream lazily (a hot key never buffers); only records of *other*
+        keys colliding in the same 64-bit hash are set aside and grouped
+        exactly after it."""
+        merged = self._merged()
+        rec = next(merged, None)
+        holder = [None]
+        while rec is not None:
+            h = (rec[0], rec[1])
+            key = rec[3]
+            pending = []  # same-hash records of other keys (collisions)
+
+            def values(first=rec, h=h, key=key, pending=pending):
+                yield first[4]
+                while True:
+                    r = next(merged, None)
+                    if r is None or (r[0], r[1]) != h:
+                        holder[0] = r
+                        return
+                    if r[3] == key:
+                        yield r[4]
+                    else:
+                        pending.append(r)
+
+            gen = values()
+            holder[0] = None
+            yield key, gen
+            for _ in gen:  # drain what the caller left unconsumed
+                pass
+            for k2, vs2 in _group_small(pending):
+                yield k2, iter(vs2)
+            rec = holder[0]
+
+    def read(self):
+        for k, vs in self.grouped_read():
+            for v in vs:
+                yield k, v
+
+
+def _group_small(records):
+    """Exact first-seen-order grouping of a handful of collision records."""
+    by_key = []
+    for rec in records:
+        for entry in by_key:
+            if entry[0] == rec[3]:
+                entry[1].append(rec[4])
+                break
+        else:
+            by_key.append((rec[3], [rec[4]]))
+    return by_key
+
+
+def _hash_bundles(view):
+    """``(h64 pair, [(key, [values])])`` per distinct hash of a
+    StreamingGroupedView, in hash order.  Values materialize per hash
+    group, so a streaming join's memory bound is its largest join-key
+    group."""
+    for h, group in itertools.groupby(view._merged(),
+                                      key=lambda r: (r[0], r[1])):
+        yield h, _group_small(group)
+
+
+def streaming_merge_join(lview, rview, reducer):
+    """Out-of-core sort-merge join over two hash-ordered streaming views
+    (the runner's over-budget path for co-partitioned joins): both sides
+    walk by 64-bit hash, and real keys match inside each hash, so
+    collisions join exactly.  Inner/left/outer semantics and ``many``
+    come from the reducer; yields the ``(k, (k, v))`` records of the
+    Keyed* joins."""
+    left_only = isinstance(reducer, (LeftJoin, OuterJoin))
+    right_only = isinstance(reducer, OuterJoin)
+    inner_many = getattr(reducer, "many", False)
+    joiner = reducer.joiner_f
+    default = getattr(reducer, "default", lambda: iter(()))
+
+    def emit(k, result, flatten):
+        if flatten:
+            for v in result:
+                yield k, (k, v)
+        else:
+            yield k, (k, result)
+
+    def left_emit(groups):
+        if left_only:
+            for k, vals in groups:
+                for out in emit(k, joiner(k, iter(vals), default()), False):
+                    yield out
+
+    def right_emit(groups):
+        if right_only:
+            for k, vals in groups:
+                for out in emit(k, joiner(k, default(), iter(vals)), False):
+                    yield out
+
+    lgen = _hash_bundles(lview)
+    rgen = _hash_bundles(rview)
+    lcur = next(lgen, None)
+    rcur = next(rgen, None)
+    while lcur is not None and rcur is not None:
+        if lcur[0] < rcur[0]:
+            for out in left_emit(lcur[1]):
+                yield out
+            lcur = next(lgen, None)
+        elif lcur[0] > rcur[0]:
+            for out in right_emit(rcur[1]):
+                yield out
+            rcur = next(rgen, None)
+        else:
+            # the same 64-bit hash: match by real key (collision-exact)
+            rgroups = rcur[1]
+            matched_r = [False] * len(rgroups)
+            for k, lvals in lcur[1]:
+                hit = None
+                for j, (rk, _rvals) in enumerate(rgroups):
+                    if rk == k:
+                        hit = j
+                        break
+                if hit is not None:
+                    matched_r[hit] = True
+                    result = joiner(k, iter(lvals), iter(rgroups[hit][1]))
+                    for out in emit(k, result, inner_many):
+                        yield out
+                else:
+                    for out in left_emit([(k, lvals)]):
+                        yield out
+            for j, (rk, rvals) in enumerate(rgroups):
+                if not matched_r[j]:
+                    for out in right_emit([(rk, rvals)]):
+                        yield out
+            lcur = next(lgen, None)
+            rcur = next(rgen, None)
+    while lcur is not None:
+        for out in left_emit(lcur[1]):
+            yield out
+        lcur = next(lgen, None)
+    while rcur is not None:
+        for out in right_emit(rcur[1]):
+            yield out
+        rcur = next(rgen, None)
+
+
 class GroupedView(object):
     """Key-sorted grouped view over one input's blocks within a partition:
     hash-sort, collision repair, then groups ordered by real key
@@ -708,7 +878,8 @@ class StreamReducer(Reducer):
 class AssocFoldReducer(Reducer):
     """Final fold of an associative reduce: recognized ops (sum/min/max)
     fold over the sorted groups with the segment folds, opaque binops fold
-    on host.  Emits (k, (k, acc)) in key order."""
+    on host; emits (k, (k, acc)) in key order.  Over a streaming view the
+    groups fold one at a time with the op's function, in hash order."""
 
     __deepcopy__ = _shared_instance_deepcopy
 
@@ -719,6 +890,16 @@ class AssocFoldReducer(Reducer):
         from .blocks import pylist
 
         view = _one_input(datasets)
+        if not isinstance(view, GroupedView):
+            fn = self.op.fn
+            for k, vs in view.grouped_read():
+                acc = None
+                first = True
+                for v in vs:
+                    acc = v if first else fn(acc, v)
+                    first = False
+                yield k, (k, acc)
+            return
         folded = segment.fold_sorted(view.sorted_groups(), self.op)
         keys = pylist(folded.keys)
         vals = pylist(folded.values)

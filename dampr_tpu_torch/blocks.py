@@ -177,6 +177,12 @@ class Block(object):
             self.h1, self.h2 = hashing.hash_keys(self.keys)
         return self.h1, self.h2
 
+    def slice(self, a, b):
+        """Records ``[a, b)`` as array views, hash lanes included."""
+        return Block(self.keys[a:b], self.values[a:b],
+                     None if self.h1 is None else self.h1[a:b],
+                     None if self.h2 is None else self.h2[a:b])
+
     def take(self, idx):
         return Block(
             self.keys.take(idx),
@@ -265,12 +271,6 @@ def merge_sorted_streams(streams):
     its = [iter(s) for s in streams]
     n = len(its)
 
-    def slice_of(blk, a, b):
-        return Block(
-            blk.keys[a:b], blk.values[a:b],
-            None if blk.h1 is None else blk.h1[a:b],
-            None if blk.h2 is None else blk.h2[a:b])
-
     def gen():
         buf = [None] * n
         last = [None] * n
@@ -307,8 +307,8 @@ def merge_sorted_streams(streams):
                 end = int(np.searchsorted(b.keys, bound, side="right"))
                 if end < len(b):
                     if end:
-                        pieces.append(slice_of(b, 0, end))
-                        buf[i] = slice_of(b, end, len(b))
+                        pieces.append(b.slice(0, end))
+                        buf[i] = b.slice(end, len(b))
                     continue
                 pieces.append(b)
                 buf[i] = None
@@ -322,11 +322,11 @@ def merge_sorted_streams(streams):
                         continue
                     e2 = int(np.searchsorted(nxt.keys, bound, side="right"))
                     if e2:
-                        p = slice_of(nxt, 0, e2)
+                        p = nxt.slice(0, e2)
                         pieces.append(p)
                         ext_budget -= p.nbytes()
                     if e2 < len(nxt):
-                        buf[i] = slice_of(nxt, e2, len(nxt))
+                        buf[i] = nxt.slice(e2, len(nxt))
                         k = buf[i].keys[-1]
                         last[i] = (k.item()
                                    if isinstance(k, np.generic) else k)

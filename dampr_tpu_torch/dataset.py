@@ -1,7 +1,8 @@
 """Read-side datasets: the record sources stages consume.
 
 Port of ``dampr_tpu/dataset.py`` for plain text and in-memory records
-(gzip taps and ``StreamDataset`` are a later slice).  Every dataset
+(gzip taps are a later slice), with the final read's ``OrderKey`` and
+``merged_read``.  Every dataset
 yields ``(key, value)`` pairs; text taps yield ``(byte_offset, line)``.
 The batched record path reads through ``read_lists(batch)`` where a
 dataset has it: parallel key and value lists of at most ``batch``
@@ -77,6 +78,16 @@ class BlockDataset(Dataset):
             ks, vs = blk.to_lists()
             for i in range(0, len(ks), batch):
                 yield ks[i:i + batch], vs[i:i + batch]
+
+
+class StreamDataset(Dataset):
+    """A single-shot iterator of records."""
+
+    def __init__(self, it):
+        self.it = it
+
+    def read(self):
+        return self.it
 
 
 class CatDataset(Dataset):
@@ -211,3 +222,30 @@ class SinkDataset(Dataset):
     def delete(self):
         if os.path.exists(self.path):
             os.unlink(self.path)
+
+
+class OrderKey(object):
+    """Total order over record keys: native comparison where the types
+    allow it, the type name otherwise (mixed-type outputs stay
+    readable)."""
+
+    __slots__ = ("k",)
+
+    def __init__(self, k):
+        self.k = k
+
+    def __lt__(self, other):
+        a, b = self.k, other.k
+        try:
+            return bool(a < b)
+        except TypeError:
+            return type(a).__name__ < type(b).__name__
+
+
+def merged_read(datasets):
+    """K-way merge of key-sorted datasets by key (stable: ties come in
+    dataset order)."""
+    import heapq
+
+    its = [ds.read() for ds in datasets]
+    return heapq.merge(*its, key=lambda kv: OrderKey(kv[0]))

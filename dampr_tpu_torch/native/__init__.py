@@ -66,6 +66,12 @@ def get_lib():
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
                 ctypes.c_void_p, ctypes.c_void_p,
             ]
+            fp = lib.dampr_parse_i64
+            fp.restype = ctypes.c_long
+            fp.argtypes = [
+                ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
+                ctypes.c_void_p,
+            ]
             _lib = lib
         except (OSError, AttributeError,
                 subprocess.CalledProcessError) as exc:
@@ -91,6 +97,26 @@ def hash_bytes_batch(bs):
         np.ascontiguousarray(buf).ctypes.data, offs.ctypes.data, n,
         h1.ctypes.data, h2.ctypes.data)
     return h1, h2
+
+
+def parse_i64(buf):
+    """Whitespace-separated int64 parse of a uint8 buffer in one C pass:
+    an int64 array, or None when the native library is unavailable.
+    Raises ValueError on the first unparsable or out-of-range token (the
+    numpy parse's error)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = np.ascontiguousarray(buf)
+    n = len(buf)
+    out = np.empty(n // 2 + 1, dtype=np.int64)
+    bad = ctypes.c_long(-1)
+    count = lib.dampr_parse_i64(buf.ctypes.data, n, out.ctypes.data,
+                                ctypes.byref(bad))
+    if bad.value >= 0:
+        raise ValueError(
+            "unparsable numeric token at index {}".format(bad.value))
+    return out[:count].copy()
 
 
 def token_counts(buf, mode, lower, dedup_per_line):

@@ -8,6 +8,8 @@ their bytes; token *strings* materialize only for the distinct keys.
 - :class:`TokenCounts` — (token, occurrences).
 - :class:`DocFreq` — (token, number of lines containing it).
 - :class:`CountRecords` — the ``len()`` map, one (1, count) per chunk.
+- :class:`ParseNumbers` — one number a line, keyed by its value (the
+  external sort's map).
 
 'word' mode matches ``re.split(r'[^\\w]+')`` and ``.lower()`` byte-wise,
 exact for ASCII; non-ASCII bytes ride inside tokens.
@@ -413,3 +415,45 @@ class DocFreq(Mapper):
     def map(self, *datasets):
         return _per_record_counts(datasets, self.mode, self.lower, True,
                                   self.pair_values)
+
+
+class ParseNumbers(Mapper):
+    """Numeric-line parser: each line holds one number, and records come
+    out keyed by the parsed value, so a bare ``checkpoint()`` after it
+    reads back globally sorted (the external sort).  ``dtype`` is int64
+    or float64."""
+
+    streams_bytes = True
+
+    def __init__(self, dtype=np.int64):
+        self.dtype = np.dtype(dtype)
+
+    def window_sink(self):
+        from .. import native
+        from ..blocks import Block
+
+        # Windows break at newlines and each line holds one number, so no
+        # value spans two windows.
+        def scan(data):
+            if self.dtype == np.int64:
+                arr = native.parse_i64(np.frombuffer(data, dtype=np.uint8))
+                if arr is not None:
+                    return (Block(arr, arr.copy()),) if len(arr) else ()
+            # no native library, or float64: numpy parses each token in C
+            # and raises on the first unparsable one
+            toks = bytes(data).split()
+            if not toks:
+                return ()
+            arr = np.array(toks, dtype=self.dtype)
+            return (Block(arr, arr.copy()),)
+        return _StatelessWindowSink(scan)
+
+    def map_blocks(self, dataset):
+        return _drive_windows(self, dataset)
+
+    def map(self, *datasets):
+        caster = int if self.dtype.kind == "i" else float
+        for _k, line in _one_input(datasets).read():
+            if line.strip():
+                v = caster(line)
+                yield v, v

@@ -7,8 +7,8 @@ job with its own clone of the stage's operator (:func:`_clone_op`).
 A map stage runs one job per chunk of its first input; its other inputs
 (the broadcast side of a cross) reach every job whole, as chunk lists.  A
 reduce stage runs one job per partition id, empty ones included, over one
-in-memory key-sorted :class:`~.base.GroupedView` per input: folds, user
-reducers and the sort-merge joins of co-partitioned inputs.
+key-sorted :class:`~.base.GroupedView` per input: folds, user reducers and
+the sort-merge joins of co-partitioned inputs.
 
 ``run_map`` has the branches of the reference's map job:
 
@@ -24,19 +24,36 @@ reducers and the sort-merge joins of co-partitioned inputs.
 Either way the job's blocks go through the map-side combine
 (``segment.fold_block``) when the stage carries one, then hash
 partitioning into the store; a ``cached()`` stage registers them pinned.
+A stage whose output no reduce consumes runs in **sorted-run mode**:
+each job registers its chunk as one key-sorted run of numeric keys (hash
+fan-out when its keys are not uniformly numeric or hold NaN), and the
+final read merges the runs, past ``settings.merge_fanin`` after streamed
+merge generations
+(:meth:`MTRunner._plan_sorted_merge`).
+
+The **out-of-core** reduce paths take a partition over
+``settings.streaming_reduce_threshold`` (the budget by default): an
+associative fold folds window by window into an accumulator of distinct
+keys (:func:`_streaming_assoc_fold` inside ``run_reduce``), falling back
+to the record stream when that outgrows the threshold; an
+order-insensitive reducer reads a :class:`~.base.StreamingGroupedView`
+(groups in hash order); a keyed join merges both sides by hash
+(:func:`~.base.streaming_merge_join`).  Spills go through the store's
+writer pool, drained at every stage boundary and aborted on a failed run.
+
 ``stats()`` (the emitter's ``stats()``) reports the plan (rules fired,
-stages before and after fusion, per-stage targets) and, under
-``device``, ``device_stages``, ``device_fraction``, the h2d/d2h bytes,
-each kernel's launches and the keyed batch ops' device calls
-(``keyed``) during the run; every job charges its keyed calls to the
-run's store (:mod:`.ops.devtime`), so their copies count in the h2d/d2h
-bytes.
+stages before and after fusion, per-stage targets), per-stage spill and
+merge counts, the ``io`` section (spill write and read MB/s, ``io_wait``,
+the writer pool's peaks), the streamed reduces, and, under ``device``,
+``device_stages``, ``device_fraction``, the h2d/d2h bytes, each kernel's
+launches and the keyed batch ops' device calls (``keyed``) during the
+run; every job charges its keyed calls to the run's store
+(:mod:`.ops.devtime`), so their copies count in the h2d/d2h bytes.
 
 Mesh execution, mitigation, faults/resume and quarantine, reuse, the
 overlap executor, the observability plane and per-operator profiler, the
-certified lane programs, the tiny-input and tiny-fold fast paths, scan
-sharing and the out-of-core (over-budget) reduce and join paths are
-later slices.
+certified lane programs, the tiny-input and tiny-fold fast paths and
+scan sharing are later slices.
 """
 
 import copy
@@ -50,8 +67,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from . import base, plan, settings, storage
-from .blocks import Block, BlockBuilder
-from .dataset import BlockDataset, CatDataset, Chunker, Dataset, SinkDataset
+from .blocks import Block, BlockBuilder, merge_sorted_streams
+from .dataset import (BlockDataset, CatDataset, Chunker, Dataset, OrderKey,
+                      SinkDataset, StreamDataset, merged_read)
 from .graph import GInput, GMap, GReduce, GSink
 from .ops import devtime
 from .ops import fnv as _fnv
@@ -61,8 +79,13 @@ from .ops import segment
 
 log = logging.getLogger("dampr_tpu_torch.runner")
 
-#: Map-side partial blocks merge once this many accumulate.
-_PARTIAL_FANIN = 16
+#: Partial fold blocks (map-side combine, the streaming reduce-side fold)
+#: merge once this many accumulate.
+_PARTIAL_FANIN = 8
+
+#: A stage-output partition holding more refs than this merges them in
+#: rounds (:meth:`MTRunner._compact_partitions`).
+MAX_FILES_PER_STAGE = 50
 
 #: Every kernel the device path launches, by name.
 KERNELS = {"fnv": _fnv.KERNEL, "segfold": _segfold.KERNEL}
@@ -75,22 +98,6 @@ def _clone_op(op):
     BlockReducer) and unknown user subclasses are deep-copied, so
     concurrent jobs never share their state."""
     return copy.deepcopy(op)
-
-
-class _OrderKey(object):
-    """Total order over record keys: native comparison when the types
-    allow it, type name otherwise (mixed-type outputs stay readable)."""
-
-    __slots__ = ("k",)
-
-    def __init__(self, k):
-        self.k = k
-
-    def __lt__(self, other):
-        try:
-            return bool(self.k < other.k)
-        except TypeError:
-            return type(self.k).__name__ < type(other.k).__name__
 
 
 def _record_batches(chunk, B):
@@ -161,24 +168,198 @@ def _run_record_chain(chain, batches, B, push):
 
 class OutputDataset(Dataset):
     """Final-output view over a PartitionSet: records in ascending key
-    order (one stable argsort of the concatenated output)."""
+    order, read down a ladder:
+
+    1. under a third of the budget, one stable argsort of the output
+       concatenated in ``all_refs()`` order (ties come in that order);
+    2. a key-sorted run set streams a vectorized k-way merge over its runs,
+       one window per run, so only this rung stays bounded over the
+       budget;
+    3. numeric keys sort every partition whole, then merge them in
+       vectorized chunks;
+    4. anything else (object keys) merges per-partition sorted streams
+       record by record under :class:`~.dataset.OrderKey`, each partition
+       concatenated and sorted whole first.
+
+    Rungs 3 and 4 (and a single-partition output) hold every partition
+    sorted in RAM at once, as the JAX package's single-device reads do."""
 
     def __init__(self, pset, store=None):
         self.pset = pset
         self.store = store
 
-    def read(self):
+    def _partition_stream(self, pid):
+        try:
+            blk = self._sorted_partition_block(pid)
+        except TypeError:
+            # uncomparable mixed keys: a stable sort under the total-order
+            # wrapper (the merge's order)
+            blk = Block.concat([r.get() for r in self.pset.refs(pid)])
+            keys = blk.keys
+            order = np.asarray(
+                sorted(range(len(blk)), key=lambda i: OrderKey(keys[i])),
+                dtype=np.int64)
+            blk = blk.take(order)
+        if blk is None:
+            return iter(())
+        return blk.iter_pairs()
+
+    def _sorted_concat(self):
+        """One concat and one stable argsort of the whole output, or None
+        when it should not run: its working copies peak near 3x the
+        output, so it is gated at a third of the budget; uncomparable
+        mixed keys bail too."""
+        total = sum(r.nbytes for r in self.pset.all_refs())
+        budget = (self.store.budget if self.store is not None
+                  else settings.max_memory_per_stage)
+        if total * 3 > budget:
+            return None
         blk = Block.concat([r.get() for r in self.pset.all_refs()])
         if not len(blk):
-            return iter(())
+            return blk
         try:
             order = np.argsort(blk.keys, kind="stable")
         except TypeError:
-            keys = blk.keys
-            order = np.asarray(
-                sorted(range(len(blk)), key=lambda i: _OrderKey(keys[i])),
-                dtype=np.int64)
-        return blk.take(order).iter_pairs()
+            return None
+        return blk.take(order)
+
+    def _merged_run_blocks(self):
+        """A key-sorted run set through the vectorized k-way merge: one
+        window per run in flight, every run file read front to back; the
+        merge planner already capped the fan-in."""
+        refs = [r for r in self.pset.all_refs() if len(r)]
+        if not refs:
+            return iter(())
+        return merge_sorted_streams([r.iter_windows() for r in refs])
+
+    def read(self):
+        pids = sorted(self.pset.parts)
+        if not pids:
+            return iter(())
+        if self.pset.key_sorted_runs:
+            return itertools.chain.from_iterable(
+                b.iter_pairs() for b in self.sorted_blocks())
+        if len(pids) == 1:
+            return self._partition_stream(pids[0])
+        blk = self._sorted_concat()
+        if blk is not None:
+            return blk.iter_pairs()
+        blocks = self._vector_merge_blocks(pids)
+        if blocks is not None:
+            return itertools.chain.from_iterable(
+                b.iter_pairs() for b in blocks)
+        return self._merge_partitions(pids)
+
+    def _merge_partitions(self, pids):
+        streams = [StreamDataset(self._partition_stream(pid)) for pid in pids]
+        return merged_read(streams)
+
+    def _sorted_partition_block(self, pid):
+        blk = Block.concat([r.get() for r in self.pset.refs(pid)])
+        if not len(blk):
+            return None
+        order = np.argsort(blk.keys, kind="stable")  # TypeError -> caller
+        return blk.take(order)
+
+    def _vector_merge_blocks(self, pids, chunk=1 << 16):
+        """K-way merge of numeric-keyed partitions, each sorted whole (on a
+        thread pool: numpy's sorts release the interpreter lock), emitted
+        in bounded vectorized chunks; None when any key lane is object."""
+        all_refs = [r for pid in pids for r in self.pset.refs(pid)]
+        if any(r.key_dtype == object for r in all_refs):
+            return None
+        workers = max(1, min(settings.max_processes, len(pids)))
+        if workers > 1:
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                sorted_parts = list(pool.map(self._sorted_partition_block,
+                                             pids))
+        else:
+            sorted_parts = [self._sorted_partition_block(p) for p in pids]
+        parts = [blk for blk in sorted_parts if blk is not None]
+        if not parts:
+            return iter(())
+        return self._merge_sorted_parts(parts, chunk)
+
+    @staticmethod
+    def _merge_sorted_parts(parts, chunk=1 << 16):
+        """Vectorized k-way merge over key-sorted blocks: each round takes
+        the smallest chunk-boundary key as the bound, gathers every record
+        below it (at most ``chunk`` per part) and stable-sorts only that
+        slice; records equal to the bound follow as raw slices in part
+        order, so ties keep the heap merge's order and a hot key streams."""
+        parts = [p for p in parts if len(p)]
+
+        def gen():
+            pos = [0] * len(parts)
+            n_parts = len(parts)
+            while True:
+                bound = None
+                active = False
+                for i in range(n_parts):
+                    blk = parts[i]
+                    if pos[i] >= len(blk):
+                        continue
+                    active = True
+                    edge = min(pos[i] + chunk, len(blk)) - 1
+                    k = blk.keys[edge]
+                    if bound is None or k < bound:
+                        bound = k
+                if not active:
+                    return
+                pieces = []
+                for i in range(n_parts):
+                    blk = parts[i]
+                    if pos[i] >= len(blk):
+                        continue
+                    end = int(np.searchsorted(blk.keys, bound, side="left"))
+                    if end > pos[i]:
+                        pieces.append(blk.slice(pos[i], end))
+                        pos[i] = end
+                if pieces:
+                    merged = Block.concat(pieces)
+                    yield merged.take(
+                        np.argsort(merged.keys, kind="stable"))
+                for i in range(n_parts):
+                    blk = parts[i]
+                    if pos[i] >= len(blk):
+                        continue
+                    end = int(np.searchsorted(blk.keys, bound, side="right"))
+                    at = pos[i]
+                    while at < end:
+                        sub = min(at + chunk, end)
+                        yield blk.slice(at, sub)
+                        at = sub
+                    pos[i] = end
+
+        return gen()
+
+    def sorted_blocks(self):
+        """The key-sorted output as columnar blocks, down the same ladder
+        as :meth:`read` (the record merge re-blocked at
+        ``settings.batch_size``)."""
+        blk = self._sorted_concat()
+        if blk is not None:
+            if len(blk):
+                yield blk
+            return
+        if self.pset.key_sorted_runs:
+            for b in self._merged_run_blocks():
+                yield b
+            return
+        pids = sorted(self.pset.parts)
+        blocks = self._vector_merge_blocks(pids)
+        if blocks is not None:
+            for b in blocks:
+                yield b
+            return
+        builder = BlockBuilder(settings.batch_size)
+        for k, v in self._merge_partitions(pids):
+            out = builder.add(k, v)
+            if out is not None:
+                yield out
+        out = builder.flush()
+        if out is not None:
+            yield out
 
     def delete(self):
         self.pset.delete(self.store)
@@ -195,10 +376,13 @@ class _SinkOutput(object):
 
 
 class StageStats(object):
-    """Per-stage metrics."""
+    """Per-stage metrics.  Spill counts are causal: a spill is charged to
+    the stage whose registrations evicted the block, which an earlier
+    stage may have produced."""
 
     __slots__ = ("stage_id", "kind", "op", "target", "n_jobs",
-                 "records_out", "seconds")
+                 "records_out", "seconds", "spill_count", "spill_bytes",
+                 "merge_gens", "merge_gen_bytes")
 
     def __init__(self, stage_id, kind, op, target):
         self.stage_id = stage_id
@@ -208,11 +392,19 @@ class StageStats(object):
         self.n_jobs = 0
         self.records_out = 0
         self.seconds = 0.0
+        self.spill_count = 0
+        self.spill_bytes = 0
+        self.merge_gens = 0
+        self.merge_gen_bytes = 0
 
     def as_dict(self):
         return {"stage": self.stage_id, "kind": self.kind, "op": self.op,
                 "target": self.target, "jobs": self.n_jobs,
-                "records_out": self.records_out, "seconds": self.seconds}
+                "records_out": self.records_out, "seconds": self.seconds,
+                "spill_count": self.spill_count,
+                "spill_bytes": self.spill_bytes,
+                "merge_gens": self.merge_gens,
+                "merge_gen_bytes": self.merge_gen_bytes}
 
 
 class MTRunner(object):
@@ -236,6 +428,10 @@ class MTRunner(object):
         self._device = {"batches": 0, "fallbacks": 0, "stream_seconds": 0.0,
                         "combine_seconds": 0.0,
                         "phases": dict.fromkeys(ops_lower.PHASES, 0.0)}
+        # reduce partitions that went out of core, by path
+        self.streamed_assoc_folds = 0
+        self.streamed_views = 0
+        self.streamed_joins = 0
 
     # -- helpers -----------------------------------------------------------
     def _pool_map(self, fn, jobs, n_workers):
@@ -265,11 +461,27 @@ class MTRunner(object):
         chunks = list(entry.chunks())
         return chunks if chunks else [BlockDataset([])]
 
-    def _reduce_consumes(self, output):
-        """Does a GReduce consume ``output``?  (Its input must arrive as
-        hash-sorted runs.)"""
-        return any(isinstance(s, GReduce) and output in s.inputs
-                   for s in self.graph.stages)
+    def _reduce_consumes(self, output, _seen=None):
+        """Does a GReduce consume ``output``, directly or through identity
+        map stages that copy it forward unchanged?  (Its input must arrive
+        hash-routed, as hash-sorted runs.)"""
+        seen = _seen if _seen is not None else set()
+        if output in seen:
+            return False
+        seen.add(output)
+        for s in self.graph.stages:
+            if output not in s.inputs:
+                continue
+            if isinstance(s, GReduce):
+                return True
+            if (isinstance(s, GMap)
+                    and type(s.mapper) is base.Map
+                    and s.mapper.mapper is base._identity
+                    and s.combiner is None
+                    and "binop" not in s.options
+                    and self._reduce_consumes(s.output, seen)):
+                return True
+        return False
 
     def _note_device_sink(self, sink):
         with self._lock:
@@ -288,17 +500,17 @@ class MTRunner(object):
         entries = [env[s] for s in stage.inputs]
         chunks = self._as_chunks(entries[0])
         supplementary = [self._as_chunks(e) for e in entries[1:]]
-        job = self._map_job(stage, supplementary)
+        job, combine_op, pin, feeds_reduce, run_mode = self._map_job(
+            stage, supplementary)
         results = self._pool_map(job, chunks, self.n_maps)
-        pset = storage.PartitionSet(self.n_partitions)
-        for mapping in results:
-            for pid, refs in mapping.items():
-                for ref in refs:
-                    pset.add(pid, ref)
+        pset = self._collect_partitions(results, combine_op, pin,
+                                        feeds_reduce, sorted_runs=run_mode)
         return pset, pset.total_records(), len(chunks)
 
     def _map_job(self, stage, supplementary):
-        """The per-chunk job closure of one map stage."""
+        """The per-chunk job closure of one map stage, with what its
+        output collection needs to know: ``(job, combine_op, pin,
+        feeds_reduce, sorted_run_mode)``."""
         from .ops.text import _drive_windows
 
         combine_op = None
@@ -310,12 +522,39 @@ class MTRunner(object):
         B = settings.batch_size
         pin = bool(stage.options.get("memory"))
         feeds_reduce = self._reduce_consumes(stage.output)
+        # Sorted-run mode: an output no reduce consumes needs no hash
+        # fan-out (its readers re-order by key or stream refs whole), so
+        # each job registers its chunk as ONE key-sorted run.  A job falls
+        # back to hash fan-out when its keys are not uniformly numeric
+        # (the ``_sorted`` marker records which happened).
+        sorted_run_mode = (combine_op is None
+                           and not feeds_reduce
+                           and not pin
+                           and not supplementary)
         # claims() re-checks the mapper, so a foreign annotation can never
         # dispatch an op the program does not implement.
         dev_lowered = (stage.options.get("exec_target") == "device"
                        and ops_lower.claims(stage.mapper) is not None)
         identity = (type(stage.mapper) is base.Map
                     and stage.mapper.mapper is base._identity)
+
+        def try_sorted_run(blocks):
+            """Register this job's one key-sorted run, or None when the
+            keys do not qualify (the caller fans out by hash)."""
+            blocks = [b for b in blocks if len(b)]
+            if not blocks:
+                return {"_sorted": True}
+            kdts = {b.keys.dtype for b in blocks}
+            if len(kdts) != 1 or next(iter(kdts)).kind not in "iuf":
+                return None
+            if (next(iter(kdts)).kind == "f"
+                    and any(np.isnan(b.keys).any() for b in blocks)):
+                # NaN has no total order: it would break the k-way
+                # merge's bound comparisons
+                return None
+            merged = blocks[0] if len(blocks) == 1 else Block.concat(blocks)
+            merged = merged.take(np.argsort(merged.keys, kind="stable"))
+            return {0: [self.store.register(merged)], "_sorted": True}
 
         def job(chunk):
             mapper = _clone_op(stage.mapper)
@@ -374,6 +613,15 @@ class MTRunner(object):
                 combine_s[0] += time.perf_counter() - t0
             with self._lock:
                 self._device["combine_seconds"] += combine_s[0]
+            if sorted_run_mode:
+                out = try_sorted_run(blocks)
+                if out is not None:
+                    return out
+            # Registered inside the job, so the budget holds while the
+            # stage runs.  A block a reduce reads is a hash-sorted run
+            # (fold outputs already are; the sort is stable, so equal keys
+            # keep input order): over budget, the reduce streams a k-way
+            # merge over such runs.
             out = {}
             for blk in blocks:
                 if combine_op is None and feeds_reduce:
@@ -383,30 +631,239 @@ class MTRunner(object):
                         self.store.register(sub, pin=pin))
             return out
 
-        return job
+        return job, combine_op, pin, feeds_reduce, sorted_run_mode
+
+    def _collect_partitions(self, mappings, combine_op, pin, feeds_reduce,
+                            sorted_runs=False):
+        """Per-chunk ``{pid: [refs]}`` job results, in chunk order, into one
+        PartitionSet.  In sorted-run mode it is flagged
+        ``key_sorted_runs`` only when every job registered a sorted run,
+        and its merge is planned; otherwise partitions holding too many
+        blocks compact."""
+        all_sorted = bool(sorted_runs)
+        pset = storage.PartitionSet(self.n_partitions)
+        for mapping in mappings:
+            if sorted_runs and not mapping.pop("_sorted", False):
+                all_sorted = False
+            for pid, refs in mapping.items():
+                for ref in refs:
+                    pset.add(pid, ref)
+        pset.key_sorted_runs = all_sorted
+        if all_sorted and pset.parts:
+            self._plan_sorted_merge(pset)
+        else:
+            self._compact_partitions(pset, combine_op, pin, feeds_reduce)
+        return pset
+
+    def _effective_merge_fanin(self, runs):
+        """``settings.merge_fanin``, clamped so the k-way merge's working
+        set (one buffered window per run plus its frame readahead, sized
+        from the runs' bytes per record) fits the budget."""
+        total = sum(max(1, r.nbytes) for r in runs)
+        nrec = sum(len(r) for r in runs)
+        window = max(1, int(total / max(1, nrec)) * storage.SPILL_WINDOW)
+        per_run = (2 + storage.SPILL_READ_PREFETCH) * window
+        cap = max(4, int(self.store.budget // per_run))
+        return max(2, min(settings.merge_fanin, cap))
+
+    def _plan_sorted_merge(self, pset):
+        """Merge planning for a key-sorted run set (the external sort).
+        Under the fan-in cap nothing happens: the final read merges the
+        first-level runs, whose single spill is all that hits the disk.
+        Past it, generations merge runs file to file (one window per
+        source, the output written as it merges) until the count fits:
+        only the smallest runs, just enough of them to get under the cap,
+        in groups that merge concurrently on a pool whose size divides the
+        fan-in, so the concurrent merges' windows stay inside what the
+        clamp budgeted."""
+        runs = [r for r in pset.all_refs() if len(r)]
+        if not runs:
+            return
+        fanin = self._effective_merge_fanin(runs)
+        while len(runs) > fanin:
+            workers = max(1, min(settings.max_processes, 8, fanin // 2))
+            group_cap = max(2, fanin // workers)
+            need = len(runs) - fanin
+            m = max(1, -(-need // (group_cap - 1)))
+            touched = need + m
+            if touched > len(runs):
+                # far over the cap: every run merges, in groups of
+                # group_cap, and the loop runs again
+                touched = len(runs)
+                m = -(-touched // group_cap)
+            runs.sort(key=lambda r: r.nbytes)
+            to_merge = runs[:touched]
+            keep = runs[touched:]
+            groups = [g for g in (to_merge[i::m] for i in range(m)) if g]
+            log.info("sorted-run merge generation: %d runs over fan-in %d; "
+                     "merging the %d smallest in %d group(s)", len(runs),
+                     fanin, touched, len(groups))
+
+            def merge_group(group):
+                if len(group) == 1:
+                    return group[0]
+                merged = self.store.register_stream(merge_sorted_streams(
+                    [r.iter_windows() for r in group]))
+                for r in group:
+                    self.store.drop_ref(r)
+                return merged
+
+            if len(groups) > 1 and workers > 1:
+                with ThreadPoolExecutor(
+                        max_workers=min(workers, len(groups))) as pool:
+                    merged = list(pool.map(merge_group, groups))
+            else:
+                merged = [merge_group(g) for g in groups]
+            runs = keep + merged
+        pset.parts = {0: runs}
+
+    def _compact_partitions(self, pset, combine_op, pin, feeds_reduce):
+        """Block-count governor: a partition holding more than
+        :data:`MAX_FILES_PER_STAGE` refs merges them in rounds of at
+        most that many (re-folding under the stage's associative op, or
+        re-sorting by hash when a reduce reads it, so runs stay runs).
+        Each round's sources drop before its merged block registers, so
+        residency stays one round over the budget at most."""
+        limit = MAX_FILES_PER_STAGE
+        for pid, refs in list(pset.parts.items()):
+            while len(refs) > limit:
+                merged_refs = []
+                for at in range(0, len(refs), limit):
+                    round_refs = refs[at:at + limit]
+                    if len(round_refs) == 1:
+                        merged_refs.append(round_refs[0])
+                        continue
+                    blocks = [r.get() for r in round_refs]
+                    for r in round_refs:
+                        self.store.drop_ref(r)
+                    merged = Block.concat(blocks)
+                    del blocks
+                    if combine_op is not None:
+                        merged = segment.fold_block(merged, combine_op)
+                    elif feeds_reduce:
+                        merged = merged.sort_by_hash()
+                    merged_refs.append(self.store.register(merged, pin=pin))
+                refs = merged_refs
+            pset.parts[pid] = refs
 
     # -- reduce ------------------------------------------------------------
     def run_reduce(self, stage_id, stage, env):
         """One job per partition id, empty partitions included (a
-        ``StreamReducer`` runs on every one).  Each job hands the reducer
-        one in-memory :class:`GroupedView` per input over that partition;
-        the inputs are co-partitioned by the same hash and ``P``.  The
-        output registers under the job's pid, keyed as the reducer
-        emitted."""
+        ``StreamReducer`` runs on every one).  The inputs are
+        co-partitioned by the same hash and ``P``.  A partition within the
+        streaming threshold hands the reducer one in-memory
+        :class:`~.base.GroupedView` per input (groups in key order); over
+        it, the out-of-core paths take it (module docstring).  The output
+        registers under the job's pid, keyed as the reducer emitted."""
         entries = [env[s] for s in stage.inputs]
         for e in entries:
             if not isinstance(e, storage.PartitionSet):
                 raise TypeError(
                     "reduce inputs must be materialized partitions, got "
                     "{!r}".format(e))
+        threshold = settings.streaming_reduce_threshold
+        if threshold is None:
+            threshold = self.store.budget
+        # The streaming views yield groups in hash order: fine for reducers
+        # whose groups are independent, but a Stream/BlockReducer sees the
+        # group sequence, so it always gets the key-ordered view.
+        order_insensitive = isinstance(
+            stage.reducer, (base.Reduce, base.AssocFoldReducer))
+        joinable = isinstance(
+            stage.reducer, (base.KeyedInnerJoin, base.KeyedLeftJoin,
+                            base.KeyedOuterJoin))
+
+        def note(counter):
+            with self._lock:
+                setattr(self, counter, getattr(self, counter) + 1)
+
+        def streaming_assoc_fold(refs, op):
+            """Over-budget associative fold, vectorized: fold each window
+            as it streams and compact the partials, so the working set is
+            one accumulator of *distinct keys*, not the partition.  None
+            (the caller streams records instead) once that accumulator
+            outgrows the threshold."""
+            partials = []
+
+            def compact():
+                merged = segment.fold_block(Block.concat(partials), op)
+                del partials[:]
+                partials.append(merged)
+                return merged.nbytes()
+
+            for ref in refs:
+                for window in ref.iter_windows():
+                    if not len(window):
+                        continue
+                    partials.append(segment.fold_block(window, op))
+                    if len(partials) >= _PARTIAL_FANIN:
+                        if compact() > threshold:
+                            return None
+            if not partials:
+                return iter(())
+            note("streamed_assoc_folds")
+            final = segment.fold_sorted(
+                segment.sort_and_group(Block.concat(partials)), op)
+            gkeys = final.keys
+            try:
+                order = np.argsort(gkeys, kind="stable")
+            except TypeError:
+                order = np.arange(len(final))
+
+            def emit():
+                vals = final.values
+                for gi in order:
+                    k = gkeys[gi]
+                    v = vals[gi]
+                    k = k.item() if isinstance(k, np.generic) else k
+                    v = v.item() if isinstance(v, np.generic) else v
+                    yield k, (k, v)
+
+            return emit()
+
+        def records(pid):
+            if joinable and len(entries) == 2:
+                size = sum(r.nbytes for pset in entries
+                           for r in pset.refs(pid))
+                if size > threshold:
+                    # over-budget join partition: a hash-ordered merge
+                    # join, bounded by its largest join-key group
+                    log.info("partition %d join (%.1f MB) exceeds the "
+                             "streaming threshold: merging by hash order",
+                             pid, size / 1e6)
+                    note("streamed_joins")
+                    return base.streaming_merge_join(
+                        base.StreamingGroupedView(entries[0].refs(pid)),
+                        base.StreamingGroupedView(entries[1].refs(pid)),
+                        _clone_op(stage.reducer))
+            if len(entries) == 1:
+                prefs = entries[0].refs(pid)
+                if (sum(r.nbytes for r in prefs) > threshold
+                        and isinstance(stage.reducer, base.AssocFoldReducer)
+                        and stage.reducer.op.kind is not None):
+                    stream = streaming_assoc_fold(prefs, stage.reducer.op)
+                    if stream is not None:
+                        return stream
+            views = []
+            for pset in entries:
+                refs = pset.refs(pid)
+                part_bytes = sum(r.nbytes for r in refs)
+                if (len(entries) == 1 and order_insensitive
+                        and part_bytes > threshold):
+                    # out-of-core partition: one window per run resident
+                    log.info("partition %d (%.1f MB) exceeds the streaming "
+                             "threshold: groups will stream in hash order",
+                             pid, part_bytes / 1e6)
+                    note("streamed_views")
+                    views.append(base.StreamingGroupedView(refs))
+                else:
+                    views.append(base.GroupedView([r.get() for r in refs]))
+            return _clone_op(stage.reducer).reduce(*views)
 
         def job(pid):
-            views = [base.GroupedView([r.get() for r in pset.refs(pid)])
-                     for pset in entries]
-            reducer = _clone_op(stage.reducer)
             builder = BlockBuilder(settings.batch_size)
             refs = []
-            for k, v in reducer.reduce(*views):
+            for k, v in records(pid):
                 blk = builder.add(k, v)
                 if blk is not None:
                     refs.append(self.store.register(blk))
@@ -445,10 +902,25 @@ class MTRunner(object):
     # -- the walk ----------------------------------------------------------
     def run(self, outputs):
         """Execute the graph; returns one dataset per requested output.
-        Intermediate stage outputs are deleted once the walk ends."""
+        Intermediate stage outputs are deleted once the walk ends.  A
+        failed run discards its queued spill writes (their refs keep
+        their RAM blocks, no temp file stays)."""
+        try:
+            return self._run(outputs)
+        except BaseException:
+            try:
+                self.store.abort_writes()
+            except Exception:
+                log.warning("spill writer abort failed", exc_info=True)
+            raise
+        finally:
+            self.store.stop_writes()
+
+    def _run(self, outputs):
         t_start = time.perf_counter()
         launches0 = {k: kern.launches for k, kern in KERNELS.items()}
         self.graph, self.plan_report = plan.prepare(self.graph, outputs)
+        sto = self.store
         env = {}
         to_delete = []
         for sid, stage in enumerate(self.graph.stages):
@@ -456,6 +928,9 @@ class MTRunner(object):
                 env[stage.output] = stage.tap
                 continue
             t0 = time.perf_counter()
+            sto.set_stage(sid)
+            snap = (sto.spill_count, sto.spilled_bytes, sto.merge_gens,
+                    sto.merge_gen_bytes)
             if isinstance(stage, GMap):
                 result, nrec, njobs = self.run_map(sid, stage, env)
                 kind, op = "map", stage.mapper
@@ -470,11 +945,18 @@ class MTRunner(object):
             else:
                 raise TypeError("unknown stage type {!r}".format(stage))
             env[stage.output] = result
+            # the stage-boundary write barrier: every spill this stage
+            # queued has landed (and a failed write raises here)
+            sto.drain_writes()
             st = StageStats(sid, kind, plan.ir.chain_name(op),
                             stage.options.get("exec_target", "host"))
             st.n_jobs = njobs
             st.records_out = nrec
             st.seconds = time.perf_counter() - t0
+            st.spill_count = sto.spill_count - snap[0]
+            st.spill_bytes = sto.spilled_bytes - snap[1]
+            st.merge_gens = sto.merge_gens - snap[2]
+            st.merge_gen_bytes = sto.merge_gen_bytes - snap[3]
             self.stats.append(st)
             log.info("stage %d done: %s", sid, st.as_dict())
 
@@ -482,7 +964,7 @@ class MTRunner(object):
         for source in outputs:
             entry = env[source]
             if isinstance(entry, storage.PartitionSet):
-                ret.append(OutputDataset(entry, self.store))
+                ret.append(OutputDataset(entry, sto))
             elif isinstance(entry, _SinkOutput):
                 ret.append(CatDataset(entry.datasets()))
             else:
@@ -490,13 +972,15 @@ class MTRunner(object):
         keep = set(outputs)
         for source in to_delete:
             if source not in keep:
-                env[source].delete(self.store)
+                env[source].delete(sto)
+        sto.drain_writes()
         wall = time.perf_counter() - t_start
         self.run_summary = self._summary(wall, launches0)
         return ret
 
     def _summary(self, wall, launches0):
         dev = self._device
+        sto = self.store
         phases = dict(dev["phases"])
         driving = phases["enqueue"] + phases["wait"]
         device = {
@@ -513,19 +997,53 @@ class MTRunner(object):
             "host_phase_seconds": phases,
             "batches": dev["batches"],
             "fallbacks": dev["fallbacks"],
-            "h2d_bytes": self.store.h2d_bytes,
-            "d2h_bytes": self.store.d2h_bytes,
+            "h2d_bytes": sto.h2d_bytes,
+            "d2h_bytes": sto.d2h_bytes,
             "kernels": {k: kern.launches - launches0[k]
                         for k, kern in KERNELS.items()},
             # the keyed batch ops' device calls (hash lanes, sort, segment
             # fold): calls and host seconds summed over jobs; their bytes
             # are in h2d_bytes/d2h_bytes
-            "keyed": {k: dict(v) for k, v in self.store.keyed.items()},
+            "keyed": {k: dict(v) for k, v in sto.keyed.items()},
+        }
+
+        def mbps(nbytes, secs):
+            return nbytes / 1e6 / secs if secs > 1e-9 else 0.0
+
+        # Spill I/O: bytes on disk and thread-seconds on the writer and
+        # reader pools, and the seconds jobs waited on them (write side:
+        # the writer pool's cap; read side: a frame not yet prefetched)
+        io = {
+            "spill_write_bytes": sto.spill_disk_bytes,
+            "spill_write_seconds": sto.spill_write_seconds,
+            "spill_write_mbps": mbps(sto.spill_disk_bytes,
+                                     sto.spill_write_seconds),
+            "spill_read_bytes": sto.spill_read_bytes,
+            "spill_read_seconds": sto.spill_read_seconds,
+            "spill_read_mbps": mbps(sto.spill_read_bytes,
+                                    sto.spill_read_seconds),
+            "io_wait_seconds": sto.io_wait_seconds,
+            "io_wait_fraction": (sto.io_wait_seconds / wall if wall > 0
+                                 else 0.0),
+            "io_wait_write_seconds": sto.io_wait_write_seconds,
+            "io_wait_write_fraction": (sto.io_wait_write_seconds / wall
+                                       if wall > 0 else 0.0),
+            "writer_threads": settings.spill_write_threads,
+            "read_prefetch": storage.SPILL_READ_PREFETCH,
+            "inflight_peak_bytes": sto.spill_inflight_peak_bytes,
+            "writer_queue_peak": sto.spill_queue_peak,
         }
         return {"name": self.name, "wall_seconds": wall,
                 "stages": [s.as_dict() for s in self.stats],
                 "plan": self.plan_report, "device": device,
                 # host seconds in map-side combine folds, summed over jobs
                 "combine_seconds": dev["combine_seconds"],
-                "spill": {"count": self.store.spill_count,
-                          "bytes": self.store.spill_bytes}}
+                "spill": {"count": sto.spill_count,
+                          "bytes": sto.spilled_bytes,
+                          "merge_gens": sto.merge_gens,
+                          "merge_gen_bytes": sto.merge_gen_bytes},
+                "io": io,
+                # reduce partitions that went out of core, by path
+                "streamed_assoc_folds": self.streamed_assoc_folds,
+                "streamed_views": self.streamed_views,
+                "streamed_joins": self.streamed_joins}

@@ -24,7 +24,8 @@ partitions = 64
 batch_size = 65536
 
 #: Byte budget for RAM-resident blocks; over it, the oldest unpinned
-#: blocks spill to disk under :data:`scratch_root`.
+#: blocks spill to disk under :data:`scratch_root` (chunked frame files,
+#: :mod:`.io`).
 max_memory_per_stage = int(os.environ.get(
     "DAMPR_TPU_TORCH_MEMORY_BUDGET", str(512 * 1024 * 1024)))
 
@@ -34,6 +35,23 @@ scan_window_bytes = 256 * 1024 ** 2
 #: Where spilled blocks go (under the process temp dir by default).
 scratch_root = os.environ.get("DAMPR_TPU_TORCH_SCRATCH") or os.path.join(
     tempfile.gettempdir(), "dampr_tpu_torch")
+
+#: Partition size (bytes) above which a single-input reduce streams a k-way
+#: merge over its hash-sorted runs instead of materializing the partition
+#: (groups then arrive in hash order), and a two-input join streams a
+#: hash-ordered merge join.  None = :data:`max_memory_per_stage`.
+streaming_reduce_threshold = None
+
+#: Most first-level sorted runs the final read merges directly; past it,
+#: runs merge in streamed file -> file generations until the count fits.
+#: The planner also clamps it so one window (plus its readahead) per run
+#: fits the memory budget.
+merge_fanin = 512
+
+#: Background spill writer threads (:class:`.io.writer.SpillWriterPool`):
+#: spills queue onto them, so a registering job does not wait on the
+#: codec and the disk.  0 = synchronous spills on the registering thread.
+spill_write_threads = 2
 
 #: The torch device of every device stage and kernel launch.
 device = os.environ.get("DAMPR_TPU_TORCH_DEVICE", "cuda")

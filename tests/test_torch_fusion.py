@@ -100,8 +100,7 @@ PIPELINES = {
     "cached": lambda pkg, path: (
         pkg.Dampr.memory(list(range(30)), partitions=3)
         .map(lambda x: x % 7).cached().map(lambda x: x + 1),),
-    # the sample reads the tap itself: behind a map stage it would see the
-    # JAX package's key-sorted runs (not ported) in another order
+    # (behind a map stage: tests/test_torch_sort_runs.py)
     "sample": lambda pkg, path: (
         pkg.Dampr.memory(list(range(200)), partitions=1)
         .sample(0.5).map(lambda x: x + 1).map(lambda x: x * 2),),
@@ -164,7 +163,9 @@ def _same(got, want, name, optimize):
     if name != "word_stats":
         assert got == want
         return
-    # top_words: records that tie on -count may come in another order
+    # top_words: records that tie on -count may come in another order (the
+    # JAX package's tiny-fold fast path, not ported, leaves count()'s
+    # output in hash order within a partition; tests/test_torch_wc.py)
     for i, (g, w) in enumerate(zip(got, want)):
         if i == 1:
             assert [c for _w, c in g] == [c for _w, c in w]

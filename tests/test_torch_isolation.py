@@ -29,8 +29,9 @@ def _port_sources():
 def test_port_imports_without_jax_or_the_jax_package(tmp_path):
     """Every port module imports with ``jax`` made unimportable, and no
     ``dampr_tpu`` module is loaded along the way, not even when the
-    two-input stages run: the TF-IDF pipeline (cross, ``len()``) and the
-    joins, on the CPU."""
+    two-input stages run (the TF-IDF pipeline's cross and ``len()``, the
+    joins) and the out-of-core paths (spill frames through the writer
+    pool, a streaming fold and join, sorted runs), on the CPU."""
     code = r"""
 import importlib, json, math, operator, pkgutil, sys
 sys.modules["jax"] = None
@@ -61,11 +62,18 @@ records = {"count": words.count().read(),
            "sorted": [c for _w, c in
                       words.count().sort_by(lambda wc: -wc[1]).read()],
            "kept": filter_by_count(words, lambda w: w, lambda c: c > 1).read()}
+settings.streaming_reduce_threshold = 1
+ooc = {"fold": words.count().run(memory_budget=1).read(),
+       "join": left.join(right).reduce(lambda l, r: (list(l), list(r)))
+       .run(memory_budget=1).read(),
+       "sort": Dampr.memory([3, 1, 2] * 50).sort_by(lambda x: x)
+       .run(memory_budget=1).read()[::50]}
 loaded = sorted(m for m in sys.modules
                 if m == "dampr_tpu" or m.startswith("dampr_tpu."))
 print(json.dumps({"modules": names, "reference": loaded,
                   "idf": idf.read(), "len": docs.len().read(),
-                  "joins": [j.read() for j in joins], "records": records}))
+                  "joins": [j.read() for j in joins], "records": records,
+                  "ooc": ooc}))
 """
     corpus = tmp_path / "c.txt"
     corpus.write_bytes(b"a b\nb\n\nc a")
@@ -79,7 +87,8 @@ print(json.dumps({"modules": names, "reference": loaded,
     for name in ("ops.lower", "ops.text", "ops.devtime", "csrc.build",
                  "base", "dampr", "dataset", "inputs", "runner", "plan.lower",
                  "plan.passes", "plan.ir", "utils", "utils.common",
-                 "utils.indexer"):
+                 "utils.indexer", "io", "io.codecs", "io.frames",
+                 "io.writer", "storage"):
         assert "dampr_tpu_torch." + name in report["modules"]
     assert report["idf"] == [["a", 2, 4], ["b", 2, 4], ["c", 1, 4]]
     assert report["len"] == [4]
@@ -93,6 +102,8 @@ print(json.dumps({"modules": names, "reference": loaded,
         "mean": [[1, 1.0]],
         "sorted": [2, 2, 1],
         "kept": ["a", "a", "b", "b"]}
+    assert report["ooc"] == {"fold": [["a", 2], ["b", 2], ["c", 1]],
+                             "join": pair, "sort": [1, 2, 3]}
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -9,9 +9,9 @@ the same list.  The cases are ``tests/test_conformance.py``'s
 hold (``sum``/``first``, ``count``, ``mean``, ``sort_by``, ``topk``,
 ``None`` and mixed-type keys), ``TestPersistence``, ``TestEmptyInputs``,
 ``test_json_input`` and ``TestUtils``.  Tolerance: exact, except float means (relative 1e-12:
-each side sums in its own order) and ``sort_by`` records that tie on the
-sort key, compared as multisets (the JAX package orders ties by its
-sorted-run merge, which the port does not have).
+each side sums in its own order).  ``sort_by`` records that tie on the
+sort key come in the same order on both sides: each package registers
+one key-sorted run per job (sorted-run mode) and reads them back stably.
 
 Then each record op's ``apply_batch`` against its own ``stream`` (``Sample``
 on one random sequence, a stateful filter), the batched path against the
@@ -190,6 +190,7 @@ def test_pinned_blocks_never_spill(tmp_path):
         blk = Block.from_lists(list(range(100)), list(range(100)))
         pinned = [store.register(blk, pin=True) for _ in range(3)]
         loose = [store.register(blk) for _ in range(3)]
+        store.drain_writes()  # spills land in the background writer pool
         assert all(r.resident for r in pinned)
         assert not any(r.resident for r in loose)
         assert store.spill_count == 3
@@ -209,12 +210,17 @@ def test_cached_stage_stays_in_ram_over_budget():
         return mid.map(lambda x: x + 1)
 
     want = build(dampr_tpu, "cached").read()
-    spills = {}
+    spills, barrier_spills = {}, {}
     for barrier in ("cached", "checkpoint"):
         em = build(dampr_tpu_torch, barrier).run(memory_budget=1)
         assert em.read() == want
         spills[barrier] = em.stats()["spill"]["count"]
-    assert 0 < spills["cached"] < spills["checkpoint"]
+        # the barrier stage's own registrations: spills are charged to the
+        # stage whose blocks pushed the store over budget
+        first_map = [s for s in em.stats()["stages"] if s["kind"] == "map"][0]
+        barrier_spills[barrier] = first_map["spill_count"]
+    assert spills["cached"] > 0  # the last map's blocks still spill
+    assert barrier_spills["cached"] == 0 < barrier_spills["checkpoint"]
 
 
 def test_float_mean_within_1e_12():
@@ -231,20 +237,15 @@ def test_float_mean_within_1e_12():
         assert math.isclose(g, w, rel_tol=1e-12)
 
 
-def _same_ties(got, want, key):
-    """Equal key sequence, and equal records as a multiset: records that
-    tie on ``key`` may come in another order."""
-    assert [key(x) for x in got] == [key(x) for x in want]
-    assert sorted(map(repr, got)) == sorted(map(repr, want))
-
-
-def test_sort_by_ties_as_multisets():
+def test_sort_by_ties_in_the_jax_package_order():
     def build(pkg):
         return pkg.Dampr.memory(DATA["pairs"], partitions=3).sort_by(
             lambda x: x[1] % 5)
 
-    _same_ties(build(dampr_tpu_torch).read(), build(dampr_tpu).read(),
-               lambda x: x[1] % 5)
+    got = build(dampr_tpu_torch).read()
+    assert got == build(dampr_tpu).read()
+    keys = [x[1] % 5 for x in got]
+    assert keys == sorted(keys) and len(set(keys)) < len(keys)  # ties
 
 
 def test_inspect_passes_through_and_prints(capsys):
