@@ -41,7 +41,9 @@ the kernels build for sm_90a).  Phases, each of which must pass:
    ``cross_right(docs.len(), idf, memory=True)`` -> ``sink_tsv``) on the
    same corpus, every sink line byte-equal to
    ``"{w}\t{df}\t{log(1 + lines / df)}"`` from the oracle; the DocFreq
-   stage must lower and both kernels must launch in this run;
+   stage must lower, both kernels must launch in this run, and DocFreq
+   and ``len()`` must share one window pass over every chunk of the
+   corpus (one scan-shared group of two stages, every chunk windowed);
 9. ``joins``: (a) the TokenCounts and DocFreq fold outputs of the corpus,
    each filtered by its count, joined by word (inner, left, outer) against
    a dict oracle; (b) 2^20 and 2^19 seeded integer keys (half shared,
@@ -60,7 +62,12 @@ the kernels build for sm_90a).  Phases, each of which must pass:
     ``Dampr.run`` on a ``--ws-mb`` corpus from the same generator and seed,
     each against values computed from its ``split()`` Counter
     (``top_words``' records that tie on their count compared as
-    multisets);
+    multisets); its line lists each ``Rekey`` stage's jobs and seconds
+    (the tiny-input collapse runs those over ``top_words`` as one job);
+    then a run with the collapse off (``runner.SMALL_STAGE_BYTES = 0``),
+    its outputs equal, and a ``word_stats-ab`` line with both runs'
+    seconds and kernel launches, in all and in the reduce stages (the
+    tiny folds with the collapse on), counts zeroed before each run;
 12. ``ooc``, the out-of-core tier, four runs, each printing an ``ooc`` JSON
     line (budget, partitions, chunk, seconds, MB/s, spills, the ``io``
     section, merge generations, streamed reduces, kernel launches):
@@ -77,7 +84,21 @@ the kernels build for sm_90a).  Phases, each of which must pass:
     both sides, against dict joins; ``ooc-tfidf``, the ``tfidf`` phase's
     pipeline with the DocFreq map output spilling and every fold partition
     over the streaming threshold, its sink lines equal to the ``tfidf``
-    phase's and the oracle's.
+    phase's and the oracle's;
+13. ``ingest``, compressed taps, two ``ingest`` JSON lines: (a) the
+    ``tfidf`` pipeline over a BGZF copy of the corpus that the script
+    writes (65,280-byte members with the htslib ``BC`` subfield, lines
+    crossing member boundaries, and the EOF member) in 8 member-aligned
+    chunks, lowering on; its sink lines must equal the ``tfidf``
+    phase's and the oracle's, K1 and K2 must launch, DocFreq and
+    ``len()`` must form one scan-shared group over every chunk (a BGZF
+    chunk streams no bytes, so its members share one read of the
+    inflated chunk rather than one window pass; the line reports the
+    group's ``windowed`` count), and
+    the overlap executor's peak of bytes in flight must be above 0 and
+    within the memory budget, with none left at the end; (b) DocFreq over
+    a plain (one-member) gzip of the corpus's first 16 MB, read as one
+    chunk, against the oracle of those lines.
 
 K1's lanes entry is also checked and timed at the ``wc`` batch shape (the
 corpus's first 65,536 words, padded as the combine pads them).  Every
@@ -580,6 +601,11 @@ def phase_tfidf(Dampr, DocFreq, kernels, corpus, chunk, nbytes, df, n_lines,
     for name, count in launches.items():
         check(count > 0, "kernel {} never launched in the TF-IDF run"
               .format(name))
+    groups = stats["scan_sharing"]["groups"]
+    check(len(groups) == 1 and len(groups[0]["stages"]) == 2
+          and groups[0]["windowed"] == groups[0]["chunks"],
+          "TF-IDF: DocFreq and len() did not share one window pass: {}"
+          .format(groups))
     run = {"pipeline": "tfidf", "seconds": secs,
            "mb_per_s": nbytes / 1e6 / secs, "lines": n_lines,
            "sink_lines": len(got),
@@ -591,6 +617,9 @@ def phase_tfidf(Dampr, DocFreq, kernels, corpus, chunk, nbytes, df, n_lines,
            "stage_seconds": stage_seconds(stats),
            "batches": dstat["batches"], "fallbacks": dstat["fallbacks"],
            "h2d_bytes": dstat["h2d_bytes"], "d2h_bytes": dstat["d2h_bytes"],
+           "scan_sharing": groups,
+           "overlap_peak_bytes": stats["io"]["overlap_peak_bytes"],
+           "budget_bytes": stats["io"]["budget_bytes"],
            "kernels": launches}
     log("e2e " + json.dumps(run))
     return launches
@@ -870,20 +899,44 @@ def wc_breakdown(corpus, chunk):
                 total_seconds=sum(t.values()))
 
 
-def phase_word_stats(Dampr, kernels, corpus, chunk, nbytes, wc):
-    """``examples/word_stats.py``'s four outputs in one run against values
-    computed from the corpus's ``split()`` Counter."""
-    for k in kernels.values():
-        k.launches = 0
+def word_stats_run(Dampr, corpus, chunk):
+    """One run of the four ``word_stats`` outputs: (outputs, seconds,
+    stats, the ``Rekey`` stages' [stage, jobs, seconds])."""
     t0 = time.perf_counter()
     ems = Dampr.run(*word_stats_pipelines(Dampr, corpus, chunk),
                     name="chip-word-stats")
-    tc, tw, wl, awl = [em.read() for em in ems]
+    outs = [em.read() for em in ems]
     secs = time.perf_counter() - t0
-    launches = {k: kern.launches for k, kern in kernels.items()}
     stats = ems[0].stats()
     for em in ems:
         em.delete()
+    # ``sort_by`` and the ``fold_by`` stages over ``top_words``: the
+    # tiny-input collapse runs each as one job
+    rekeys = [[s["stage"], s["jobs"], s["seconds"]] for s in stats["stages"]
+              if s["kind"] == "map" and s["op"] == "Rekey"]
+    return outs, secs, stats, rekeys
+
+
+def reduce_launches(stats):
+    """Each kernel's launches in a run's reduce stages, summed."""
+    out = collections.Counter()
+    for s in stats["stages"]:
+        if s["kind"] == "reduce":
+            out.update(s["launches"])
+    return dict(out)
+
+
+def phase_word_stats(Dampr, runner, kernels, corpus, chunk, nbytes, wc):
+    """``examples/word_stats.py``'s four outputs in one run against values
+    computed from the corpus's ``split()`` Counter; then once more with
+    the tiny-stage collapse off (``runner.SMALL_STAGE_BYTES = 0``), its
+    outputs equal (``top_words``' ties as a multiset: they come in key
+    order there), for the ``Rekey`` stages' seconds and both runs' kernel
+    launches side by side."""
+    zero_launches(kernels)
+    outs, secs, stats, rekeys = word_stats_run(Dampr, corpus, chunk)
+    launches = read_launches(kernels)
+    tc, tw, wl, awl = outs
     total = sum(wc.values())
     check(tc == [(1, total)], "total_count {} != {}".format(tc, total))
     check([c for _w, c in tw] == sorted(wc.values(), reverse=True)
@@ -898,10 +951,29 @@ def phase_word_stats(Dampr, kernels, corpus, chunk, nbytes, wc):
         awl, want_avg))
     run = dict(run_line(stats, secs, nbytes, launches),
                pipeline="word_stats", corpus_bytes=nbytes,
+               rekey_stages=rekeys, tiny_folds=stats["tiny_folds"],
                records={"total_count": len(tc), "top_words": len(tw),
                         "word_lengths": len(wl),
                         "avg_word_lengths": len(awl)})
     log("e2e " + json.dumps(run))
+    old = runner.SMALL_STAGE_BYTES
+    runner.SMALL_STAGE_BYTES = 0
+    try:
+        zero_launches(kernels)
+        off, off_secs, off_stats, off_rekeys = word_stats_run(
+            Dampr, corpus, chunk)
+        off_launches = read_launches(kernels)
+    finally:
+        runner.SMALL_STAGE_BYTES = old
+    check(off[0] == tc and sorted(off[1]) == sorted(tw) and off[2] == wl
+          and off[3] == awl, "word_stats with the collapse off differs")
+    log("word_stats-ab " + json.dumps([
+        {"collapse": True, "seconds": secs, "rekey_stages": rekeys,
+         "tiny_folds": stats["tiny_folds"], "kernels": launches,
+         "reduce_kernels": reduce_launches(stats)},
+        {"collapse": False, "seconds": off_secs, "rekey_stages": off_rekeys,
+         "tiny_folds": off_stats["tiny_folds"], "kernels": off_launches,
+         "reduce_kernels": reduce_launches(off_stats)}]))
 
 
 def wc_batch(torch, hashing, path, dev):
@@ -1194,6 +1266,137 @@ def phase_ooc(Dampr, ParseNumbers, DocFreq, settings, kernels, workdir, mb,
     return {k: sum(line["kernels"][k] for line in lines) for k in kernels}
 
 
+#: Uncompressed bytes per BGZF member: bgzip's block size, which keeps a
+#: member's compressed size inside BGZF's 64 KiB limit.
+BGZF_BLOCK = 0xff00
+
+
+def _bgzf_member(payload):
+    """One BGZF member: a raw-deflate gzip member carrying the htslib
+    ``BC`` extra subfield with its own size less one."""
+    import struct
+    import zlib
+
+    comp = zlib.compressobj(6, zlib.DEFLATED, -15)
+    cdata = comp.compress(payload) + comp.flush()
+    bsize = 12 + 6 + len(cdata) + 8
+    hdr = struct.pack("<2sBBIBBH2sHH", b"\x1f\x8b", 8, 4, 0, 0, 255, 6,
+                      b"BC", 2, bsize - 1)
+    return hdr + cdata + struct.pack("<II", zlib.crc32(payload) & 0xFFFFFFFF,
+                                     len(payload) & 0xFFFFFFFF)
+
+
+def write_bgzf(src, dst):
+    """``src`` as a BGZF file: members of ``BGZF_BLOCK`` bytes each (lines
+    cross member boundaries), compressed on a thread pool, then the empty
+    EOF member.  Returns the compressed size."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with open(src, "rb") as f:
+        data = f.read()
+    blocks = [data[at:at + BGZF_BLOCK]
+              for at in range(0, len(data), BGZF_BLOCK)]
+    with ThreadPoolExecutor(8) as pool, open(dst, "wb") as out:
+        for member in pool.map(_bgzf_member, blocks):
+            out.write(member)
+        out.write(_bgzf_member(b""))
+    return os.path.getsize(dst)
+
+
+def phase_ingest(Dampr, DocFreq, settings, kernels, workdir, corpus, nbytes,
+                 df, n_lines, plain_lines):
+    """TF-IDF over a BGZF copy of the corpus in 8 member-aligned chunks
+    (scan sharing and lowering on), then DocFreq over a plain gzip of the
+    corpus's first 16 MB as one chunk; returns each kernel's launches in
+    the BGZF run."""
+    import gzip
+
+    t0 = time.perf_counter()
+    bgzf = os.path.join(workdir, "corpus.txt.gz")
+    zbytes = write_bgzf(corpus, bgzf)
+    log("phase ingest corpus: {} bytes BGZF in {:.3f} s".format(
+        zbytes, time.perf_counter() - t0))
+    check(settings.lower_enabled(), "ingest needs lowering on")
+    from dampr_tpu_torch.inputs import plan_chunks
+
+    out_dir = os.path.join(workdir, "idf_bgzf")
+    chunk = zbytes // 8 + 1
+    n_chunks = len(plan_chunks(bgzf, chunk))
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    em = tfidf_pipeline(Dampr, DocFreq, bgzf, chunk, out_dir).run(
+        name="chip-ingest")
+    secs = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    stats = em.stats()
+    got = part_lines(out_dir)
+    check(got == plain_lines,
+          "BGZF TF-IDF sink lines differ from the plain-text run's")
+    check(got == tfidf_oracle_lines(df, n_lines),
+          "BGZF TF-IDF sink lines differ from the oracle")
+    for name, count in launches.items():
+        check(count > 0, "kernel {} never launched in the BGZF TF-IDF run"
+              .format(name))
+    groups = stats["scan_sharing"]["groups"]
+    check(len(groups) == 1 and len(groups[0]["stages"]) == 2
+          and groups[0]["chunks"] == n_chunks,
+          "BGZF TF-IDF: scan-shared groups {}".format(groups))
+    io = stats["io"]
+    check(0 < io["overlap_peak_bytes"] <= io["budget_bytes"]
+          and io["overlap_bytes"] == 0,
+          "BGZF TF-IDF: overlap peak {} bytes against a {} byte budget, {} "
+          "left".format(io["overlap_peak_bytes"], io["budget_bytes"],
+                        io["overlap_bytes"]))
+    dstat = stats["device"]
+    log("ingest " + json.dumps({
+        "run": "tfidf-bgzf", "seconds": secs,
+        "mb_per_s": nbytes / 1e6 / secs,
+        "compressed_mb_per_s": zbytes / 1e6 / secs,
+        "bytes": nbytes, "compressed_bytes": zbytes, "chunks": n_chunks,
+        "sink_lines": len(got), "kernels": launches,
+        "scan_sharing": groups,
+        "overlap_peak_bytes": io["overlap_peak_bytes"],
+        "budget_bytes": io["budget_bytes"],
+        "overlap_windows": io["overlap_windows"],
+        "device_stages": dstat["device_stages"],
+        "batches": dstat["batches"], "fallbacks": dstat["fallbacks"],
+        "host_phase_seconds": dstat["host_phase_seconds"],
+        "stage_seconds": stage_seconds(stats)}))
+
+    t0 = time.perf_counter()
+    head = os.path.join(workdir, "corpus_head.txt")
+    head_bytes = head_lines(corpus, head, 16 * 1024 ** 2)
+    gz = os.path.join(workdir, "corpus_head.txt.gz")
+    with open(head, "rb") as f, open(gz, "wb") as raw:
+        with gzip.GzipFile(fileobj=raw, mode="wb", compresslevel=6) as z:
+            z.write(f.read())
+    head_df = oracle(head)[1]
+    prep = time.perf_counter() - t0
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    em = (Dampr.text(gz, 64 * 1024 ** 2)
+          .custom_mapper(DocFreq(mode="word", lower=True, pair_values=False))
+          .fold_values(operator.add).run(name="chip-ingest-gzip"))
+    got = em.read()
+    secs = time.perf_counter() - t0
+    gz_launches = read_launches(kernels)
+    stats = em.stats()
+    em.delete()
+    check(got == sorted(head_df.items()),
+          "plain-gzip DocFreq differs from the oracle of its 16 MB")
+    maps = [s for s in stats["stages"] if s["kind"] == "map"]
+    check(maps[0]["jobs"] == 1, "plain gzip did not read as one chunk")
+    log("ingest " + json.dumps({
+        "run": "docfreq-gzip", "seconds": secs,
+        "mb_per_s": head_bytes / 1e6 / secs, "bytes": head_bytes,
+        "compressed_bytes": os.path.getsize(gz), "chunks": maps[0]["jobs"],
+        "prep_seconds": prep, "distinct": len(got),
+        "kernels": gz_launches,
+        "overlap_peak_bytes": stats["io"]["overlap_peak_bytes"],
+        "stage_seconds": stage_seconds(stats)}))
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mb", type=int, default=128,
@@ -1215,7 +1418,7 @@ def main(argv=None):
               "(torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     try:
-        from dampr_tpu_torch import Dampr, Map, settings
+        from dampr_tpu_torch import Dampr, Map, runner, settings
         from dampr_tpu_torch.csrc import build
         from dampr_tpu_torch.ops import fnv, hashing, lower, segfold
         from dampr_tpu_torch.ops.text import (DocFreq, ParseNumbers,
@@ -1424,7 +1627,7 @@ def main(argv=None):
                                      nbytes, df, n_lines,
                                      os.path.join(workdir, "idf"))
         log("phase tfidf: {} sink lines exact, DocFreq lowered, both "
-            "kernels launched, in {:.3f} s".format(
+            "kernels launched, one shared window pass, in {:.3f} s".format(
                 len(df), time.perf_counter() - t0))
 
         # -- keyed joins ------------------------------------------------------
@@ -1448,7 +1651,7 @@ def main(argv=None):
             ws_corpus = os.path.join(workdir, "corpus_ws.txt")
             ws_bytes = make_corpus(ws_corpus, args.ws_mb, args.seed)
             ws_wc = oracle(ws_corpus)[3]
-        phase_word_stats(Dampr, KERNELS, ws_corpus,
+        phase_word_stats(Dampr, runner, KERNELS, ws_corpus,
                          os.path.getsize(ws_corpus) // 8 + 1, ws_bytes, ws_wc)
         log("phase word_stats: four outputs exact on {} bytes, in {:.3f} s"
             .format(ws_bytes, time.perf_counter() - t0))
@@ -1461,6 +1664,15 @@ def main(argv=None):
             part_lines(os.path.join(workdir, "idf")))
         log("phase ooc: sort, fold, join and tfidf out of core exact, in "
             "{:.3f} s".format(time.perf_counter() - t0))
+
+        # -- compressed taps ------------------------------------------------
+        t0 = time.perf_counter()
+        ingest_launches = phase_ingest(
+            Dampr, DocFreq, settings, KERNELS, workdir, corpus, nbytes, df,
+            n_lines, part_lines(os.path.join(workdir, "idf")))
+        log("phase ingest: BGZF TF-IDF equal to the plain run and the "
+            "oracle in one shared read, plain gzip DocFreq exact, in {:.3f} "
+            "s".format(time.perf_counter() - t0))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1481,6 +1693,7 @@ def main(argv=None):
             "launches_tfidf": tfidf_launches[name],
             "launches_wc": wc_launches[name],
             "launches_ooc": ooc_launches[name],
+            "launches_ingest": ingest_launches[name],
             "max_abs_err": err[name], "ms": main_t["ms"],
             "device_ms": main_t["device_ms"], "host_ms": main_t["host_ms"],
             "profiler_ms": main_t["profiler_ms"],

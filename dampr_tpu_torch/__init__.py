@@ -40,9 +40,10 @@ from .blocks import Block, BlockBuilder
 from .dampr import (ARReduce, Dampr, PBase, PJoin, PMap, PReduce, RunStats,
                     ValueEmitter, setup_logging)
 from .dataset import (BlockDataset, CatDataset, Chunker, Dataset,
-                      EmptyDataset, MemoryDataset, TextLineDataset)
+                      EmptyDataset, GzipLineDataset, MemoryDataset,
+                      TextLineDataset)
 from .graph import Graph, Source
-from .inputs import MemoryInput, PathInput, TextInput
+from .inputs import MemoryInput, PathInput, TextInput, UrlsInput
 from .runner import MTRunner
 
 __all__ = [
@@ -52,8 +53,8 @@ __all__ = [
     "Reducer", "Reduce", "BlockReducer", "StreamReducer",
     "Graph", "Source", "MTRunner",
     "Dataset", "Chunker", "EmptyDataset", "MemoryDataset", "TextLineDataset",
-    "CatDataset", "BlockDataset",
-    "MemoryInput", "PathInput", "TextInput",
+    "CatDataset", "BlockDataset", "GzipLineDataset",
+    "MemoryInput", "PathInput", "TextInput", "UrlsInput",
     "Block", "BlockBuilder",
     "setup_logging",
 ]

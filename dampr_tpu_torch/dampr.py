@@ -1,8 +1,8 @@
 """The fluent DSL: lazy, value-semantic pipeline construction.
 
-Port of ``dampr_tpu/dampr.py`` without the URL input and the
-``explain``/``validate``/``submit``/resume surfaces: the sources
-(``Dampr.text``/``json``/``memory``/``read_input``/``from_dataset``),
+Port of ``dampr_tpu/dampr.py`` without the ``explain``/``validate``/
+``submit``/resume surfaces: the sources (``Dampr.text``/``json``/
+``memory``/``urls``/``read_input``/``from_dataset``),
 the per-record ops (``map``, ``map_values``, ``map_keys``, ``prefix``,
 ``suffix``, ``filter``, ``flat_map``, ``sample``, ``inspect``), the
 associative folds (``fold_by``, ``a_group_by`` -> ``reduce``/``sum``/
@@ -35,7 +35,7 @@ from .base import (AssocFoldReducer, ComposedMapper, Filter, FlatMap,
                    _shared_instance_deepcopy)
 from .dataset import CatDataset, Chunker
 from .graph import GMap, Graph, Source
-from .inputs import MemoryInput, PathInput
+from .inputs import MemoryInput, PathInput, UrlsInput
 from .ops import segment
 from .runner import MTRunner
 
@@ -70,6 +70,9 @@ class ValueEmitter(object):
                 break
             out.append(v)
         return out
+
+    def __iter__(self):
+        return self.stream()
 
     def delete(self):
         self.dataset.delete()
@@ -554,6 +557,11 @@ class Dampr(object):
     def json(cls, *args, **kwargs):
         """Line-delimited JSON records."""
         return cls.text(*args, **kwargs).map(json.loads)
+
+    @classmethod
+    def urls(cls, urls, skip_on_error=True):
+        """Newline-delimited text over HTTP, one chunk per URL."""
+        return cls.read_input(UrlsInput(urls, skip_on_error))
 
     @classmethod
     def run(cls, *pmers, **kwargs):

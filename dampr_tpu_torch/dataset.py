@@ -1,17 +1,21 @@
 """Read-side datasets: the record sources stages consume.
 
-Port of ``dampr_tpu/dataset.py`` for plain text and in-memory records
-(gzip taps are a later slice), with the final read's ``OrderKey`` and
-``merged_read``.  Every dataset
+Port of ``dampr_tpu/dataset.py``: plain text, a plain gzip file as one
+chunk, in-memory records, and block views, with the final read's
+``OrderKey`` and ``merged_read``.  Every dataset
 yields ``(key, value)`` pairs; text taps yield ``(byte_offset, line)``.
 The batched record path reads through ``read_lists(batch)`` where a
 dataset has it: parallel key and value lists of at most ``batch``
 records, the same records in the same order as ``read()``.
 """
 
+import gzip
+import itertools
 import os
 
 import numpy as np
+
+from .blocks import Block
 
 
 class Chunker(object):
@@ -27,8 +31,17 @@ class Dataset(Chunker):
     def read(self):
         raise NotImplementedError()
 
+    def grouped_read(self):
+        """Consecutive equal keys as ``(key, values)`` groups (meaningful on
+        key-sorted data)."""
+        for key, group in itertools.groupby(self.read(), key=lambda kv: kv[0]):
+            yield key, (kv[1] for kv in group)
+
     def delete(self):
         pass
+
+    def __iter__(self):
+        return self.read()
 
     def chunks(self):
         yield self
@@ -78,6 +91,10 @@ class BlockDataset(Dataset):
             ks, vs = blk.to_lists()
             for i in range(0, len(ks), batch):
                 yield ks[i:i + batch], vs[i:i + batch]
+
+    def concat(self):
+        """Every block as one (an empty Block when there are none)."""
+        return Block.concat(list(self.iter_blocks()))
 
 
 class StreamDataset(Dataset):
@@ -208,6 +225,38 @@ class TextLineDataset(Dataset):
     def __repr__(self):
         return "Text[path={},start={},end={}]".format(
             self.path, self.start, self.end)
+
+
+class GzipLineDataset(Dataset):
+    """A plain (not BGZF) gzip text file as one unsplittable chunk; keys
+    are the lines' offsets in the decompressed stream."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def read(self):
+        with gzip.open(self.path, "rb") as f:
+            pos = 0
+            for raw in f:
+                yield pos, raw.decode("utf-8").rstrip("\n")
+                pos += len(raw)
+
+    def read_bytes(self):
+        with gzip.open(self.path, "rb") as f:
+            return f.read()
+
+    def iter_byte_blocks(self, block_size=4 * 1024 ** 2):
+        """The decompressed bytes in bounded blocks, so a scan never holds
+        the whole expansion."""
+        with gzip.open(self.path, "rb") as f:
+            while True:
+                b = f.read(block_size)
+                if not b:
+                    return
+                yield b
+
+    def __repr__(self):
+        return "GzipFile[path={}]".format(self.path)
 
 
 class SinkDataset(Dataset):

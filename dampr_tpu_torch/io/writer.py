@@ -116,7 +116,7 @@ class SpillWriterPool(object):
                     os.fsync(f.fileno())
                 os.replace(tmp, final)
                 secs = time.perf_counter() - t0
-                self.store.publish_spill(ref, final, nbytes,
+                self.store.publish_spill(ref, final,
                                          os.path.getsize(final), secs)
             except BaseException as e:  # disk full, codec bug: fail the run
                 try:

@@ -2,8 +2,9 @@
 
 Port of ``dampr_tpu/native`` (the same ``tokenizer.cpp``, copied).  The
 shared object compiles with g++ on first use into ``native/_build/``
-(gitignored, and outside the importable module path); set
-``DAMPR_TPU_NATIVE=0`` to force the pure-numpy paths.
+(gitignored, and outside the importable module path), once across
+processes (a lock file beside it); set ``DAMPR_TPU_NATIVE=0`` to force
+the pure-numpy paths.
 """
 
 import ctypes
@@ -22,11 +23,22 @@ _SO = os.path.join(_HERE, "_build", "libtokenizer.so")
 
 _lock = threading.Lock()
 _lib = None
-_tried = False
+_disabled = False
+#: mtime of the shared object that last failed to load (None: no failure);
+#: a later call retries only once the file has changed
+_failed_mtime = None
+
+
+def _so_mtime():
+    try:
+        return os.path.getmtime(_SO)
+    except OSError:
+        return None
 
 
 def _build():
-    os.makedirs(os.path.dirname(_SO), exist_ok=True)
+    """Compile into a per-process temp file, then rename it over the
+    shared object: a reader never maps a half-written library."""
     tmp = "{}.{}.tmp".format(_SO, os.getpid())
     cmd = ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", tmp]
     try:
@@ -37,46 +49,70 @@ def _build():
     os.replace(tmp, _SO)
 
 
+def _build_if_stale():
+    """Build the shared object unless an up-to-date one exists, under an
+    exclusive lock file beside it, so concurrent processes (test workers)
+    compile it once and the others wait for that build."""
+    import fcntl
+
+    os.makedirs(os.path.dirname(_SO), exist_ok=True)
+    with open(_SO + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            mtime = _so_mtime()
+            if mtime is None or mtime < os.path.getmtime(_SRC):
+                _build()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _bind(lib):
+    fc = lib.dampr_token_counts
+    fc.restype = ctypes.c_long
+    fc.argtypes = [
+        ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    fb = lib.dampr_hash_bytes_batch
+    fb.restype = None
+    fb.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    fp = lib.dampr_parse_i64
+    fp.restype = ctypes.c_long
+    fp.argtypes = [
+        ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    return lib
+
+
 def get_lib():
-    """The loaded native library, or None when unavailable/disabled."""
-    global _lib, _tried
-    if _lib is not None or _tried:
+    """The loaded native library, or None when unavailable/disabled.  A
+    failed build or load is retried once the shared object has changed
+    (another process finished building it), never left failed for the
+    process."""
+    global _lib, _disabled, _failed_mtime
+    if _lib is not None or _disabled:
         return _lib
+    if _failed_mtime is not None and _so_mtime() in (None, _failed_mtime):
+        return None
     with _lock:
-        if _lib is not None or _tried:
+        if _lib is not None or _disabled:
             return _lib
-        _tried = True
         if os.environ.get("DAMPR_TPU_NATIVE", "1") in ("0", "false"):
+            _disabled = True
             return None
         try:
-            if (not os.path.exists(_SO)
-                    or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-                _build()
-            lib = ctypes.CDLL(_SO)
-            fc = lib.dampr_token_counts
-            fc.restype = ctypes.c_long
-            fc.argtypes = [
-                ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            fb = lib.dampr_hash_bytes_batch
-            fb.restype = None
-            fb.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
-                ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            fp = lib.dampr_parse_i64
-            fp.restype = ctypes.c_long
-            fp.argtypes = [
-                ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
-                ctypes.c_void_p,
-            ]
-            _lib = lib
+            _build_if_stale()
+            _lib = _bind(ctypes.CDLL(_SO))
+            _failed_mtime = None
         except (OSError, AttributeError,
                 subprocess.CalledProcessError) as exc:
             log.warning("native tokenizer unavailable (%s); using numpy", exc)
-            _lib = None
+            _failed_mtime = _so_mtime() or 0.0
     return _lib
 
 

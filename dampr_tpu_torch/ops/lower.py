@@ -172,6 +172,10 @@ class DeviceTokenFoldSink(object):
         self.device = device if device is not None else \
             settings.resolve_device()
         self._cuda = self.device.type == "cuda"
+        if self._cuda and self.device.index is None:
+            # The current device is per thread and the overlap executor's
+            # producer thread drives the sink: pin the index here.
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self._stream = (torch.cuda.Stream(self.device) if self._cuda
                         else None)
         self.batches = 0

@@ -21,6 +21,19 @@ the sort-merge joins of co-partitioned inputs.
   ``base.record_op_chain``, run a batch at a time through each op's
   ``apply_batch``), or the per-record ``mapper.map`` path into blocks.
 
+A device-lowered or ``map_blocks`` scan runs under the **overlap
+executor** (:func:`_overlap_stream`): a producer thread runs the codec
+(inflate, tokenize, the device sink's copies and kernels) up to
+:data:`OVERLAP_WINDOWS` blocks ahead of the job thread's fold, every
+block in flight charged to the budget.  Map stages that read the same
+tap run as one **scan-shared** group (:meth:`MTRunner.run_map_group`):
+one window pass per chunk feeds every member's sink where the chunk
+streams its bytes, else the members share one read of it.  A small
+materialized input (:data:`SMALL_STAGE_BYTES`) to a pure record
+map, a broadcast join or a sink runs as **one job**, and a small
+associative fold reduces every partition in one pass
+(:meth:`MTRunner._tiny_assoc_reduce`).
+
 Either way the job's blocks go through the map-side combine
 (``segment.fold_block``) when the stage carries one, then hash
 partitioning into the store; a ``cached()`` stage registers them pinned.
@@ -44,22 +57,25 @@ writer pool, drained at every stage boundary and aborted on a failed run.
 ``stats()`` (the emitter's ``stats()``) reports the plan (rules fired,
 stages before and after fusion, per-stage targets), per-stage spill and
 merge counts, the ``io`` section (spill write and read MB/s, ``io_wait``,
-the writer pool's peaks), the streamed reduces, and, under ``device``,
+the writer pool's peaks, the overlap executor's peak bytes in flight),
+the streamed reduces, the scan-shared groups (``scan_sharing``), the
+tiny folds, and, under ``device``,
 ``device_stages``, ``device_fraction``, the h2d/d2h bytes, each kernel's
 launches and the keyed batch ops' device calls (``keyed``) during the
 run; every job charges its keyed calls to the run's store
 (:mod:`.ops.devtime`), so their copies count in the h2d/d2h bytes.
 
 Mesh execution, mitigation, faults/resume and quarantine, reuse, the
-overlap executor, the observability plane and per-operator profiler, the
-certified lane programs, the tiny-input and tiny-fold fast paths and
-scan sharing are later slices.
+device handoff, the observability plane and per-operator profiler, and
+the certified lane programs are later slices.
 """
 
+import collections
 import copy
 import itertools
 import logging
 import os
+import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -67,10 +83,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from . import base, plan, settings, storage
-from .blocks import Block, BlockBuilder, merge_sorted_streams
+from .blocks import Block, BlockBuilder, merge_sorted_streams, pylist
 from .dataset import (BlockDataset, CatDataset, Chunker, Dataset, OrderKey,
                       SinkDataset, StreamDataset, merged_read)
 from .graph import GInput, GMap, GReduce, GSink
+from .inputs import close_readahead
 from .ops import devtime
 from .ops import fnv as _fnv
 from .ops import lower as ops_lower
@@ -86,6 +103,24 @@ _PARTIAL_FANIN = 8
 #: A stage-output partition holding more refs than this merges them in
 #: rounds (:meth:`MTRunner._compact_partitions`).
 MAX_FILES_PER_STAGE = 50
+
+#: Stages whose materialized input is at most this many bytes collapse to
+#: one job: a pure record map or a sink runs once over the concatenated
+#: refs, and an associative fold reduces every partition in one pass,
+#: then re-splits by the same hash % P (its output keeps hash order
+#: within a partition).  0 turns the collapse off.
+SMALL_STAGE_BYTES = 4 * 1024 * 1024
+
+#: Codec -> fold overlap depth: a map job's codec (window scan, inflate,
+#: tokenize, the lowered device sink) runs on a producer thread up to
+#: this many blocks ahead of the fold/register loop, every block in
+#: flight charged to the memory budget (``RunStore.reserve_overlap``).
+#: 0 runs both on the job thread.
+OVERLAP_WINDOWS = 2
+
+#: Seconds the consumer waits for a stopped overlap producer to exit
+#: before the run fails.
+_PRODUCER_JOIN_SECONDS = 10.0
 
 #: Every kernel the device path launches, by name.
 KERNELS = {"fnv": _fnv.KERNEL, "segfold": _segfold.KERNEL}
@@ -164,6 +199,149 @@ def _run_record_chain(chain, batches, B, push):
         run(ks, vs, 0)
     if pk:
         push(Block.from_lists(pk, pv))
+
+
+def _overlap_stream(items, store, size_of=None):
+    """The overlap executor: run ``items`` (the codec, a generator whose
+    ``next()`` reads, inflates, tokenizes or drives the device sink) on a
+    producer thread that stays up to :data:`OVERLAP_WINDOWS` blocks
+    ahead of the consumer (the fold/register loop on the job thread).
+
+    Every block in flight is charged to the run's budget
+    (``store.reserve_overlap``) from the moment the codec emits it until
+    the consumer has folded it, so readahead displaces resident refs
+    instead of stacking on them.  A producer exception is raised again on
+    the consumer.  A consumer that stops early (a failed fold) stops the
+    producer, joins it and releases every reservation still queued.
+
+    A producer that does not stop within ``_PRODUCER_JOIN_SECONDS`` fails
+    the run: it may still hold a budget charge or drive the device sink.
+
+    Returns ``items`` unchanged when the depth is 0 or there is no store."""
+    depth = OVERLAP_WINDOWS
+    if depth <= 0 or store is None:
+        return items
+    if size_of is None:
+        size_of = lambda b: b.nbytes()  # noqa: E731
+
+    q = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    state = {"err": None, "done": False}
+    end = object()
+
+    def produce():
+        try:
+            for item in items:
+                if stop.is_set():
+                    return
+                if item is None:
+                    continue  # the serial loop drops empty windows too
+                nb = size_of(item) or 0
+                if nb:
+                    store.reserve_overlap(nb)
+                while not stop.is_set():
+                    try:
+                        q.put((item, nb), timeout=0.05)
+                        break
+                    except queue.Full:
+                        continue
+                else:
+                    if nb:
+                        store.release_overlap(nb)
+                    return
+        except BaseException as e:  # raised again on the consumer
+            state["err"] = e
+        finally:
+            state["done"] = True
+            while not stop.is_set():
+                try:
+                    q.put((end, 0), timeout=0.05)
+                    break
+                except queue.Full:
+                    continue
+
+    thread = threading.Thread(target=produce, daemon=True,
+                              name="dampr-codec")
+
+    def drain():
+        while True:
+            try:
+                _item, nb = q.get_nowait()
+            except queue.Empty:
+                return
+            if nb:
+                store.release_overlap(nb)
+
+    def gen():
+        thread.start()
+        try:
+            while True:
+                try:
+                    item, nb = q.get(timeout=0.05)
+                except queue.Empty:
+                    if state["done"] and q.empty():
+                        item, nb = end, 0
+                    else:
+                        continue
+                if item is end:
+                    if state["err"] is not None:
+                        raise state["err"]
+                    return
+                try:
+                    yield item
+                finally:
+                    if nb:
+                        store.release_overlap(nb)
+        finally:
+            stop.set()
+            drain()
+            deadline = time.perf_counter() + _PRODUCER_JOIN_SECONDS
+            while thread.is_alive() and time.perf_counter() < deadline:
+                # a producer still inside the codec: keep releasing what
+                # it queues until it sees ``stop``
+                drain()
+                thread.join(timeout=0.05)
+            drain()
+            if thread.is_alive():
+                raise RuntimeError(
+                    "overlap producer {} did not stop within {} s".format(
+                        thread.name, _PRODUCER_JOIN_SECONDS))
+
+    return gen()
+
+
+class _SharedScanChunk(object):
+    """One read of a tap chunk shared by the scan-fused map stages that
+    materialize its bytes: the first ``read_bytes()`` reads, later readers
+    (a streaming ``iter_byte_blocks`` one included) get the cached bytes.
+    When nothing materializes, ``iter_byte_blocks`` is the chunk's own
+    bounded scan, so fusion never raises the memory ceiling above what the
+    widest member would use alone."""
+
+    def __init__(self, chunk):
+        self._chunk = chunk
+        self._bytes = None
+
+    def read_bytes(self):
+        if self._bytes is None:
+            self._bytes = self._chunk.read_bytes()
+        return self._bytes
+
+    def __getattr__(self, name):
+        if name == "iter_byte_blocks" and self._bytes is not None:
+            cached = self._bytes
+            return lambda *a, **k: iter((cached,))
+        return getattr(self._chunk, name)  # AttributeError if absent
+
+
+#: The per-chunk job of one map stage and what its output collection needs
+#: (:meth:`MTRunner._map_job`): ``new_sink()`` gives a ``(push, end)``
+#: pair (push folds or collects one block; end registers the job's blocks
+#: and returns its ``{pid: [refs]}``), ``window_sink()`` the stage's
+#: window sink on its execution target.
+_MapJob = collections.namedtuple(
+    "_MapJob", "job new_sink window_sink combine_op pin feeds_reduce "
+    "sorted_runs dev_lowered")
 
 
 class OutputDataset(Dataset):
@@ -382,7 +560,7 @@ class StageStats(object):
 
     __slots__ = ("stage_id", "kind", "op", "target", "n_jobs",
                  "records_out", "seconds", "spill_count", "spill_bytes",
-                 "merge_gens", "merge_gen_bytes")
+                 "merge_gens", "merge_gen_bytes", "launches")
 
     def __init__(self, stage_id, kind, op, target):
         self.stage_id = stage_id
@@ -396,6 +574,7 @@ class StageStats(object):
         self.spill_bytes = 0
         self.merge_gens = 0
         self.merge_gen_bytes = 0
+        self.launches = {}
 
     def as_dict(self):
         return {"stage": self.stage_id, "kind": self.kind, "op": self.op,
@@ -404,7 +583,10 @@ class StageStats(object):
                 "spill_count": self.spill_count,
                 "spill_bytes": self.spill_bytes,
                 "merge_gens": self.merge_gens,
-                "merge_gen_bytes": self.merge_gen_bytes}
+                "merge_gen_bytes": self.merge_gen_bytes,
+                # each kernel's launches during the stage (stages run one
+                # at a time, so the counts are the stage's own)
+                "launches": dict(self.launches)}
 
 
 class MTRunner(object):
@@ -432,6 +614,10 @@ class MTRunner(object):
         self.streamed_assoc_folds = 0
         self.streamed_views = 0
         self.streamed_joins = 0
+        # scan-shared groups: {"stages": [sid, ...], "chunks": n}
+        self.scan_groups = []
+        # reduces that took the tiny associative fold
+        self.tiny_folds = 0
 
     # -- helpers -----------------------------------------------------------
     def _pool_map(self, fn, jobs, n_workers):
@@ -483,6 +669,10 @@ class MTRunner(object):
                 return True
         return False
 
+    def _add_combine_seconds(self, secs):
+        with self._lock:
+            self._device["combine_seconds"] += secs
+
     def _note_device_sink(self, sink):
         with self._lock:
             dev = self._device
@@ -493,24 +683,144 @@ class MTRunner(object):
                 dev["phases"][k] += v
 
     # -- map ---------------------------------------------------------------
+    def _small_input(self, entry):
+        """The refs of a materialized stage input within
+        :data:`SMALL_STAGE_BYTES`, or None."""
+        if not isinstance(entry, storage.PartitionSet):
+            return None
+        refs = list(entry.all_refs())
+        if sum(r.nbytes for r in refs) > SMALL_STAGE_BYTES:
+            return None
+        return refs
+
     def run_map(self, stage_id, stage, env):
         """One job per chunk of the first input; every other input (a
         cross's broadcast side) reaches each job whole, as a chunk list:
-        ``mapper.map(chunk, *supplementary)``."""
+        ``mapper.map(chunk, *supplementary)``.
+
+        The tiny-input collapse: a small materialized input to a pure
+        record stream or a broadcast join runs as one job over all its
+        refs, since per-job fixed costs dominate at that size.  Only where
+        chunking is mechanical: a fused chain that embeds a
+        ``StreamMapper`` keeps its per-chunk calls."""
         entries = [env[s] for s in stage.inputs]
         chunks = self._as_chunks(entries[0])
         supplementary = [self._as_chunks(e) for e in entries[1:]]
-        job, combine_op, pin, feeds_reduce, run_mode = self._map_job(
-            stage, supplementary)
-        results = self._pool_map(job, chunks, self.n_maps)
-        pset = self._collect_partitions(results, combine_op, pin,
-                                        feeds_reduce, sorted_runs=run_mode)
+        if len(chunks) > 1 and (
+                base.is_pure_record_stream(stage.mapper)
+                or type(stage.mapper) in (base.MapCrossJoin,
+                                          base.MapAllJoin)):
+            refs = self._small_input(entries[0])
+            if refs is not None:
+                chunks = [BlockDataset(refs)]
+        mj = self._map_job(stage, supplementary)
+        try:
+            results = self._pool_map(mj.job, chunks, self.n_maps)
+        finally:
+            close_readahead(chunks)
+        pset = self._collect_partitions(results, mj.combine_op, mj.pin,
+                                        mj.feeds_reduce,
+                                        sorted_runs=mj.sorted_runs)
         return pset, pset.total_records(), len(chunks)
 
+    def _scan_share_group(self, sid, stage, env):
+        """The later map stages that read the same tap as ``stage``: the
+        members of one shared pass.  Only single-input stages over a tap
+        (a ``Chunker``, where reading is the cost) qualify."""
+        if len(stage.inputs) != 1:
+            return []
+        if not isinstance(env.get(stage.inputs[0]), Chunker):
+            return []
+        group = []
+        for sjd in range(sid + 1, len(self.graph.stages)):
+            s2 = self.graph.stages[sjd]
+            if (isinstance(s2, GMap) and len(s2.inputs) == 1
+                    and s2.inputs[0] == stage.inputs[0]):
+                group.append((sjd, s2))
+        return group
+
+    def run_map_group(self, sids, stages, env):
+        """Scan sharing: run several map stages over one pass of their
+        common tap.
+
+        When every member has a ``window_sink`` (the ``ops.text``
+        scanners) and the chunk streams ``iter_byte_blocks``, one
+        line-aligned window pass per chunk feeds every member's sink (a
+        device-lowered member's is the device sink, so K1 and K2 run in
+        the pass), on one producer thread of the overlap executor, and
+        each emitted block goes into its member's fold/register pipeline.
+        Otherwise (a BGZF chunk has no ``iter_byte_blocks``) the members
+        that materialize bytes share one read of the chunk
+        (:class:`_SharedScanChunk`, which holds the inflated chunk whole;
+        byte-materializing members run before streaming ones) and
+        per-record members read on their own.  The group's ``windowed``
+        count says how many chunks took the window pass.  Returns one ``(pset, nrec, njobs)`` per stage, in order."""
+        from .ops.text import _scan_windows
+
+        chunks = self._as_chunks(env[stages[0].inputs[0]])
+        parts = [self._map_job(s, []) for s in stages]
+        order = sorted(range(len(stages)), key=lambda i: bool(
+            getattr(stages[i].mapper, "streams_bytes", False)))
+        all_window = all(hasattr(s.mapper, "window_sink") for s in stages)
+
+        def group_job(chunk):
+            if not (all_window and hasattr(chunk, "iter_byte_blocks")):
+                shared = (_SharedScanChunk(chunk)
+                          if hasattr(chunk, "read_bytes") else chunk)
+                outs = [None] * len(stages)
+                for i in order:
+                    outs[i] = parts[i].job(shared)
+                return False, outs
+            # sinks hold state, so the one producer thread owns them all
+            members = [(mj.window_sink(),) + mj.new_sink() for mj in parts]
+
+            def codec():
+                for win in _scan_windows(chunk):
+                    for mi, (wsink, _push, _end) in enumerate(members):
+                        for blk in wsink.add(win) or ():
+                            yield mi, blk
+                for mi, (wsink, _push, _end) in enumerate(members):
+                    for blk in wsink.finish() or ():
+                        yield mi, blk
+
+            try:
+                for mi, blk in _overlap_stream(
+                        codec(), self.store,
+                        size_of=lambda it: it[1].nbytes()):
+                    members[mi][1](blk)
+            finally:
+                for (wsink, _push, _end), mj in zip(members, parts):
+                    if mj.dev_lowered:
+                        self._note_device_sink(wsink)
+            return True, [end() for _wsink, _push, end in members]
+
+        try:
+            results = self._pool_map(group_job, chunks, self.n_maps)
+        finally:
+            close_readahead(chunks)
+        ret = []
+        for i, mj in enumerate(parts):
+            pset = self._collect_partitions(
+                [outs[i] for _w, outs in results], mj.combine_op, mj.pin,
+                mj.feeds_reduce, sorted_runs=mj.sorted_runs)
+            ret.append((pset, pset.total_records(), len(chunks)))
+        # windowed: the chunks that took the one window pass; the others
+        # shared one read of their bytes (a BGZF or gzip chunk is inflated
+        # whole, outside the budget, as in the JAX package)
+        windowed = sum(1 for w, _outs in results if w)
+        with self._lock:
+            self.scan_groups.append({"stages": list(sids),
+                                     "chunks": len(chunks),
+                                     "windowed": windowed})
+        log.info("scan sharing: %d stages fused over one pass of %d chunks "
+                 "(%d windowed)", len(stages), len(chunks), windowed)
+        return ret
+
     def _map_job(self, stage, supplementary):
-        """The per-chunk job closure of one map stage, with what its
-        output collection needs to know: ``(job, combine_op, pin,
-        feeds_reduce, sorted_run_mode)``."""
+        """The per-chunk job of one map stage, with its push/end sink
+        factory and window-sink factory (shared with
+        :meth:`run_map_group`) and what its output collection needs to
+        know (:data:`_MapJob`)."""
         from .ops.text import _drive_windows
 
         combine_op = None
@@ -556,10 +866,11 @@ class MTRunner(object):
             merged = merged.take(np.argsort(merged.keys, kind="stable"))
             return {0: [self.store.register(merged)], "_sorted": True}
 
-        def job(chunk):
-            mapper = _clone_op(stage.mapper)
+        def new_sink():
+            """``(push, end)`` for one chunk job: push folds or collects a
+            block, end registers the job's blocks and returns its
+            ``{pid: [refs]}``."""
             raw, partials = [], []
-            combine_s = [0.0]
 
             def push(blk):
                 if blk is None or not len(blk):
@@ -574,8 +885,45 @@ class MTRunner(object):
                                                 combine_op)
                     del partials[:]
                     partials.append(merged)
-                combine_s[0] += time.perf_counter() - t0
+                self._add_combine_seconds(time.perf_counter() - t0)
 
+            def end():
+                blocks = raw
+                if combine_op is not None and partials:
+                    t0 = time.perf_counter()
+                    blocks = [segment.fold_block(Block.concat(partials),
+                                                 combine_op)]
+                    self._add_combine_seconds(time.perf_counter() - t0)
+                if sorted_run_mode:
+                    out = try_sorted_run(blocks)
+                    if out is not None:
+                        return out
+                # Registered inside the job, so the budget holds while the
+                # stage runs.  A block a reduce reads is a hash-sorted run
+                # (fold outputs already are; the sort is stable, so equal
+                # keys keep input order): over budget, the reduce streams a
+                # k-way merge over such runs.
+                out = {}
+                for blk in blocks:
+                    if combine_op is None and feeds_reduce:
+                        blk = blk.sort_by_hash()
+                    for pid, sub in blk.split_by_partition(P).items():
+                        out.setdefault(pid, []).append(
+                            self.store.register(sub, pin=pin))
+                return out
+
+            return push, end
+
+        def window_sink():
+            """The stage's window sink on its execution target."""
+            mapper = _clone_op(stage.mapper)
+            if dev_lowered:
+                return ops_lower.device_window_sink(mapper, self.store)
+            return mapper.window_sink()
+
+        def job(chunk):
+            mapper = _clone_op(stage.mapper)
+            push, end = new_sink()
             use_blocks = (not supplementary and hasattr(mapper, "map_blocks")
                           and hasattr(chunk, "read_bytes"))
             ident_blocks = (not supplementary and identity
@@ -585,14 +933,20 @@ class MTRunner(object):
                      and not use_blocks and not ident_blocks else None)
             if dev_lowered and (hasattr(chunk, "read_bytes")
                                 or hasattr(chunk, "iter_byte_blocks")):
+                # The producer thread of the overlap executor drives the
+                # sink (its copies and kernels queue on the sink's own
+                # stream) while this thread folds and registers.
                 sink = ops_lower.device_window_sink(mapper, self.store)
                 try:
-                    for blk in _drive_windows(mapper, chunk, sink=sink):
+                    for blk in _overlap_stream(
+                            _drive_windows(mapper, chunk, sink=sink),
+                            self.store):
                         push(blk)
                 finally:
                     self._note_device_sink(sink)
             elif use_blocks:
-                for blk in mapper.map_blocks(chunk):
+                for blk in _overlap_stream(mapper.map_blocks(chunk),
+                                           self.store):
                     push(blk)
             elif ident_blocks:
                 for blk in chunk.iter_blocks():
@@ -604,34 +958,10 @@ class MTRunner(object):
                 for k, v in mapper.map(chunk, *supplementary):
                     push(builder.add(k, v))
                 push(builder.flush())
+            return end()
 
-            blocks = raw
-            if combine_op is not None and partials:
-                t0 = time.perf_counter()
-                blocks = [segment.fold_block(Block.concat(partials),
-                                             combine_op)]
-                combine_s[0] += time.perf_counter() - t0
-            with self._lock:
-                self._device["combine_seconds"] += combine_s[0]
-            if sorted_run_mode:
-                out = try_sorted_run(blocks)
-                if out is not None:
-                    return out
-            # Registered inside the job, so the budget holds while the
-            # stage runs.  A block a reduce reads is a hash-sorted run
-            # (fold outputs already are; the sort is stable, so equal keys
-            # keep input order): over budget, the reduce streams a k-way
-            # merge over such runs.
-            out = {}
-            for blk in blocks:
-                if combine_op is None and feeds_reduce:
-                    blk = blk.sort_by_hash()
-                for pid, sub in blk.split_by_partition(P).items():
-                    out.setdefault(pid, []).append(
-                        self.store.register(sub, pin=pin))
-            return out
-
-        return job, combine_op, pin, feeds_reduce, sorted_run_mode
+        return _MapJob(job, new_sink, window_sink, combine_op, pin,
+                       feeds_reduce, sorted_run_mode, dev_lowered)
 
     def _collect_partitions(self, mappings, combine_op, pin, feeds_reduce,
                             sorted_runs=False):
@@ -747,6 +1077,56 @@ class MTRunner(object):
             pset.parts[pid] = refs
 
     # -- reduce ------------------------------------------------------------
+    def _tiny_assoc_reduce(self, stage, entries):
+        """The small associative fold: every partition folds in one pass
+        over the concatenated refs (``sort_and_group`` then
+        ``fold_sorted``), then the result re-splits by the same hash % P.
+        Each key's partition is unchanged; only the per-partition fixed
+        costs go.  The output is the per-partition reducer's
+        ``(k, (k, acc))`` records in hash order within a partition.  None
+        when the stage does not qualify: one input, an associative fold,
+        within :data:`SMALL_STAGE_BYTES` and the streaming threshold."""
+        if len(entries) != 1 or not isinstance(stage.reducer,
+                                               base.AssocFoldReducer):
+            return None
+        refs = list(entries[0].all_refs())
+        thr = settings.streaming_reduce_threshold
+        if thr is None:
+            thr = self.store.budget
+        if sum(r.nbytes for r in refs) > min(SMALL_STAGE_BYTES, thr):
+            return None
+        P = self.n_partitions
+        merged = Block.concat([r.get() for r in refs])
+        if not len(merged):
+            return storage.PartitionSet(P), 0, 1
+        folded = segment.fold_sorted(segment.sort_and_group(merged),
+                                     stage.reducer.op)
+        h1, h2 = folded.hashes()
+        pset, nrec = self._emit_keyed_fold(
+            folded.keys, folded.values, h1, h2,
+            bool(stage.options.get("memory")))
+        with self._lock:
+            self.tiny_folds += 1
+        return pset, nrec, 1
+
+    def _emit_keyed_fold(self, keys, vals, h1, h2, pin):
+        """A keyed fold result as a stage output in the reduce-output
+        contract: ``(k, (k, acc))`` records, numpy scalars unboxed, split
+        by the hash % P, each partition in the fold's (hash) order."""
+        P = self.n_partitions
+        kl = pylist(keys)
+        vl = pylist(vals)
+        vcol = np.empty(len(kl), dtype=object)
+        for i in range(len(kl)):
+            vcol[i] = (kl[i], vl[i])
+        pset = storage.PartitionSet(P)
+        nrec = 0
+        for pid, sub in Block(keys, vcol, h1, h2).split_by_partition(
+                P).items():
+            nrec += len(sub)
+            pset.add(pid, self.store.register(sub, pin=pin))
+        return pset, nrec
+
     def run_reduce(self, stage_id, stage, env):
         """One job per partition id, empty partitions included (a
         ``StreamReducer`` runs on every one).  The inputs are
@@ -761,6 +1141,9 @@ class MTRunner(object):
                 raise TypeError(
                     "reduce inputs must be materialized partitions, got "
                     "{!r}".format(e))
+        fast = self._tiny_assoc_reduce(stage, entries)
+        if fast is not None:
+            return fast
         threshold = settings.streaming_reduce_threshold
         if threshold is None:
             threshold = self.store.budget
@@ -882,7 +1265,16 @@ class MTRunner(object):
 
     # -- sink --------------------------------------------------------------
     def run_sink(self, stage_id, stage, env):
-        chunks = self._as_chunks(env[stage.inputs[0]])
+        """One part file per chunk.  A small materialized input collapses
+        to one chunk, as in :meth:`run_map`: the sinker is a fused record
+        stream, so its chunking is mechanical."""
+        entry = env[stage.inputs[0]]
+        chunks = self._as_chunks(entry)
+        if (len(chunks) > 1
+                and type(stage.sinker) in (base.Map, base.ComposedMapper)):
+            refs = self._small_input(entry)
+            if refs is not None:
+                chunks = [BlockDataset(refs)]
         os.makedirs(stage.path, exist_ok=True)
 
         def job(args):
@@ -895,7 +1287,11 @@ class MTRunner(object):
                     n += 1
             return part, n
 
-        results = self._pool_map(job, list(enumerate(chunks)), self.n_maps)
+        try:
+            results = self._pool_map(job, list(enumerate(chunks)),
+                                     self.n_maps)
+        finally:
+            close_readahead(chunks)
         return (_SinkOutput([p for p, _ in results]),
                 sum(n for _, n in results), len(chunks))
 
@@ -923,6 +1319,7 @@ class MTRunner(object):
         sto = self.store
         env = {}
         to_delete = []
+        fused = {}  # scan-shared members' results, by stage id
         for sid, stage in enumerate(self.graph.stages):
             if isinstance(stage, GInput):
                 env[stage.output] = stage.tap
@@ -931,8 +1328,23 @@ class MTRunner(object):
             sto.set_stage(sid)
             snap = (sto.spill_count, sto.spilled_bytes, sto.merge_gens,
                     sto.merge_gen_bytes)
+            stage_launches0 = {k: kern.launches
+                               for k, kern in KERNELS.items()}
             if isinstance(stage, GMap):
-                result, nrec, njobs = self.run_map(sid, stage, env)
+                if sid in fused:
+                    result, nrec, njobs = fused.pop(sid)
+                else:
+                    group = self._scan_share_group(sid, stage, env)
+                    if group:
+                        members = [(sid, stage)] + group
+                        outs = self.run_map_group(
+                            [m for m, _ in members],
+                            [st for _, st in members], env)
+                        for (msid, _), out in zip(members[1:], outs[1:]):
+                            fused[msid] = out
+                        result, nrec, njobs = outs[0]
+                    else:
+                        result, nrec, njobs = self.run_map(sid, stage, env)
                 kind, op = "map", stage.mapper
                 to_delete.append(stage.output)
             elif isinstance(stage, GReduce):
@@ -957,6 +1369,8 @@ class MTRunner(object):
             st.spill_bytes = sto.spilled_bytes - snap[1]
             st.merge_gens = sto.merge_gens - snap[2]
             st.merge_gen_bytes = sto.merge_gen_bytes - snap[3]
+            st.launches = {k: kern.launches - stage_launches0[k]
+                           for k, kern in KERNELS.items()}
             self.stats.append(st)
             log.info("stage %d done: %s", sid, st.as_dict())
 
@@ -1032,6 +1446,12 @@ class MTRunner(object):
             "read_prefetch": storage.SPILL_READ_PREFETCH,
             "inflight_peak_bytes": sto.spill_inflight_peak_bytes,
             "writer_queue_peak": sto.spill_queue_peak,
+            # the overlap executor's codec blocks in flight, charged to
+            # the budget: the most at once, and what is left (always 0)
+            "overlap_windows": OVERLAP_WINDOWS,
+            "overlap_peak_bytes": sto.overlap_peak_bytes,
+            "overlap_bytes": sto.overlap_bytes,
+            "budget_bytes": sto.budget,
         }
         return {"name": self.name, "wall_seconds": wall,
                 "stages": [s.as_dict() for s in self.stats],
@@ -1046,4 +1466,8 @@ class MTRunner(object):
                 # reduce partitions that went out of core, by path
                 "streamed_assoc_folds": self.streamed_assoc_folds,
                 "streamed_views": self.streamed_views,
-                "streamed_joins": self.streamed_joins}
+                "streamed_joins": self.streamed_joins,
+                # map stages fused over one pass of a tap, per group
+                "scan_sharing": {"groups": [dict(g) for g in
+                                            self.scan_groups]},
+                "tiny_folds": self.tiny_folds}

@@ -240,6 +240,10 @@ class RunStore(object):
         self.io_wait_seconds = 0.0
         self.io_wait_write_seconds = 0.0
         self._writer = None
+        # blocks a map job's codec has produced and its fold not yet taken
+        # (the overlap executor), charged to the budget
+        self._overlap_bytes = 0
+        self.overlap_peak_bytes = 0
 
     # -- counters ------------------------------------------------------------
     def count_keyed(self, name, seconds, h2d, d2h):
@@ -309,10 +313,11 @@ class RunStore(object):
                         self.inflight_cap, SPILL_WINDOW)
         return self._writer
 
-    def publish_spill(self, ref, path, freed_ram, disk_bytes, secs):
+    def publish_spill(self, ref, path, disk_bytes, secs):
         """A background write landed (fsync and rename done): publish
         ``path``, then free the RAM copy, in that order, so a reader past
-        the residency check never loses both tiers."""
+        the residency check never loses both tiers.  The spill itself was
+        counted when it was decided (:meth:`_spill_victims`)."""
         unlink = False
         with self._lock:
             if ref._dead:
@@ -320,9 +325,6 @@ class RunStore(object):
             else:
                 ref.path = path
                 ref._block = None
-                # counted only for live refs: a raced delete freed the RAM
-                self.spill_count += 1
-                self.spilled_bytes += freed_ram
         self.count_spill_write(disk_bytes, secs)
         if unlink:
             try:
@@ -335,6 +337,27 @@ class RunStore(object):
         raises here."""
         if self._writer is not None:
             self._writer.drain()
+
+    # -- the overlap executor's in-flight blocks ------------------------------
+    @property
+    def overlap_bytes(self):
+        return self._overlap_bytes
+
+    def reserve_overlap(self, n):
+        """Charge ``n`` bytes of codec output in flight to the budget:
+        resident refs spill to make room (victims chosen under the lock,
+        spilled outside it), so readahead trades residency instead of
+        adding to it."""
+        with self._lock:
+            self._overlap_bytes += n
+            self.overlap_peak_bytes = max(self.overlap_peak_bytes,
+                                          self._overlap_bytes)
+            victims = self._select_victims_locked()
+        self._spill_victims(victims)
+
+    def release_overlap(self, n):
+        with self._lock:
+            self._overlap_bytes = max(0, self._overlap_bytes - n)
 
     def abort_writes(self):
         """The failed run's drain: queued writes are discarded (their refs
@@ -432,10 +455,11 @@ class RunStore(object):
         """The oldest unpinned refs until residency meets the budget; their
         bytes come off at once, so other threads see the budget relieved.
         Bytes queued in the writer pool (their RAM is still held) shrink
-        the target.  Pinned refs stay whatever they weigh: the port holds
-        ``cached()`` blocks whole in RAM."""
+        the target, and so do the overlap executor's blocks in flight.
+        Pinned refs stay whatever they weigh: the port holds ``cached()``
+        blocks whole in RAM."""
         inflight = 0 if self._writer is None else self._writer.inflight_bytes
-        target = max(0, self.budget - inflight)
+        target = max(0, self.budget - self._overlap_bytes - inflight)
         if self._resident_bytes <= target:
             return []
         victims = []
@@ -455,25 +479,26 @@ class RunStore(object):
         """Spill I/O for selected victims, outside the lock.  With the
         writer pool on, each victim queues and this thread returns; its RAM
         stays readable (and charged, as bytes in flight) until the write
-        publishes."""
+        publishes.
+
+        A spill counts when it is decided: the victim left the resident
+        set here, whether or not its queued write later lands for a live
+        ref (a merge generation may drop the ref first), so the counts do
+        not depend on how fast the writer threads run."""
         if not victims:
             return
         directory = os.path.join(self.root, self._stage)
         pool = self.writer_pool()
-        freed_sync = n_sync = 0
+        freed = n_spilled = 0
         queued = []
         for v in victims:
             if pool is not None and v.path is None and v._block is not None:
                 queued.append(v)
             else:
-                freed = v.spill(directory)
-                if freed:
-                    freed_sync += freed
-                    n_sync += 1
-        if n_sync:
-            with self._lock:
-                self.spill_count += n_sync
-                self.spilled_bytes += freed_sync
+                got = v.spill(directory)
+                if got:
+                    freed += got
+                    n_spilled += 1
         if queued:
             os.makedirs(directory, exist_ok=True)
             for v in queued:
@@ -483,6 +508,12 @@ class RunStore(object):
                 path = os.path.join(directory, uuid.uuid4().hex + ".blk")
                 pool.submit(v, blk, path,
                             _spill_codec(v.key_dtype, v.value_dtype))
+                freed += v.nbytes
+                n_spilled += 1
+        if n_spilled:
+            with self._lock:
+                self.spill_count += n_spilled
+                self.spilled_bytes += freed
 
     def drop_ref(self, ref):
         with self._lock:

@@ -204,12 +204,11 @@ def _cross_join_self(pkg, d):
 
 
 def _cross_of_reduce_outputs(pkg, d):
-    # The broadcast side is a group_by reduce: the reference's small
-    # associative folds come out in hash order within a partition (its
-    # tiny-fold fast path, not ported), which would reorder the records a
-    # broadcast of a fold output ties under one key.
-    sums = _by_first(pkg, d["right"]).reduce(
-        lambda k, vs: sum(v[1] for v in vs))
+    # The broadcast side is a small associative fold: both packages fold
+    # it in one pass (the tiny fold), which leaves it in hash order within
+    # a partition, and the records the cross ties under one left key come
+    # in that order.
+    sums = _folded(pkg, d["right"])
     return _folded(pkg, d["left"]).cross_right(
         sums, lambda a, b: (a[0], b[0], a[1] - b[1]), memory=True).read()
 

@@ -223,6 +223,43 @@ def test_cached_stage_stays_in_ram_over_budget():
     assert barrier_spills["cached"] == 0 < barrier_spills["checkpoint"]
 
 
+def test_spill_counts_when_decided_not_when_written(tmp_path,
+                                                   monkeypatch):
+    """A spill counts when the store decides it.  A queued write that
+    finds its ref dropped (a merge generation drops runs while their
+    writes wait) still counted, so the counts do not depend on how fast
+    the writer threads run."""
+    import threading
+
+    from dampr_tpu_torch import storage
+    from dampr_tpu_torch.io import writer
+
+    gate = threading.Event()
+    real = writer.frames.write_block_frames
+
+    def held(*args, **kwargs):
+        gate.wait(10)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(writer.frames, "write_block_frames", held)
+    monkeypatch.setattr(port_settings, "scratch_root", str(tmp_path))
+    monkeypatch.setattr(port_settings, "spill_write_threads", 1)
+    store = storage.RunStore("decided-spills", budget=1)
+    blk = Block.from_lists(list(range(100)), list(range(100)))
+    first, second = store.register(blk), store.register(blk)
+    assert store.spill_count == 2
+    assert store.spilled_bytes == first.nbytes + second.nbytes
+    store.drop_ref(second)  # dropped while its write waits
+    gate.set()
+    store.drain_writes()
+    assert store.spill_count == 2
+    assert not first.resident and first.get().to_lists() == blk.to_lists()
+    # only the live ref's file: the dropped one's write never ran
+    assert len(os.listdir(os.path.join(str(tmp_path), "decided-spills",
+                                       "stage_0"))) == 1
+    store.cleanup()
+
+
 def test_float_mean_within_1e_12():
     """Float sums fold in another order on each side (numpy ``reduceat``
     against XLA's segment sum), so means agree to a relative 1e-12."""

@@ -11,6 +11,12 @@ one number a line (natively for int64).  The cases are
 from a seed with numpy; every comparison is exact, order included.
 """
 
+import os
+import shutil
+import subprocess
+import sys
+import time
+
 import numpy as np
 import pytest
 
@@ -24,6 +30,18 @@ from dampr_tpu_torch import native, settings
 from dampr_tpu_torch.ops.text import ParseNumbers
 from dampr_tpu_torch.runner import MTRunner, OutputDataset
 from dampr_tpu_torch.storage import PartitionSet
+
+def _ref_parse_i64(buf, wait_s=60.0):
+    """The JAX package's native parse.  Its library compiles in place on
+    first use, so a test worker that maps it while another worker is still
+    writing it gets no library for the process (its loader gives up for
+    good); load it again until the file is whole."""
+    deadline = time.monotonic() + wait_s
+    while ref_native.get_lib() is None and time.monotonic() < deadline:
+        ref_native._tried = False
+        time.sleep(0.2)
+    return ref_native.parse_i64(buf)
+
 
 _NAMES = ("partitions", "max_memory_per_stage", "merge_fanin",
           "scratch_root", "seed", "max_processes")
@@ -247,7 +265,63 @@ class TestParseNumbers:
         arr = native.parse_i64(buf)
         np.testing.assert_array_equal(arr, np.array(data.split(),
                                                     dtype=np.int64))
-        np.testing.assert_array_equal(arr, ref_native.parse_i64(buf))
+        np.testing.assert_array_equal(arr, _ref_parse_i64(buf))
+
+    def test_failed_load_retries_once_the_library_changes(self, tmp_path,
+                                                          monkeypatch):
+        """A load that failed (another process still writing the shared
+        object) is retried once the file has changed, not given up for
+        the process."""
+        good = native._SO
+        assert native.get_lib() is not None
+        so = str(tmp_path / "libtokenizer.so")
+        with open(so, "wb") as f:
+            f.write(b"\x7fELF half written")
+        os.utime(so, (1, 1))
+        monkeypatch.setattr(native, "_SO", so)
+        monkeypatch.setattr(native, "_build", lambda: None)
+        monkeypatch.setattr(native, "_lib", None)
+        monkeypatch.setattr(native, "_failed_mtime", None)
+        assert native.get_lib() is None
+        assert native.get_lib() is None  # same file: no second attempt
+        shutil.copyfile(good, so)
+        assert native.get_lib() is not None
+        np.testing.assert_array_equal(
+            native.parse_i64(np.frombuffer(b"5 -6\n", dtype=np.uint8)),
+            [5, -6])
+
+    def test_concurrent_first_builds_compile_once(self, tmp_path):
+        """Four processes that find no library build it under the lock
+        file: exactly one compiles (each build appends a line to a log),
+        the others load its result; all parse."""
+        so = str(tmp_path / "_build" / "libtokenizer.so")
+        builds = str(tmp_path / "builds.log")
+        # the module alone, loaded from its file: no package (and no torch)
+        # import in the child processes
+        code = ("import importlib.util, os, sys, numpy as np\n"
+                "spec = importlib.util.spec_from_file_location(\n"
+                "    'native', sys.argv[1])\n"
+                "native = importlib.util.module_from_spec(spec)\n"
+                "spec.loader.exec_module(native)\n"
+                "native._SO = sys.argv[2]\n"
+                "real = native._build\n"
+                "def counted():\n"
+                "    with open(sys.argv[3], 'a') as f:\n"
+                "        f.write('%d\\n' % os.getpid())\n"
+                "    real()\n"
+                "native._build = counted\n"
+                "arr = native.parse_i64(np.frombuffer(b'7 8', np.uint8))\n"
+                "print(None if arr is None else arr.tolist())\n")
+        procs = [subprocess.Popen([sys.executable, "-c", code,
+                                   native.__file__, so, builds],
+                                  stdout=subprocess.PIPE)
+                 for _ in range(4)]
+        outs = [p.communicate(timeout=120)[0].decode().strip()
+                for p in procs]
+        assert outs == ["[7, 8]"] * 4
+        assert [p.returncode for p in procs] == [0] * 4
+        with open(builds) as f:
+            assert len(f.read().split()) == 1
 
     @pytest.mark.parametrize("bad", [b"1\nx\n", b"12a\n",
                                      b"9223372036854775808\n",

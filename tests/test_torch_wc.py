@@ -3,11 +3,10 @@
 The two examples' pipelines, built against ``dampr_tpu`` and
 ``dampr_tpu_torch`` (device="cpu"), on the small corpora of
 ``test_torch_pipeline.py`` and on a corpus from ``bench_tfidf``'s
-generator, must read back equal records.  ``top_words``' records that
-tie on their count come in the JAX package's order once its tiny-fold
-fast path (``_tiny_assoc_reduce``, not ported: it leaves a small fold's
-output in hash order within a partition) and its mesh fold are off; with
-them on, such ties are compared as multisets.  Tolerance: exact; the
+generator, must read back equal records, ``top_words``' records that tie
+on their count in the JAX package's order (both packages fold the small
+``count()`` in one pass, the tiny fold, which leaves it in hash order
+within a partition, and ``sort_by`` keeps that order).  Tolerance: exact; the
 average word length is one division of equal integers on both sides.
 
 On the CPU device a combine batch of at least the CPU floor of
@@ -138,17 +137,10 @@ def test_word_stats_reads_back_what_the_jax_package_does(tmp_path, name):
                                                  chunk))]
     tc, tw, wl, awl = got
     assert tc == ref[0]
-    assert [c for _w, c in tw] == [c for _w, c in ref[1]]
-    assert sorted(tw) == sorted(ref[1])
-    old = (ref_settings.small_stage_bytes, ref_settings.mesh_fold)
-    ref_settings.small_stage_bytes, ref_settings.mesh_fold = 0, "off"
-    try:
-        _tc, ref_tw, _wl, _awl = [
-            em.read() for em in
-            dampr_tpu.Dampr.run(*word_stats(dampr_tpu, path, chunk))]
-    finally:
-        ref_settings.small_stage_bytes, ref_settings.mesh_fold = old
-    assert tw == ref_tw  # ties in the JAX package's sorted-run order
+    # ties in the JAX package's order: both sides fold ``count()`` with
+    # the tiny associative fold (hash order within a partition), then
+    # sort stably
+    assert tw == ref[1]
     assert wl == ref[2]
     assert awl == ref[3]
     counts = _split_counts(path)
