@@ -22,6 +22,13 @@ the kernels build for sm_90a).  Phases, each of which must pass:
    race would show only sometimes;
 5. ``token_fold`` with the kernels against ``token_fold`` with the plain
    versions: all six outputs equal, with and without per-line dedup;
+   then the handoff's table program (``csrc/handoff.cu``, B4) against its
+   plain version, bit for bit (``acc``, ``miss``, ``n_miss``), in its three
+   variants (+1 a hit; per-line dedup through the 16-token window and
+   through the sort), each case 20 times: the corpus batch against the
+   corpus's own vocabulary, random batches of 2^18 rows at L = 8, 16 and
+   256, duplicate h1 lanes, h1 collisions with other bytes, Lcap > L and
+   Lcap < L, an empty table and an all-miss batch;
 6. times of each kernel, its plain version and the program at the main
    path's batch (the corpus batch, N = 2^18, L = 8) and at N = 2^22:
    ``ms`` per call, wrapper included (CUDA events around one call);
@@ -44,6 +51,17 @@ the kernels build for sm_90a).  Phases, each of which must pass:
    stage must lower, both kernels must launch in this run, and DocFreq
    and ``len()`` must share one window pass over every chunk of the
    corpus (one scan-shared group of two stages, every chunk windowed);
+   then ``handoff``: the same pipeline with ``settings.handoff`` "off" and
+   "auto", one ``handoff`` JSON line each (seconds, the sink's host phase
+   seconds, copies, the handoff's counters, table and classic batches and
+   misses, device folds, launches in all and in the reduce stages), both
+   equal to the oracle and each other, the auto run with a device edge,
+   table batches, the table program launched and the fold reading device
+   refs; DocFreq under a 16 KiB device budget (it must degrade, exactly);
+   and a DocFreq run made to fail mid-map after a job registered its
+   device refs (every store must end with no device bytes charged, and
+   ``torch.cuda.memory_allocated()`` no higher than before the run); and
+   one finalized ref offloaded (the card must get back its lanes' bytes);
 9. ``joins``: (a) the TokenCounts and DocFreq fold outputs of the corpus,
    each filtered by its count, joined by word (inner, left, outer) against
    a dict oracle; (b) 2^20 and 2^19 seeded integer keys (half shared,
@@ -84,7 +102,8 @@ the kernels build for sm_90a).  Phases, each of which must pass:
     both sides, against dict joins; ``ooc-tfidf``, the ``tfidf`` phase's
     pipeline with the DocFreq map output spilling and every fold partition
     over the streaming threshold, its sink lines equal to the ``tfidf``
-    phase's and the oracle's;
+    phase's and the oracle's (``settings.handoff`` "off" there: the run
+    measures the spill path, which the handoff would bypass);
 13. ``ingest``, compressed taps, two ``ingest`` JSON lines: (a) the
     ``tfidf`` pipeline over a BGZF copy of the corpus that the script
     writes (65,280-byte members with the htslib ``BC`` subfield, lines
@@ -103,7 +122,9 @@ the kernels build for sm_90a).  Phases, each of which must pass:
 K1's lanes entry is also checked and timed at the ``wc`` batch shape (the
 corpus's first 65,536 words, padded as the combine pads them).  Every
 tolerance is exact: all outputs are integers, bytes or one float
-division of equal integers.  Prints a
+division of equal integers.  The handoff is at its default (``auto``:
+on, on the card) in every phase but ``ooc-tfidf`` and the ``handoff``
+phase's "off" run.  Prints a
 ``{"kernels": [...]}`` JSON line second to last and
 ``{"ok": true, "device": {...}}`` last; exits non-zero, printing no
 result, if there is no card or any phase fails.
@@ -1188,8 +1209,11 @@ def phase_ooc_tfidf(Dampr, DocFreq, settings, kernels, corpus, chunk, nbytes,
     part_bytes = 8 * len(df) * 80 // settings.partitions
     threshold = 3 * part_bytes // 8
     budget = 8 * len(df) * 80 // 4
-    old = settings.streaming_reduce_threshold
+    old = settings.streaming_reduce_threshold, settings.handoff
     settings.streaming_reduce_threshold = threshold
+    # the spill path is what this run measures: with the handoff on,
+    # DocFreq's counts would stay on the card instead
+    settings.handoff = "off"
     try:
         zero_launches(kernels)
         t0 = time.perf_counter()
@@ -1198,7 +1222,7 @@ def phase_ooc_tfidf(Dampr, DocFreq, settings, kernels, corpus, chunk, nbytes,
         secs = time.perf_counter() - t0
         launches = read_launches(kernels)
     finally:
-        settings.streaming_reduce_threshold = old
+        settings.streaming_reduce_threshold, settings.handoff = old
     stats = em.stats()
     got = part_lines(out_dir)
     check(got == in_budget_lines,
@@ -1210,9 +1234,11 @@ def phase_ooc_tfidf(Dampr, DocFreq, settings, kernels, corpus, chunk, nbytes,
           "ooc-tfidf: no fold partition took the streaming fold")
     check(stats["device"]["device_stages"] >= 1, "ooc-tfidf: no stage "
                                                  "lowered")
-    for name, count in launches.items():
-        check(count > 0, "kernel {} never launched in the ooc-tfidf run"
-              .format(name))
+    for name in ("fnv", "segfold"):
+        check(launches[name] > 0, "kernel {} never launched in the "
+                                  "ooc-tfidf run".format(name))
+    check(launches["handoff"] == 0 and stats["device"]["handoff_bytes"] == 0,
+          "ooc-tfidf: the handoff ran with settings.handoff off")
     return ooc_line("ooc-tfidf", stats, secs, nbytes, launches,
                     budget=budget, partitions=settings.partitions,
                     chunk=chunk, threshold=threshold,
@@ -1397,6 +1423,413 @@ def phase_ingest(Dampr, DocFreq, settings, kernels, workdir, corpus, nbytes,
     return launches
 
 
+# -- the handoff (B4, csrc/handoff.cu) ----------------------------------------
+
+#: Kernel names (regular expressions) of the table program in the profiler.
+HANDOFF_NAMES = r"probe_rows|run_starts"
+
+#: Runs of each case of the table-program check: its hits add with integer
+#: atomics in no fixed order, so an ordering fault would show only
+#: sometimes.
+HANDOFF_REPEATS = 20
+
+#: The table program's variants: (dedup, dedup_k): +1 a hit; per-line
+#: first occurrence through the 16-token window; through the sort.
+HANDOFF_VARIANTS = ((False, 0), (True, 16), (True, 0))
+
+
+def handoff_table(np, hashing, vrows, vlens, cap, Lcap, dup_h1=False,
+                  collide=False):
+    """A vocabulary table as the handoff lays it out: ``(tab_h1 uint32,
+    tab_slot, tab_mat, tab_lens)`` numpy lanes for token rows ``vrows``
+    (uint8 [V, >= max(vlens)], zero past each length).  ``dup_h1`` puts
+    every 97th slot under its neighbour's h1 (the leftmost must win, the
+    other one's tokens miss); ``collide`` flips a byte of every 89th slot's
+    row, so its tokens meet their h1 with other bytes and miss."""
+    V = len(vlens)
+    h1 = hashing._fnv_numpy(vrows, vlens)[0]
+    slot_h1 = h1.copy()
+    rows = np.zeros((V, Lcap), dtype=np.uint8)
+    w = min(vrows.shape[1], Lcap)
+    rows[:, :w] = vrows[:, :w]
+    if dup_h1:
+        slot_h1[1::97] = h1[0::97][:len(slot_h1[1::97])]
+    if collide:
+        rows[2::89, 0] ^= 1
+    order = np.argsort(slot_h1, kind="stable")
+    tab_h1 = np.full(cap, 0xFFFFFFFF, dtype=np.uint32)
+    tab_h1[:V] = slot_h1[order]
+    tab_slot = np.zeros(cap, dtype=np.int32)
+    tab_slot[:V] = order
+    tab_mat = np.zeros((cap, Lcap), dtype=np.uint8)
+    tab_mat[:V] = rows
+    tab_lens = np.full(cap, -1, dtype=np.int32)
+    tab_lens[:V] = vlens
+    return tab_h1, tab_slot, tab_mat, tab_lens
+
+
+def handoff_batch(np, rng, vrows, vlens, n, L, fresh=0.1, max_line=6):
+    """A padded batch (``mat``, ``lens``, ``lines``) of ``n`` rows: 7/8 of
+    them tokens, Zipf over the vocabulary rows (each at most L bytes) or,
+    a ``fresh`` share, digit strings no vocabulary holds; lines of 1 to
+    ``max_line`` tokens; the rest pad rows."""
+    n_tok = n - n // 8
+    V = len(vlens)
+    mat = np.zeros((n, L), dtype=np.uint8)
+    lens = np.zeros(n, dtype=np.int32)
+    if V:
+        probs = 1.0 / np.arange(1, V + 1) ** 1.1
+        ids = rng.choice(V, size=n_tok, p=probs / probs.sum())
+        w = min(L, vrows.shape[1])
+        mat[:n_tok, :w] = vrows[ids, :w]
+        lens[:n_tok] = vlens[ids]
+    new = rng.rand(n_tok) < fresh if V else np.ones(n_tok, dtype=bool)
+    flen = rng.randint(1, L + 1, size=n_tok)
+    digits = rng.randint(48, 58, size=(n_tok, L), dtype=np.uint8)
+    digits[np.arange(L)[None, :] >= flen[:, None]] = 0
+    mat[:n_tok][new] = digits[new]
+    lens[:n_tok][new] = flen[new]
+    runs = rng.randint(1, max_line + 1, size=n_tok)
+    lines = np.zeros(n, dtype=np.int32)
+    lines[:n_tok] = np.repeat(np.arange(n_tok), runs)[:n_tok]
+    return mat, lens, lines
+
+
+def random_vocab(np, rng, V, width):
+    """``V`` random lower-case tokens of 1 to ``width`` bytes."""
+    vlens = rng.randint(1, width + 1, size=V).astype(np.int32)
+    vrows = rng.randint(97, 123, size=(V, width)).astype(np.uint8)
+    vrows[np.arange(width)[None, :] >= vlens[:, None]] = 0
+    return vrows, vlens
+
+
+def corpus_vocab(np, df):
+    """The corpus's own vocabulary as token rows (its words are ASCII)."""
+    words = sorted(df)
+    width = max(8, max(len(w) for w in words))
+    vrows = np.zeros((len(words), width), dtype=np.uint8)
+    vlens = np.zeros(len(words), dtype=np.int32)
+    for i, w in enumerate(words):
+        b = w.encode()
+        vrows[i, :len(b)] = np.frombuffer(b, dtype=np.uint8)
+        vlens[i] = len(b)
+    return vrows, vlens
+
+
+def table_args(torch, np, dev, table, cap):
+    """The table's lanes on the card, and a fresh accumulator."""
+    tab_h1, tab_slot, tab_mat, tab_lens = table
+    return [torch.from_numpy(tab_h1.view(np.int32)).to(dev),
+            torch.from_numpy(tab_slot).to(dev),
+            torch.from_numpy(tab_mat).to(dev),
+            torch.from_numpy(tab_lens).to(dev),
+            torch.zeros(cap + 1, dtype=torch.int64, device=dev)]
+
+
+def check_handoff(torch, np, handoff, hashing, dev, rng, corpus_inputs, df):
+    """The table program against its plain version, bit for bit (``acc``,
+    ``miss``, ``n_miss``), every case in all three variants, each
+    HANDOFF_REPEATS times.  Returns the max abs error seen."""
+    worst = 0.0
+    n = 1 << 18
+    cvrows, cvlens = corpus_vocab(np, df)
+    ccap = max(4096, 1 << (len(cvlens) - 1).bit_length())
+    cases = [("corpus batch, corpus vocabulary", corpus_inputs,
+              handoff_table(np, hashing, cvrows, cvlens, ccap, 8), ccap)]
+    for name, L, Lcap, V, opts in (
+            ("random L=8", 8, 8, 20000, {}),
+            ("random L=16", 16, 16, 20000, {}),
+            ("random L=256", 256, 256, 4000, {}),
+            ("duplicate h1 lanes", 8, 8, 20000, {"dup_h1": True}),
+            ("h1 collisions, other bytes", 8, 8, 20000, {"collide": True}),
+            ("Lcap > L", 8, 32, 20000, {}),
+            ("Lcap < L", 16, 8, 20000, {}),
+            ("empty table", 8, 8, 0, {}),
+            ("all miss", 8, 8, 20000, {"fresh": 1.0})):
+        vrows, vlens = random_vocab(np, rng, V, min(L, Lcap))
+        cap = max(4096, 1 << max(0, (V - 1).bit_length()))
+        fresh = opts.pop("fresh", 0.1)
+        mat, lens, lines = handoff_batch(np, rng, vrows, vlens, n, L,
+                                         fresh=fresh)
+        inputs = [torch.from_numpy(x).to(dev) for x in (mat, lens, lines)]
+        cases.append((name, inputs,
+                      handoff_table(np, hashing, vrows, vlens, cap, Lcap,
+                                    **opts), cap))
+    for name, inputs, table, cap in cases:
+        for dedup, k in HANDOFF_VARIANTS:
+            tabs = table_args(torch, np, dev, table, cap)
+            want_acc = tabs[4].clone()
+            want = handoff.table_probe_reference(*inputs, *tabs[:4],
+                                                 want_acc, dedup, k)
+            if name == "all miss":
+                check(int(want[1]) == int((inputs[1] > 0).sum()),
+                      "the all-miss batch hit its table")
+            if name.startswith("corpus"):
+                # only a word behind another's equal h1 may miss
+                check(int(want[1]) * 100 < int((inputs[1] > 0).sum()),
+                      "the corpus batch missed its own vocabulary")
+            for _ in range(HANDOFF_REPEATS):
+                acc = tabs[4].clone()
+                got = handoff.table_probe(*inputs, *tabs[:4], acc, dedup, k)
+                for what, g, w in (("acc", acc, want_acc),
+                                   ("miss", got[0], want[0]),
+                                   ("n_miss", got[1], want[1])):
+                    ok, err = exact(torch, g, w)
+                    worst = max(worst, err)
+                    check(ok, "handoff disagrees with its plain version: "
+                              "{} in {} (dedup={}, k={})".format(
+                                  what, name, dedup, k))
+    torch.cuda.synchronize()
+    return worst
+
+
+def time_handoff(torch, np, handoff, hashing, dev, corpus_inputs, df, reps):
+    """The table program at the main path's batch (the corpus's first,
+    DocFreq's variant: the 16-token window) against the corpus's
+    vocabulary, beside its plain version and its byte bound."""
+    mat, lens, lines = corpus_inputs
+    N, L = mat.shape
+    cvrows, cvlens = corpus_vocab(np, df)
+    cap = max(4096, 1 << (len(cvlens) - 1).bit_length())
+    Lcap = 8
+    tabs = table_args(torch, np, dev,
+                      handoff_table(np, hashing, cvrows, cvlens, cap, Lcap),
+                      cap)
+    k = handoff._DEDUP_WINDOW
+    t = timing(torch, lambda: handoff.table_probe(mat, lens, lines, *tabs,
+                                                  True, k),
+               reps, HANDOFF_NAMES)
+    t["plain"] = timing(torch, lambda: handoff.table_probe_reference(
+        mat, lens, lines, *tabs, True, k), reps, launches=20 * L + 100)
+    live = int(lens.clamp(0, L).sum())
+    nbytes = (N * L + 8 * N            # the batch: mat, lens, lines
+              + cap * (12 + Lcap)      # the table's lanes
+              + 8 * (cap + 1)          # acc
+              + N + 4)                 # miss, n_miss
+    nops = 4 * live + 3 * N * cap.bit_length()
+    t["bound"] = bound_ms(nbytes, nops)
+    t["shape"] = [N, L]
+    t["table"] = {"cap": cap, "Lcap": Lcap, "slots": len(cvlens)}
+    return t
+
+
+def handoff_line(mode, stats, secs, nbytes, launches, sink_lines):
+    d = stats["device"]
+    return {"run": "tfidf", "handoff": mode, "seconds": secs,
+            "mb_per_s": nbytes / 1e6 / secs, "sink_lines": sink_lines,
+            "host_phase_seconds": d["host_phase_seconds"],
+            "h2d_bytes": d["h2d_bytes"], "d2h_bytes": d["d2h_bytes"],
+            "d2h_avoided_bytes": d["d2h_avoided_bytes"],
+            "handoff_bytes": d["handoff_bytes"],
+            "handoff_edges": d["handoff_edges"],
+            "hbm_peak_bytes": d["hbm_peak_bytes"],
+            "hbm_offloads": d["hbm_offloads"],
+            "handoff_degrades": d["handoff_degrades"],
+            "table_batches": d["handoff"]["table_batches"],
+            "classic_batches": d["handoff"]["classic_batches"],
+            "misses": d["handoff"]["misses"],
+            "batches": d["batches"], "device_folds": d["mesh_folds"],
+            "kernels": launches, "reduce_kernels": reduce_launches(stats),
+            "combine_seconds": stats["combine_seconds"],
+            "stage_seconds": stage_seconds(stats)}
+
+
+def phase_handoff(Dampr, DocFreq, settings, kernels, corpus, chunk, nbytes,
+                  df, n_lines, workdir, plain_lines):
+    """The TF-IDF pipeline with ``settings.handoff`` "off", then "auto":
+    both runs' sink lines equal the oracle's and each other's; the auto
+    run keeps DocFreq's counts on the card (a device edge, table batches,
+    the table program launched, the fold reading device refs).  Returns
+    the auto run's launches."""
+    old = settings.handoff
+    out = {}
+    try:
+        for mode in ("off", "auto"):
+            settings.handoff = mode
+            out_dir = os.path.join(workdir, "idf_handoff_" + mode)
+            zero_launches(kernels)
+            t0 = time.perf_counter()
+            em = tfidf_pipeline(Dampr, DocFreq, corpus, chunk, out_dir).run(
+                name="chip-handoff-" + mode)
+            secs = time.perf_counter() - t0
+            launches = read_launches(kernels)
+            stats = em.stats()
+            got = part_lines(out_dir)
+            check(got == tfidf_oracle_lines(df, n_lines),
+                  "handoff {}: TF-IDF sink lines differ from the oracle"
+                  .format(mode))
+            check(got == plain_lines, "handoff {}: TF-IDF sink lines differ "
+                                      "from the tfidf phase's".format(mode))
+            out[mode] = (got, handoff_line(mode, stats, secs, nbytes,
+                                           launches, len(got)))
+            log("handoff " + json.dumps(out[mode][1]))
+    finally:
+        settings.handoff = old
+    check(out["off"][0] == out["auto"][0], "handoff off and auto differ")
+    off, on = out["off"][1], out["auto"][1]
+    check(off["handoff_edges"] == 0 and off["kernels"]["handoff"] == 0
+          and off["handoff_bytes"] == 0,
+          "handoff off: the table program ran: {}".format(off))
+    check(on["handoff_edges"] >= 1, "handoff auto: no device edge")
+    check(on["table_batches"] > 0, "handoff auto: no table batch")
+    check(on["kernels"]["handoff"] > 0, "handoff auto: the table program "
+                                        "never launched")
+    check(on["device_folds"] >= 1 and on["handoff_bytes"] > 0,
+          "handoff auto: the fold did not read device refs")
+    check(on["handoff_degrades"] == 0, "handoff auto degraded")
+    return on["kernels"]
+
+
+def phase_handoff_degrade(Dampr, DocFreq, settings, kernels, head, head_df):
+    """DocFreq under a 16 KiB device budget: every job's vocabulary
+    degrades to the spill path, exactly."""
+    old = settings.hbm_budget
+    settings.hbm_budget = 1 << 14
+    try:
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        em = (Dampr.text(head, os.path.getsize(head) // 8 + 1)
+              .custom_mapper(DocFreq(mode="word", lower=True,
+                                     pair_values=False))
+              .fold_values(operator.add).run(name="chip-handoff-degrade"))
+        got = em.read()
+        secs = time.perf_counter() - t0
+        launches = read_launches(kernels)
+        stats = em.stats()
+        em.delete()
+    finally:
+        settings.hbm_budget = old
+    d = stats["device"]
+    check(got == sorted(head_df.items()),
+          "handoff degrade: DocFreq differs from the oracle")
+    check(d["handoff_degrades"] >= 1, "handoff degrade: nothing degraded")
+    log("handoff " + json.dumps({
+        "run": "docfreq-degrade", "hbm_budget": 1 << 14, "seconds": secs,
+        "handoff_degrades": d["handoff_degrades"],
+        "handoff_bytes": d["handoff_bytes"],
+        "hbm_offloads": d["hbm_offloads"], "device_folds": d["mesh_folds"],
+        "table_batches": d["handoff"]["table_batches"], "kernels": launches,
+        "distinct": len(got)}))
+
+
+def phase_handoff_kill(torch, Dampr, DocFreq, storage, handoff, head):
+    """A DocFreq run made to fail mid-map: its table program raises on the
+    first dispatch after a job registered its device refs.  Every
+    ``RunStore`` must end with no device bytes charged and no live device
+    ref, and ``torch.cuda.memory_allocated()`` must come back to its level
+    before the run (the allocator's reserved-but-free slack is printed,
+    as information only)."""
+    import gc
+
+    stores, registered = [], []
+    real_init = storage.RunStore.__init__
+    real_reg = storage.RunStore.register_device
+    real_dispatch = handoff.HandoffVocab.dispatch
+    table_batches = []
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        stores.append(self)
+
+    def register_device(self, ref):
+        registered.append(ref)
+        return real_reg(self, ref)
+
+    def dispatch(self, *a, **kw):
+        if registered:
+            raise RuntimeError("table program launch failed (injected)")
+        table_batches.append(1)
+        return real_dispatch(self, *a, **kw)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    storage.RunStore.__init__ = init
+    storage.RunStore.register_device = register_device
+    handoff.HandoffVocab.dispatch = dispatch
+    failed = None
+    try:
+        (Dampr.text(head, os.path.getsize(head) // 4 + 1)
+         .custom_mapper(DocFreq(mode="word", lower=True, pair_values=False))
+         .fold_values(operator.add).run(name="chip-handoff-kill", n_maps=1))
+    except RuntimeError as e:
+        failed = str(e)
+    finally:
+        storage.RunStore.__init__ = real_init
+        storage.RunStore.register_device = real_reg
+        handoff.HandoffVocab.dispatch = real_dispatch
+    check(failed is not None and "injected" in failed,
+          "handoff kill: the run did not fail as made to: {}".format(failed))
+    check(registered and table_batches,
+          "handoff kill: no device ref or table batch before the failure")
+    n_refs = len(registered)
+    del registered[:]
+    gc.collect()
+    torch.cuda.synchronize()
+    # an allocation lets the allocator retire blocks freed while another
+    # stream still held them (record_stream) before it is read
+    probe = torch.empty(1, device="cuda")
+    del probe
+    after = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    slack = reserved - after
+    live = sum(1 for s in stores for r in s._dev_resident if not r._dead)
+    dev_bytes = sum(s._dev_bytes for s in stores)
+    line = {"run": "docfreq-kill", "refs_registered": n_refs,
+            "table_batches": len(table_batches), "stores": len(stores),
+            "dev_bytes": dev_bytes, "live_device_refs": live,
+            "allocated_before": before, "allocated_after": after,
+            "reserved": reserved, "reserved_free_slack": slack}
+    log("handoff " + json.dumps(line))
+    check(stores and dev_bytes == 0 and live == 0,
+          "handoff kill: device refs left charged: {}".format(line))
+    check(after <= before,
+          "handoff kill: device memory not returned: {}".format(line))
+
+
+def check_ref_offload(torch, np, storage, handoff, hashing):
+    """Offloading one finalized handoff ref frees at least its lanes'
+    bytes on the card: each partition's ref owns its lanes, so what its
+    store uncharges is what the card gets back."""
+    import gc
+
+    def allocated():
+        gc.collect()
+        torch.cuda.synchronize()
+        probe = torch.empty(1, device="cuda")  # retires record_stream frees
+        del probe
+        return torch.cuda.memory_allocated()
+
+    store = storage.RunStore("chip-handoff-offload", budget=1 << 28)
+    store.handoff_active = True
+    try:
+        n = 1 << 16
+        keys = np.empty(n, dtype=object)
+        keys[:] = ["k%d" % i for i in range(n)]
+        h1, h2 = hashing.hash_keys(keys)
+        hv = handoff.HandoffVocab(store, dedup=False)
+        ok, _frac = hv.absorb_drain(list(keys), np.ones(n, dtype=np.int64),
+                                    h1, h2, n)
+        check(ok, "handoff offload: the vocabulary refused its keys")
+        _blocks, mapping = hv.finalize(store, 4)
+        refs = [r for rs in mapping.values() for r in rs]
+        check(len(refs) == 4 and all(r.is_device for r in refs),
+              "handoff offload: finalize made no device refs")
+        before = allocated()
+        owned = refs[0].dev_bytes
+        freed, _host = refs[0].offload()
+        after = allocated()
+        line = {"run": "ref-offload", "ref_dev_bytes": owned,
+                "freed": freed, "allocated_before": before,
+                "allocated_after": after}
+        log("handoff " + json.dumps(line))
+        check(freed == owned and before - after >= owned,
+              "handoff offload: the card got back less than the ref's "
+              "lanes: {}".format(line))
+    finally:
+        store.cleanup()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mb", type=int, default=128,
@@ -1418,9 +1851,10 @@ def main(argv=None):
               "(torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     try:
-        from dampr_tpu_torch import Dampr, Map, runner, settings
+        from dampr_tpu_torch import Dampr, Map, runner, settings, storage
         from dampr_tpu_torch.csrc import build
-        from dampr_tpu_torch.ops import fnv, hashing, lower, segfold
+        from dampr_tpu_torch.ops import (fnv, handoff, hashing, lower,
+                                         segfold)
         from dampr_tpu_torch.ops.text import (DocFreq, ParseNumbers,
                                               TokenCounts)
         from dampr_tpu_torch.runner import KERNELS
@@ -1553,6 +1987,22 @@ def main(argv=None):
         tc, df, n_lines, wc = oracle(corpus)
         log("phase oracle: {} distinct tokens in {:.3f} s".format(
             len(tc), time.perf_counter() - t0))
+
+        # -- the handoff's table program (B4) -------------------------------
+        t0 = time.perf_counter()
+        err["handoff"] = check_handoff(torch, np, handoff, hashing, dev, rng,
+                                       batches[True][:3], df)
+        log("phase handoff kernel: the table program equals its plain "
+            "version, {} cases x 3 variants x {} runs, in {:.3f} s".format(
+                10, HANDOFF_REPEATS, time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        times["handoff"] = {"main": time_handoff(
+            torch, np, handoff, hashing, dev, batches[True][:3], df,
+            args.reps)}
+        log("handoff at {}: {}".format(times["handoff"]["main"]["shape"],
+                                       json.dumps(times["handoff"]["main"])))
+        log("phase handoff timings: {:.3f} s".format(
+            time.perf_counter() - t0))
         chunk = os.path.getsize(corpus) // 8 + 1
         for k in KERNELS.values():
             k.launches = 0
@@ -1626,9 +2076,27 @@ def main(argv=None):
         tfidf_launches = phase_tfidf(Dampr, DocFreq, KERNELS, corpus, chunk,
                                      nbytes, df, n_lines,
                                      os.path.join(workdir, "idf"))
-        log("phase tfidf: {} sink lines exact, DocFreq lowered, both "
-            "kernels launched, one shared window pass, in {:.3f} s".format(
+        log("phase tfidf: {} sink lines exact, DocFreq lowered, every "
+            "kernel launched, one shared window pass, in {:.3f} s".format(
                 len(df), time.perf_counter() - t0))
+
+        # -- the handoff: off and auto, a degrade, a kill -------------------
+        t0 = time.perf_counter()
+        handoff_launches = phase_handoff(
+            Dampr, DocFreq, settings, KERNELS, corpus, chunk, nbytes, df,
+            n_lines, workdir, part_lines(os.path.join(workdir, "idf")))
+        head = os.path.join(workdir, "corpus_16mb.txt")
+        head_lines(corpus, head, 16 * 1024 ** 2)
+        head_df = oracle(head)[1]
+        phase_handoff_degrade(Dampr, DocFreq, settings, KERNELS, head,
+                              head_df)
+        phase_handoff_kill(torch, Dampr, DocFreq, storage, handoff, head)
+        check_ref_offload(torch, np, storage, handoff, hashing)
+        log("phase handoff: TF-IDF off and auto equal and exact, the auto "
+            "run's counts on the card from map to fold; degrade exact; kill "
+            "left no device bytes; an offloaded ref freed its lanes; in "
+            "{:.3f} s".format(
+                time.perf_counter() - t0))
 
         # -- keyed joins ------------------------------------------------------
         t0 = time.perf_counter()
@@ -1709,6 +2177,27 @@ def main(argv=None):
                         "plain_device_ms": big_t["plain"]["device_ms"],
                         "bound_ms": big_t["bound"][0],
                         "bound_by": big_t["bound"][1]}})
+    ht = times["handoff"]["main"]
+    kernels.append({
+        "name": "handoff", "route": "cuda",
+        "source": "dampr_tpu_torch/csrc/handoff.cu",
+        "replaces": "dampr_tpu/ops/handoff.py:119",
+        "entry": "table_probe(mat, lens, lines, tab_h1, tab_slot, tab_mat, "
+                 "tab_lens, acc, dedup=True, dedup_k=16)",
+        "shape": ht["shape"], "table": ht["table"],
+        "launches": launches["handoff"],
+        "launches_tfidf": tfidf_launches["handoff"],
+        "launches_wc": wc_launches["handoff"],
+        "launches_ooc": ooc_launches["handoff"],
+        "launches_ingest": ingest_launches["handoff"],
+        "launches_handoff": handoff_launches["handoff"],
+        "max_abs_err": err["handoff"], "ms": ht["ms"],
+        "device_ms": ht["device_ms"], "host_ms": ht["host_ms"],
+        "profiler_ms": ht["profiler_ms"], "plain_ms": ht["plain"]["ms"],
+        "plain_device_ms": ht["plain"]["device_ms"],
+        "plain_host_ms": ht["plain"]["host_ms"],
+        "bound_ms": ht["bound"][0], "bound_by": ht["bound"][1],
+        "library_ms": None})
     lanes = times["fnv"]["wc"]
     kernels[0]["at_wc_batch"] = {
         "entry": "fnv(mat, lens)", "shape": lanes["shape"],

@@ -1,9 +1,9 @@
 """The lowered map->fold stage: one device program per token batch.
 
-Port of ``dampr_tpu/ops/lower.py`` (the classic path; the device-resident
-handoff tier is a later slice).  A stage whose mapper is a native-vocabulary
-scanner (``TokenCounts``/``DocFreq``) feeding a keyed sum fold runs its
-windows through :func:`token_fold` instead of the host codec:
+Port of ``dampr_tpu/ops/lower.py``.  A stage whose mapper is a
+native-vocabulary scanner (``TokenCounts``/``DocFreq``) feeding a keyed
+sum fold runs its windows through :func:`token_fold` instead of the host
+codec:
 
 - **host (feed)**: token bounds and case fold from the byte tables
   (:mod:`.text`), per-line ids, and the padded token byte matrix, written
@@ -24,6 +24,11 @@ lines wider than a batch take the whole-window host path, and tokens over
 ``_SHORT_TOKEN`` bytes count on host.  Each of these adds to
 ``DeviceTokenFoldSink.fallbacks``.  Per-batch partials merge in the
 downstream sum fold, so batch boundaries are unobservable in the results.
+
+On a ``handoff="device"`` edge the sink keeps the counts on the device
+instead (:mod:`.handoff`): the first batches' drains seed a per-job
+vocabulary, later batches run its table program, and the job's end
+registers the counts as device-resident refs for the fold.
 """
 
 import time
@@ -119,7 +124,7 @@ class _Batch(object):
     ``event`` completes (``start`` marks when the batch's stream work
     began); ``keep`` pins the inputs until then."""
 
-    __slots__ = ("out", "start", "event", "keep", "starts", "lens")
+    __slots__ = ("out", "start", "event", "keep", "starts", "lens", "n")
 
     def __init__(self, out, start, event, keep, starts, lens):
         self.out = out
@@ -128,6 +133,7 @@ class _Batch(object):
         self.keep = keep
         self.starts = starts
         self.lens = lens
+        self.n = len(starts)
 
 
 def _batch_bounds(lines, n_tokens, limit):
@@ -151,7 +157,7 @@ def _batch_bounds(lines, n_tokens, limit):
 
 
 #: The host phases a DeviceTokenFoldSink times (see its ``seconds``).
-PHASES = ("scan", "pad", "enqueue", "wait", "decode")
+PHASES = ("scan", "pad", "enqueue", "wait", "decode", "absorb")
 
 
 class DeviceTokenFoldSink(object):
@@ -161,9 +167,20 @@ class DeviceTokenFoldSink(object):
 
     On a card each sink owns a CUDA stream: a batch's host-to-device copy,
     program and device-to-host copy queue on it and the host moves on to
-    build the next batch; the drain waits on that batch's event only."""
+    build the next batch; the drain waits on that batch's event only.
 
-    def __init__(self, params, store=None, device=None):
+    ``handoff=True`` (the plan's ``handoff="device"`` edge,
+    :mod:`.handoff`): the counts stay on the device in a per-job
+    vocabulary instead of draining to host blocks.  Classic batches
+    bootstrap the vocabulary, later batches run the table program, and
+    :meth:`finalize_handoff` registers the counts as device-resident refs
+    the fold reads in place.  A degrade flushes the accumulator into one
+    hash-sorted block and the sink goes on emitting blocks, with identical
+    results.  ``jobs`` (the stage's concurrent jobs) divides the run's
+    handoff budget between the jobs' vocabularies."""
+
+    def __init__(self, params, store=None, device=None, handoff=False,
+                 jobs=1):
         self.mode = params["mode"]
         self.lower = params["lower"]
         self.dedup = params["dedup"]
@@ -180,14 +197,37 @@ class DeviceTokenFoldSink(object):
                         else None)
         self.batches = 0
         self.fallbacks = 0
+        #: classic batches dispatched while the handoff was live, and the
+        #: windows that seeded the vocabulary through the host codec
+        self.classic_batches = 0
+        self.host_bootstraps = 0
         #: host seconds per phase of the lowered scan: ``scan`` (case fold,
         #: token bounds, line ids), ``pad`` (the padded batch), ``enqueue``
         #: (queueing copies + program), ``wait`` (blocked on a batch's
-        #: results) and ``decode`` (survivor strings -> Block)
+        #: results), ``decode`` (survivor strings -> Block) and ``absorb``
+        #: (the handoff's host work: survivors and a table batch's misses
+        #: into the vocabulary, a host bootstrap)
         self.seconds = dict.fromkeys(PHASES, 0.0)
         #: summed per-batch span on the card's stream (copies + program),
         #: from CUDA events; 0 on the CPU
         self.stream_seconds = 0.0
+        self._hv = None
+        if handoff and store is not None and not self.pair_values:
+            from . import handoff as _handoff
+
+            share = settings.effective_handoff_budget() // max(1, int(jobs))
+            self._hv = _handoff.HandoffVocab(store, self.dedup, budget=share,
+                                             device=self.device,
+                                             stream=self._stream)
+
+    @property
+    def table_batches(self):
+        return self._hv.table_batches if self._hv is not None else 0
+
+    @property
+    def misses(self):
+        """Tokens of table batches that missed the vocabulary."""
+        return self._hv.misses if self._hv is not None else 0
 
     # -- host fallbacks ----------------------------------------------------
     def _host_window(self, win):
@@ -198,7 +238,8 @@ class DeviceTokenFoldSink(object):
         return (blk,) if blk is not None and len(blk) else ()
 
     def _host_batch(self, buf, starts, lens, lines):
-        """Exact host grouping of one collided batch."""
+        """Exact host grouping of one collided batch (and of a table
+        batch's misses once the vocabulary is gone)."""
         from . import hashing
 
         self.fallbacks += 1
@@ -238,6 +279,48 @@ class DeviceTokenFoldSink(object):
         h1, h2 = hashing.hash_keys(keys)
         return self._emit(keys, counts, h1, h2)
 
+    # -- the handoff ---------------------------------------------------------
+    @property
+    def _handoff_live(self):
+        return self._hv is not None and not self._hv.degraded
+
+    def _absorb_or_out(self, blocks, out):
+        """Host-path blocks go into the vocabulary while the handoff is
+        live (a refused absorb degrades: the flushed accumulator and the
+        block both land in ``out``), else straight into ``out``."""
+        for blk in blocks:
+            if blk is None or not len(blk):
+                continue
+            if self._handoff_live:
+                if self._hv.absorb_block(blk):
+                    continue
+                self._degrade_to(out, "vocabulary or lane budget exceeded")
+            out.append(blk)
+
+    def _degrade_to(self, out, reason):
+        fb = self._hv.degrade(reason)
+        if fb is not None and len(fb):
+            out.append(fb)
+
+    def _emit_table_misses(self, buf, batch, out, count_d2h):
+        """A table batch's missed tokens once the vocabulary can no longer
+        take them: grouped exactly on the host (as a collided batch is) and
+        emitted.  ``count_d2h`` charges the miss lane's fetch where
+        :meth:`.handoff.HandoffVocab.drain` has not."""
+        n_miss = int(batch.n_miss)
+        if count_d2h and self.store is not None:
+            self.store.count_d2h(batch.npad + 4)
+        if not n_miss:
+            return
+        if batch.miss_idx is None:
+            batch.miss_idx = np.flatnonzero(batch.miss.numpy()[:batch.n])
+        idx = batch.miss_idx
+        blk = self._host_batch(
+            buf, batch.starts[idx], batch.lens[idx],
+            batch.lines[idx] if batch.lines is not None else None)
+        if blk is not None and len(blk):
+            out.append(blk)
+
     # -- the device path ---------------------------------------------------
     def _host_buffer(self, shape, dtype):
         return torch.empty(shape, dtype=dtype, pin_memory=self._cuda)
@@ -265,7 +348,7 @@ class DeviceTokenFoldSink(object):
         return mat_t, lens_t, lines_t
 
     def _dispatch(self, buf, starts, lens, lines):
-        """Queue one batch: inputs up, the program, results down."""
+        """Queue one classic batch: inputs up, the program, results down."""
         t0 = time.perf_counter()
         inputs = self._pad_batch(buf, starts, lens, lines)
         if self.store is not None:
@@ -296,24 +379,88 @@ class DeviceTokenFoldSink(object):
         self.batches += 1
         return _Batch(out, start, event, keep, starts, lens)
 
-    def _drain(self, buf, batch):
-        """Wait for one batch and build its partial-count Block (a
-        collision regroups the batch on host)."""
+    def _next_batch(self, buf, starts, lens, lines, out):
+        """Dispatch one batch through the program the vocabulary calls for:
+        the table program once it has converged, the classic one
+        otherwise.  A refused table dispatch (the count guard, the budget)
+        degrades the job, and the batch goes classic."""
+        if self._handoff_live and self._hv.table_mode:
+            t0 = time.perf_counter()
+            inputs = self._pad_batch(buf, starts, lens, lines)
+            t1 = time.perf_counter()
+            self.seconds["pad"] += t1 - t0
+            batch = self._hv.dispatch(inputs, starts, lens, lines,
+                                      len(starts))
+            self.seconds["enqueue"] += time.perf_counter() - t1
+            if batch is not None:
+                self.batches += 1
+                return batch
+            self._degrade_to(out, "count-lane overflow guard or hbm budget "
+                                  "exceeded mid-stage")
+        if self._handoff_live:
+            self.classic_batches += 1
+        return self._dispatch(buf, starts, lens, lines)
+
+    def _wait(self, batch):
+        """Block until one dispatch's results are on the host."""
         t0 = time.perf_counter()
         if batch.event is not None:
             batch.event.synchronize()
             self.stream_seconds += batch.start.elapsed_time(batch.event) / 1e3
+        self.seconds["wait"] += time.perf_counter() - t0
+        batch.keep = None
+
+    def _resolve(self, buf, batch, out):
+        """Drain one dispatch of either program into ``out`` (or into the
+        vocabulary while the handoff is live)."""
+        from .handoff import _TABLE_REVERT_MISS_FRAC, _TableBatch
+
+        if not isinstance(batch, _TableBatch):
+            blk = self._drain(buf, batch, out)
+            if blk is not None and len(blk):
+                out.append(blk)
+            return
+        self._wait(batch)
+        t0 = time.perf_counter()
+        phase = "decode"
+        if not self._handoff_live:
+            # The vocabulary degraded while this batch was in flight: its
+            # hits left with the flush (they counted at dispatch), but its
+            # misses landed nowhere.
+            self._emit_table_misses(buf, batch, out, count_d2h=True)
+        else:
+            phase = "absorb"
+            ok, miss_frac = self._hv.drain(buf, batch)
+            if not ok:
+                # the refused absorb landed no miss count: the flush holds
+                # this batch's hits only, its misses go out on the host
+                self._degrade_to(out, "vocabulary or lane budget exceeded")
+                self._emit_table_misses(buf, batch, out, count_d2h=False)
+            elif miss_frac > _TABLE_REVERT_MISS_FRAC:
+                # the vocabulary shifted: bootstrap again
+                self._hv.table_mode = False
+        self.seconds[phase] += time.perf_counter() - t0
+
+    def _drain(self, buf, batch, out=None):
+        """Wait for one classic batch and build its partial-count Block (a
+        collision regroups the batch on host).  While the handoff is live
+        the survivors seed the vocabulary instead (returns None)."""
+        from .handoff import _TABLE_ENTER_NEW_FRAC
+
+        self._wait(batch)
+        t1 = time.perf_counter()
         sh1, sh2, tot, live, rep_orig, collisions = (
             t.numpy() for t in batch.out)
-        t1 = time.perf_counter()
-        self.seconds["wait"] += t1 - t0
-        batch.keep = None
         if self.store is not None:
             self.store.count_d2h(sum(t.numel() * t.element_size()
                                      for t in batch.out))
         if int(collisions):
             lines = line_ids(buf, batch.starts) if self.dedup else None
-            return self._host_batch(buf, batch.starts, batch.lens, lines)
+            blk = self._host_batch(buf, batch.starts, batch.lens, lines)
+            if self._handoff_live and out is not None:
+                self._absorb_or_out((blk,), out)
+                return None
+            return blk
         idx = np.flatnonzero(live)
         if not len(idx):
             return None
@@ -325,12 +472,54 @@ class DeviceTokenFoldSink(object):
             s = int(starts[r])
             keys[i] = buf[s:s + int(lens[r])].tobytes().decode(
                 "utf-8", "replace")
-        blk = self._emit(keys, counts, sh1[idx].view(np.uint32),
-                         sh2[idx].view(np.uint32))
-        self.seconds["decode"] += time.perf_counter() - t1
+        h1g, h2g = sh1[idx].view(np.uint32), sh2[idx].view(np.uint32)
+        t2 = time.perf_counter()
+        self.seconds["decode"] += t2 - t1
+        blk = None
+        if self._handoff_live:
+            ok, new_frac = self._hv.absorb_drain(keys, counts, h1g, h2g,
+                                                 batch.n)
+            if ok:
+                if new_frac < _TABLE_ENTER_NEW_FRAC:
+                    self._hv.table_mode = True
+            else:
+                blk = self._emit(keys, counts, h1g, h2g)
+                if out is not None:
+                    self._degrade_to(out, "vocabulary or lane budget "
+                                          "exceeded")
+                    out.append(blk)
+                    blk = None
+            self.seconds["absorb"] += time.perf_counter() - t2
+        else:
+            blk = self._emit(keys, counts, h1g, h2g)
+            self.seconds["decode"] += time.perf_counter() - t2
         return blk
 
+    def _bootstrap_on_host(self, data, out):
+        """Seed an empty vocabulary from one whole window through the host
+        codec (the CPU's bootstrap, :func:`.handoff._host_bootstrap`), and
+        take the table program from the next window on; a vocabulary that
+        does not cover it reverts through the miss bar."""
+        from .handoff import CLASSIC_DRAIN_BYTES_PER_SLOT
+
+        t0 = time.perf_counter()
+        scan = chunk_doc_freq if self.dedup else chunk_token_counts
+        blk = scan(data, self.mode, self.lower, self.pair_values)
+        self.host_bootstraps += 1
+        self._absorb_or_out((blk,) if blk is not None else (), out)
+        if self._handoff_live and self._hv.nslots:
+            self._hv.table_mode = True
+            if self.store is not None and blk is not None:
+                # the drain the classic path would have fetched for this
+                # window, one batch's lower bound
+                self.store.count_d2h_avoided(
+                    CLASSIC_DRAIN_BYTES_PER_SLOT * len(blk))
+        self.seconds["absorb"] += time.perf_counter() - t0
+        return out
+
     def add(self, win):
+        from . import handoff as _handoff
+
         data = bytes(win) if isinstance(win, memoryview) else win
         buf = np.frombuffer(data, dtype=np.uint8)
         if not len(buf):
@@ -343,8 +532,11 @@ class DeviceTokenFoldSink(object):
             try:
                 data.decode("utf-8")
             except UnicodeDecodeError:
-                out.extend(self._host_window(win))
+                self._absorb_or_out(self._host_window(win), out)
                 return out
+        if (self._handoff_live and not self._hv.table_mode
+                and not self._hv.nslots and _handoff._host_bootstrap()):
+            return self._bootstrap_on_host(data, out)
         t0 = time.perf_counter()
         if self.lower:
             buf = _LOWER[buf]
@@ -368,32 +560,52 @@ class DeviceTokenFoldSink(object):
         if bounds is None:
             # The whole-window host path recounts every token, long ones
             # included, so nothing else may land for this window.
-            out.extend(self._host_window(win))
+            self._absorb_or_out(self._host_window(win), out)
             return out
         if len(long_idx):
-            out.append(self._long_tokens(buf, starts, lens, line_id,
-                                         long_idx))
+            self._absorb_or_out((self._long_tokens(buf, starts, lens, line_id,
+                                                   long_idx),), out)
 
         # Double-buffered feed: dispatch batch i+1 before draining batch i.
         pending = None
         for a, b in bounds:
-            nxt = self._dispatch(
+            if (pending is not None and self._handoff_live
+                    and not self._hv.table_mode and not self._hv.nslots):
+                # The job's first classic batch resolves before the next
+                # dispatch: its drain seeds the vocabulary, so the rest of
+                # the job can take the table program.
+                self._resolve(buf, pending, out)
+                pending = None
+            nxt = self._next_batch(
                 buf, s_starts[a:b], s_lens[a:b],
-                s_lines[a:b] if s_lines is not None else None)
+                s_lines[a:b] if s_lines is not None else None, out)
             if pending is not None:
-                out.append(self._drain(buf, pending))
+                self._resolve(buf, pending, out)
             pending = nxt
         if pending is not None:
-            out.append(self._drain(buf, pending))
+            self._resolve(buf, pending, out)
         return [blk for blk in out if blk is not None and len(blk)]
 
     def finish(self):
         return ()
 
+    def finalize_handoff(self, store, n_partitions):
+        """Register the job's vocabulary as per-partition device refs (the
+        ``handoff="device"`` edge).  Returns ``(blocks, {pid: [BlockRef]})``
+        with at most one side non-empty: ``blocks`` is a degrade flush the
+        caller pushes through the classic combine."""
+        if self._hv is None:
+            return (), {}
+        return self._hv.finalize(store, n_partitions)
 
-def device_window_sink(mapper, store=None):
-    """The device window sink for a claimed mapper, or None."""
+
+def device_window_sink(mapper, store=None, handoff=False, jobs=1):
+    """The device window sink for a claimed mapper, or None.
+    ``handoff=True`` arms the device-resident handoff (a pair-values
+    scanner, an object lane with no device tier, stays on the classic
+    path); ``jobs`` is the stage's concurrent job count."""
     params = claims(mapper)
     if params is None:
         return None
-    return DeviceTokenFoldSink(params, store=store)
+    return DeviceTokenFoldSink(params, store=store, handoff=handoff,
+                               jobs=jobs)

@@ -1,7 +1,8 @@
 """The device-lowering pass: assign each executed stage a target.
 
-Port of ``dampr_tpu/plan/lower.py`` (``analyze``/``apply``; history-driven
-placement, the handoff edges and shuffle routing are later slices):
+Port of ``dampr_tpu/plan/lower.py`` (``analyze``, ``handoff_analyze``
+and ``apply``; history-driven placement and shuffle routing are later
+slices):
 
 - a **map** stage lowers when the head of its (possibly fused) mapper
   chain is a native-vocabulary scanner
@@ -16,7 +17,9 @@ placement, the handoff edges and shuffle routing are later slices):
 
 Lowered stages get ``options["exec_target"] = "device"`` on a fresh clone;
 the decisions with their reasons land in the plan report's ``lowering``
-section.  Master switch: ``settings.lower``.
+section.  Master switch: ``settings.lower``.  Each edge from a lowered
+map into a lowered fold may then keep its counts on the device
+(:func:`handoff_analyze`, ``settings.handoff``).
 """
 
 from .. import base, settings
@@ -127,11 +130,67 @@ def analyze(graph, outputs=()):
     return decisions
 
 
-def apply(graph, outputs):
+def handoff_analyze(graph, decisions):
+    """Per edge out of a lowered map: may its counts stay on the device
+    into the consumer (``handoff="device"``) or must they drain through the
+    host tier (``"spill"``)?  Device when the consumer is a lowered
+    associative fold, the handoff is enabled
+    (:func:`..settings.handoff_enabled`) and the scanner emits integer
+    counts.  Every decline carries its reason; results are equal either
+    way.  The reference also consults its cost model's run history here
+    (``cost.handoff_choice``), which the port has not yet: with no history
+    it decides "device", as this does."""
+    from ..ops import lower as ops_lower
+
+    targets = {d["sid"]: d for d in decisions}
+    edges = []
+    if not any(d["target"] == "device" for d in decisions):
+        return edges
+    for sid, stage in enumerate(graph.stages):
+        d = targets.get(sid)
+        if d is None or d["target"] != "device" or d["kind"] != "map":
+            continue
+        for cid, cons in enumerate(graph.stages):
+            if stage.output not in getattr(cons, "inputs", ()):
+                continue
+            cd = targets.get(cid)
+            edge = {"src": sid, "dst": cid}
+            params = ops_lower.claims(stage.mapper)
+            if (not isinstance(cons, GReduce) or cd is None
+                    or cd["target"] != "device"):
+                edge.update(handoff="spill", kind="no-device-consumer",
+                            reason="consumer is not a device-lowered fold: "
+                                   "outputs drain through the host tier")
+            elif not settings.handoff_enabled():
+                edge.update(handoff="spill", kind="settings",
+                            reason="handoff off (settings.handoff={!r}; hbm "
+                                   "budget {} on this device)".format(
+                                       settings.handoff,
+                                       settings.effective_hbm_budget()))
+            elif params is not None and params.get("pair_values"):
+                edge.update(handoff="spill", kind="object-lane",
+                            reason="pair-values scanner emits an object "
+                                   "lane: no device tier for it")
+            else:
+                edge.update(handoff="device", kind="resident",
+                            via=("scanner-program" if params is not None
+                                 else "lane-program"),
+                            reason="producer program outputs stay "
+                                   "HBM-resident into the device fold: "
+                                   "d2h/spill/h2d skipped on this edge")
+            edges.append(edge)
+    return edges
+
+
+def apply(graph, outputs, runner=None):
     """``(graph', section)``: the graph with lowered stages re-targeted
     (untouched when lowering is off or nothing qualifies) and the
-    ``lowering`` report section."""
-    section = {"enabled": False, "targets": [], "device_stages": 0}
+    ``lowering`` report section, whose ``handoff`` lists every edge out of
+    a lowered map with its decision.  With ``runner``, the producers of the
+    device edges go into ``runner._handoff_sids`` and its store's handoff
+    budget is armed (``store.handoff_active``)."""
+    section = {"enabled": False, "targets": [], "device_stages": 0,
+               "handoff": []}
     if not settings.lower_enabled():
         section["reason"] = "off (settings.lower={!r})".format(settings.lower)
         return graph, section
@@ -141,6 +200,13 @@ def apply(graph, outputs):
                    device_stages=len(lowered))
     if not lowered:
         return graph, section
+    edges = handoff_analyze(graph, decisions)
+    section["handoff"] = edges
+    hand_sids = {e["src"] for e in edges if e["handoff"] == "device"}
+    if runner is not None:
+        runner._handoff_sids = hand_sids
+        if hand_sids:
+            runner.store.handoff_active = True
     from ..graph import Graph
 
     stages = list(graph.stages)

@@ -61,13 +61,22 @@ the writer pool's peaks, the overlap executor's peak bytes in flight),
 the streamed reduces, the scan-shared groups (``scan_sharing``), the
 tiny folds, and, under ``device``,
 ``device_stages``, ``device_fraction``, the h2d/d2h bytes, each kernel's
-launches and the keyed batch ops' device calls (``keyed``) during the
-run; every job charges its keyed calls to the run's store
+launches, the keyed batch ops' device calls (``keyed``) and the HBM
+tier's and the handoff's counters during the run; every job charges its keyed calls to the run's store
 (:mod:`.ops.devtime`), so their copies count in the h2d/d2h bytes.
 
-Mesh execution, mitigation, faults/resume and quarantine, reuse, the
-device handoff, the observability plane and per-operator profiler, and
-the certified lane programs are later slices.
+The **device handoff** (:mod:`.ops.handoff`): when the plan marks a
+lowered map's edge into a device fold ``handoff="device"``, each job keeps
+its counts in a device vocabulary and registers them as device-resident
+refs at its end; map outputs a device fold reads enter the store's HBM
+tier; and a reduce whose input holds device refs folds on the device
+(:meth:`MTRunner._mesh_reduce`, on one device), so the counts stay on the
+card from the map's batches to the fold's final fetch.  A failed run
+releases every device ref.
+
+Mesh execution across cards, mitigation, faults/resume and quarantine,
+reuse, the observability plane and per-operator profiler, and the
+certified lane programs are later slices.
 """
 
 import collections
@@ -90,6 +99,7 @@ from .graph import GInput, GMap, GReduce, GSink
 from .inputs import close_readahead
 from .ops import devtime
 from .ops import fnv as _fnv
+from .ops import handoff as _handoff
 from .ops import lower as ops_lower
 from .ops import segfold as _segfold
 from .ops import segment
@@ -122,8 +132,22 @@ OVERLAP_WINDOWS = 2
 #: before the run fails.
 _PRODUCER_JOIN_SECONDS = 10.0
 
+#: Lanes a device fold's accumulated partials may hold before they refold
+#: into one (:meth:`MTRunner._mesh_reduce`).
+_REFOLD_LANE_CAP = 1 << 20
+
 #: Every kernel the device path launches, by name.
-KERNELS = {"fnv": _fnv.KERNEL, "segfold": _segfold.KERNEL}
+KERNELS = {"fnv": _fnv.KERNEL, "segfold": _segfold.KERNEL,
+           "handoff": _handoff.KERNEL}
+
+#: The handoff's counts each device sink keeps (``stats()["device"]
+#: ["handoff"]``): table-program batches, classic batches dispatched while
+#: the handoff was live, tokens that missed the vocabulary, and windows
+#: that seeded it through the host codec.
+_HANDOFF_COUNTS = ("table_batches", "classic_batches", "misses",
+                   "host_bootstraps")
+
+_I64_MAX = 2 ** 63 - 1
 
 
 def _clone_op(op):
@@ -338,10 +362,11 @@ class _SharedScanChunk(object):
 #: (:meth:`MTRunner._map_job`): ``new_sink()`` gives a ``(push, end)``
 #: pair (push folds or collects one block; end registers the job's blocks
 #: and returns its ``{pid: [refs]}``), ``window_sink()`` the stage's
-#: window sink on its execution target.
+#: window sink on its execution target, ``finish(sink, push, end)`` a
+#: job's ``end()`` with its device sink's handoff refs joined in.
 _MapJob = collections.namedtuple(
-    "_MapJob", "job new_sink window_sink combine_op pin feeds_reduce "
-    "sorted_runs dev_lowered")
+    "_MapJob", "job new_sink window_sink finish combine_op pin feeds_reduce "
+    "sorted_runs dev_lowered feeds_device_fold handoff")
 
 
 class OutputDataset(Dataset):
@@ -609,7 +634,14 @@ class MTRunner(object):
         self._lock = threading.Lock()
         self._device = {"batches": 0, "fallbacks": 0, "stream_seconds": 0.0,
                         "combine_seconds": 0.0,
-                        "phases": dict.fromkeys(ops_lower.PHASES, 0.0)}
+                        "phases": dict.fromkeys(ops_lower.PHASES, 0.0),
+                        "handoff": dict.fromkeys(_HANDOFF_COUNTS, 0)}
+        # Producer stage ids whose output edge the plan marked
+        # handoff="device" (plan.lower.apply sets it): their jobs keep the
+        # counts on the device for the consuming fold.
+        self._handoff_sids = set()
+        # reduces that took _mesh_reduce's device fold
+        self.mesh_folds = 0
         # reduce partitions that went out of core, by path
         self.streamed_assoc_folds = 0
         self.streamed_views = 0
@@ -681,6 +713,8 @@ class MTRunner(object):
             dev["stream_seconds"] += sink.stream_seconds
             for k, v in sink.seconds.items():
                 dev["phases"][k] += v
+            for k in _HANDOFF_COUNTS:
+                dev["handoff"][k] += getattr(sink, k)
 
     # -- map ---------------------------------------------------------------
     def _small_input(self, entry):
@@ -689,7 +723,7 @@ class MTRunner(object):
         if not isinstance(entry, storage.PartitionSet):
             return None
         refs = list(entry.all_refs())
-        if sum(r.nbytes for r in refs) > SMALL_STAGE_BYTES:
+        if sum(r.total_bytes for r in refs) > SMALL_STAGE_BYTES:
             return None
         return refs
 
@@ -713,14 +747,12 @@ class MTRunner(object):
             refs = self._small_input(entries[0])
             if refs is not None:
                 chunks = [BlockDataset(refs)]
-        mj = self._map_job(stage, supplementary)
+        mj = self._map_job(stage, supplementary, stage_id)
         try:
             results = self._pool_map(mj.job, chunks, self.n_maps)
         finally:
             close_readahead(chunks)
-        pset = self._collect_partitions(results, mj.combine_op, mj.pin,
-                                        mj.feeds_reduce,
-                                        sorted_runs=mj.sorted_runs)
+        pset = self._collect_partitions(results, mj)
         return pset, pset.total_records(), len(chunks)
 
     def _scan_share_group(self, sid, stage, env):
@@ -758,7 +790,7 @@ class MTRunner(object):
         from .ops.text import _scan_windows
 
         chunks = self._as_chunks(env[stages[0].inputs[0]])
-        parts = [self._map_job(s, []) for s in stages]
+        parts = [self._map_job(s, [], sid) for sid, s in zip(sids, stages)]
         order = sorted(range(len(stages)), key=lambda i: bool(
             getattr(stages[i].mapper, "streams_bytes", False)))
         all_window = all(hasattr(s.mapper, "window_sink") for s in stages)
@@ -792,7 +824,8 @@ class MTRunner(object):
                 for (wsink, _push, _end), mj in zip(members, parts):
                     if mj.dev_lowered:
                         self._note_device_sink(wsink)
-            return True, [end() for _wsink, _push, end in members]
+            return True, [mj.finish(wsink, push, end) for
+                          (wsink, push, end), mj in zip(members, parts)]
 
         try:
             results = self._pool_map(group_job, chunks, self.n_maps)
@@ -801,8 +834,7 @@ class MTRunner(object):
         ret = []
         for i, mj in enumerate(parts):
             pset = self._collect_partitions(
-                [outs[i] for _w, outs in results], mj.combine_op, mj.pin,
-                mj.feeds_reduce, sorted_runs=mj.sorted_runs)
+                [outs[i] for _w, outs in results], mj)
             ret.append((pset, pset.total_records(), len(chunks)))
         # windowed: the chunks that took the one window pass; the others
         # shared one read of their bytes (a BGZF or gzip chunk is inflated
@@ -816,10 +848,10 @@ class MTRunner(object):
                  "(%d windowed)", len(stages), len(chunks), windowed)
         return ret
 
-    def _map_job(self, stage, supplementary):
-        """The per-chunk job of one map stage, with its push/end sink
-        factory and window-sink factory (shared with
-        :meth:`run_map_group`) and what its output collection needs to
+    def _map_job(self, stage, supplementary, sid=None):
+        """The per-chunk job of one map stage (stage id ``sid``), with its
+        push/end sink factory, window-sink factory and ``finish`` (shared
+        with :meth:`run_map_group`) and what its output collection needs to
         know (:data:`_MapJob`)."""
         from .ops.text import _drive_windows
 
@@ -845,6 +877,19 @@ class MTRunner(object):
         # dispatch an op the program does not implement.
         dev_lowered = (stage.options.get("exec_target") == "device"
                        and ops_lower.claims(stage.mapper) is not None)
+        # The HBM tier: an output a device-foldable reduce reads keeps its
+        # integer value lanes on the device (the store gates on the lane
+        # and the budget), so the fold reads them where they are.
+        feeds_device_fold = (
+            feeds_reduce and settings.use_device
+            and any(isinstance(s, GReduce) and stage.output in s.inputs
+                    and len(s.inputs) == 1
+                    and isinstance(s.reducer, base.AssocFoldReducer)
+                    and s.reducer.op.kind in ("sum", "min", "max")
+                    for s in self.graph.stages))
+        # The handoff: this stage's edge keeps the lowered program's counts
+        # on the device into the fold (plan.lower.handoff_analyze).
+        stage_handoff = sid is not None and sid in self._handoff_sids
         identity = (type(stage.mapper) is base.Map
                     and stage.mapper.mapper is base._identity)
 
@@ -909,17 +954,39 @@ class MTRunner(object):
                         blk = blk.sort_by_hash()
                     for pid, sub in blk.split_by_partition(P).items():
                         out.setdefault(pid, []).append(
-                            self.store.register(sub, pin=pin))
+                            self.store.register(sub, pin=pin,
+                                                device=feeds_device_fold,
+                                                handoff=stage_handoff))
                 return out
 
             return push, end
+
+        def device_sink(mapper):
+            return ops_lower.device_window_sink(mapper, self.store,
+                                                handoff=stage_handoff,
+                                                jobs=self.n_maps)
 
         def window_sink():
             """The stage's window sink on its execution target."""
             mapper = _clone_op(stage.mapper)
             if dev_lowered:
-                return ops_lower.device_window_sink(mapper, self.store)
+                return device_sink(mapper)
             return mapper.window_sink()
+
+        def finish(sink, push, end):
+            """``end()`` of a job whose window sink was ``sink``: a device
+            sink on a handoff edge registers the job's counts as device
+            refs, which join the job's output (a degrade's flush block goes
+            through ``push`` first, down the classic path)."""
+            hmap = None
+            if dev_lowered and sink is not None:
+                fblocks, hmap = sink.finalize_handoff(self.store, P)
+                for blk in fblocks:
+                    push(blk)
+            out = end()
+            for pid, refs in (hmap or {}).items():
+                out.setdefault(pid, []).extend(refs)
+            return out
 
         def job(chunk):
             mapper = _clone_op(stage.mapper)
@@ -931,12 +998,13 @@ class MTRunner(object):
             chain = (base.record_op_chain(mapper)
                      if not supplementary and not dev_lowered
                      and not use_blocks and not ident_blocks else None)
+            sink = None
             if dev_lowered and (hasattr(chunk, "read_bytes")
                                 or hasattr(chunk, "iter_byte_blocks")):
                 # The producer thread of the overlap executor drives the
                 # sink (its copies and kernels queue on the sink's own
                 # stream) while this thread folds and registers.
-                sink = ops_lower.device_window_sink(mapper, self.store)
+                sink = device_sink(mapper)
                 try:
                     for blk in _overlap_stream(
                             _drive_windows(mapper, chunk, sink=sink),
@@ -958,19 +1026,20 @@ class MTRunner(object):
                 for k, v in mapper.map(chunk, *supplementary):
                     push(builder.add(k, v))
                 push(builder.flush())
-            return end()
+            return finish(sink, push, end)
 
-        return _MapJob(job, new_sink, window_sink, combine_op, pin,
-                       feeds_reduce, sorted_run_mode, dev_lowered)
+        return _MapJob(job, new_sink, window_sink, finish, combine_op, pin,
+                       feeds_reduce, sorted_run_mode, dev_lowered,
+                       feeds_device_fold, stage_handoff)
 
-    def _collect_partitions(self, mappings, combine_op, pin, feeds_reduce,
-                            sorted_runs=False):
-        """Per-chunk ``{pid: [refs]}`` job results, in chunk order, into one
-        PartitionSet.  In sorted-run mode it is flagged
-        ``key_sorted_runs`` only when every job registered a sorted run,
-        and its merge is planned; otherwise partitions holding too many
-        blocks compact."""
-        all_sorted = bool(sorted_runs)
+    def _collect_partitions(self, mappings, mj):
+        """Per-chunk ``{pid: [refs]}`` job results of the map job ``mj``,
+        in chunk order, into one PartitionSet.  In sorted-run mode it is
+        flagged ``key_sorted_runs`` only when every job registered a
+        sorted run, and its merge is planned; otherwise partitions holding
+        too many blocks compact."""
+        all_sorted = bool(mj.sorted_runs)
+        sorted_runs = mj.sorted_runs
         pset = storage.PartitionSet(self.n_partitions)
         for mapping in mappings:
             if sorted_runs and not mapping.pop("_sorted", False):
@@ -982,7 +1051,10 @@ class MTRunner(object):
         if all_sorted and pset.parts:
             self._plan_sorted_merge(pset)
         else:
-            self._compact_partitions(pset, combine_op, pin, feeds_reduce)
+            self._compact_partitions(pset, mj.combine_op, mj.pin,
+                                     mj.feeds_reduce,
+                                     device=mj.feeds_device_fold,
+                                     handoff=mj.handoff)
         return pset
 
     def _effective_merge_fanin(self, runs):
@@ -1047,13 +1119,17 @@ class MTRunner(object):
             runs = keep + merged
         pset.parts = {0: runs}
 
-    def _compact_partitions(self, pset, combine_op, pin, feeds_reduce):
+    def _compact_partitions(self, pset, combine_op, pin, feeds_reduce,
+                            device=False, handoff=False):
         """Block-count governor: a partition holding more than
         :data:`MAX_FILES_PER_STAGE` refs merges them in rounds of at
         most that many (re-folding under the stage's associative op, or
         re-sorting by hash when a reduce reads it, so runs stay runs).
         Each round's sources drop before its merged block registers, so
-        residency stays one round over the budget at most."""
+        residency stays one round over the budget at most.  A merged
+        block of a device fold's input goes back to the device tier
+        (``device``; at any size on a handoff edge): its sources' fetch is
+        the governor's one host round trip per round."""
         limit = MAX_FILES_PER_STAGE
         for pid, refs in list(pset.parts.items()):
             while len(refs) > limit:
@@ -1072,7 +1148,9 @@ class MTRunner(object):
                         merged = segment.fold_block(merged, combine_op)
                     elif feeds_reduce:
                         merged = merged.sort_by_hash()
-                    merged_refs.append(self.store.register(merged, pin=pin))
+                    merged_refs.append(self.store.register(
+                        merged, pin=pin, device=device or handoff,
+                        handoff=handoff))
                 refs = merged_refs
             pset.parts[pid] = refs
 
@@ -1093,7 +1171,7 @@ class MTRunner(object):
         thr = settings.streaming_reduce_threshold
         if thr is None:
             thr = self.store.budget
-        if sum(r.nbytes for r in refs) > min(SMALL_STAGE_BYTES, thr):
+        if sum(r.total_bytes for r in refs) > min(SMALL_STAGE_BYTES, thr):
             return None
         P = self.n_partitions
         merged = Block.concat([r.get() for r in refs])
@@ -1107,6 +1185,234 @@ class MTRunner(object):
             bool(stage.options.get("memory")))
         with self._lock:
             self.tiny_folds += 1
+        return pset, nrec, 1
+
+    def _mesh_reduce(self, stage, entries):
+        """The device fold of an associative sum/min/max reduce whose
+        input holds device-resident refs (the HBM tier, the handoff): the
+        refs' lanes fold where they are, host refs window by window after
+        one upload each, partials refold on the device, and one fetch of
+        the distinct keys' results ends the stage, in one pass over every
+        partition.  Host memory holds one window and the key table.
+
+        The counterpart of the reference's ``_mesh_reduce``.  It runs on
+        one device until the multi-card slice (ROADMAP A5); on one device
+        the reference's collective program degenerates to the local fold
+        (:mod:`.parallel.shuffle`), and so does this.  As in the
+        reference on one device, a reduce with nothing device-resident
+        returns None (the host folds are cheaper).  None too wherever the
+        host path is needed for exactness: object or float values, a
+        running absolute sum past int64, a 64-bit key collision, or a key
+        table past a quarter of the budget."""
+        if (not settings.use_device or len(entries) != 1
+                or not isinstance(stage.reducer, base.AssocFoldReducer)):
+            return None
+        op = stage.reducer.op
+        if op.kind not in ("sum", "min", "max"):
+            return None
+        refs = list(entries[0].all_refs())
+        if not any(r.is_device for r in refs):
+            return None
+        if any(r.value_dtype == object for r in refs):
+            return None
+        from .blocks import _concat_cols
+        from .ops.hashing import combine64
+        from .parallel.shuffle import (compact_partial, mesh_keyed_fold,
+                                       mesh_keyed_refold)
+
+        dev = self.device
+        window_budget = max(1 << 20, self.store.budget // 4)
+        acc_budget = max(1 << 20, self.store.budget // 4)
+
+        class _HostPath(Exception):
+            pass
+
+        # The distinct-key table: hash-sorted (u64, key) segments, each
+        # window's new keys one segment, equal-size neighbours merged
+        # pairwise (the logarithmic method: every key takes part in
+        # O(log W) linear merges, never a rebuild per window).
+        kt = {"segs": [], "n": 0}
+        partials = []  # folded (h1, h2, v, ok) lanes on the device
+
+        def keys_equal(a, b):
+            if a.dtype != object and b.dtype != object:
+                return bool(np.all(a == b))
+            return all(x == y for x, y in zip(a, b))
+
+        def merge_segs(a, b):
+            """One allocation merging two disjoint sorted segments."""
+            ua, ka = a
+            ub, kb = b
+            n = len(ua) + len(ub)
+            tgt = np.searchsorted(ua, ub) + np.arange(len(ub))
+            ou = np.empty(n, dtype=np.uint64)
+            mask = np.ones(n, dtype=bool)
+            mask[tgt] = False
+            ou[tgt] = ub
+            ou[mask] = ua
+            if ka.dtype != kb.dtype:
+                allk = _concat_cols([ka, kb])
+                ka, kb = allk[:len(ka)], allk[len(ka):]
+            ok = np.empty(n, dtype=ka.dtype)
+            ok[tgt] = kb
+            ok[mask] = ka
+            return ou, ok
+
+        def merge_table(keys, h1, h2):
+            """Fold one window's (hash -> key) pairs into the table,
+            checking that equal 64-bit hashes carry equal keys."""
+            u = combine64(h1, h2)
+            worder = np.argsort(u, kind="stable")
+            su = u[worder]
+            sk = np.asarray(keys).take(worder)
+            first = np.empty(len(su), dtype=bool)
+            first[0] = True
+            np.not_equal(su[1:], su[:-1], out=first[1:])
+            dup = np.flatnonzero(~first)
+            if len(dup) and not keys_equal(sk.take(dup), sk.take(dup - 1)):
+                raise _HostPath  # a 64-bit collision in the window
+            keep = np.flatnonzero(first)
+            su = su[keep]
+            sk = sk.take(keep)
+            new_mask = np.ones(len(su), dtype=bool)
+            for eu, ek in kt["segs"]:
+                pos = np.minimum(np.searchsorted(eu, su), len(eu) - 1)
+                exists = eu[pos] == su
+                hit = np.flatnonzero(exists & new_mask)
+                if len(hit) and not keys_equal(sk.take(hit),
+                                               ek.take(pos[hit])):
+                    raise _HostPath  # a 64-bit collision across windows
+                new_mask &= ~exists
+            idx = np.flatnonzero(new_mask)
+            if len(idx):
+                kt["segs"].append((su[idx], sk.take(idx)))
+                kt["n"] += len(idx)
+                while (len(kt["segs"]) > 1
+                       and len(kt["segs"][-2][0])
+                       <= 2 * len(kt["segs"][-1][0])):
+                    b = kt["segs"].pop()
+                    a = kt["segs"].pop()
+                    kt["segs"].append(merge_segs(a, b))
+            if kt["n"] * 80 > acc_budget:
+                raise _HostPath  # extreme cardinality: stream on the host
+
+        def table_compact():
+            while len(kt["segs"]) > 1:
+                b = kt["segs"].pop()
+                a = kt["segs"].pop()
+                kt["segs"].append(merge_segs(a, b))
+            if kt["segs"]:
+                return kt["segs"][0]
+            return np.empty(0, dtype=np.uint64), np.empty(0, dtype=object)
+
+        # Lane safety across windows, tracked on the host where the values
+        # last were: a margined float64 absolute sum bounds every partial
+        # of a sum within int64, and the scan lowering needs every value
+        # non-negative.
+        acc = {"abs": 0.0, "nonneg": True}
+
+        def account(lane_abs, lane_min):
+            if op.kind == "sum":
+                acc["abs"] += float(lane_abs) * (1 + 1e-6) + 1
+                if acc["abs"] > _I64_MAX:
+                    raise _HostPath  # the sum could wrap: exact on host
+            if lane_min < 0:
+                acc["nonneg"] = False
+
+        def compact():
+            f = compact_partial(mesh_keyed_refold(partials, op.kind,
+                                                  nonneg=acc["nonneg"]))
+            del partials[:]
+            partials.append(f)
+
+        def maybe_compact():
+            # by lane volume: a handoff ref is vocabulary-sized, so many
+            # small partials cost less to hold than to refold
+            if len(partials) > 1 and (
+                    len(partials) >= 256
+                    or sum(int(p[0].shape[0]) for p in partials)
+                    >= _REFOLD_LANE_CAP):
+                compact()
+
+        def flush(win_blocks):
+            blk = Block.concat(win_blocks)
+            if not len(blk):
+                return
+            vals = blk.values
+            if vals.ndim != 1 or not (vals.dtype == np.bool_
+                                      or vals.dtype.kind in "iu"):
+                raise _HostPath  # composite or float lanes fold on host
+            if vals.dtype == np.uint64 and int(vals.max()) > _I64_MAX:
+                raise _HostPath  # past the int64 lanes: exact on host
+            v64 = vals.astype(np.int64)
+            account(np.abs(v64.astype(np.float64)).sum(), int(v64.min()))
+            h1, h2 = blk.hashes()
+            merge_table(blk.keys, h1, h2)
+            partials.append(mesh_keyed_fold(h1, h2, v64, op.kind,
+                                            device=dev))
+            self.store.count_h2d(16 * len(blk))
+            maybe_compact()
+
+        def flush_dev(ref):
+            """One device ref into the fold with no host copy of its
+            lanes: they join the partials as they are, the key table
+            merges from the ref's host metadata, the lane bounds come from
+            its registration."""
+            import torch
+
+            dv, dh1, dh2 = ref.device_lanes()
+            keys, h1, h2 = ref.host_meta()
+            account(ref.lane_abs, ref.lane_min)
+            merge_table(keys, h1, h2)
+            partials.append((dh1, dh2, dv, torch.ones(
+                dv.shape[0], dtype=torch.int32, device=dv.device)))
+            maybe_compact()
+
+        try:
+            win, wbytes = [], 0
+            dev_folds = 0
+            for ref in refs:
+                if ref.is_device and len(ref):
+                    flush_dev(ref)
+                    dev_folds += 1
+                    continue
+                for w in ref.iter_windows():
+                    if not len(w):
+                        continue
+                    win.append(w)
+                    wbytes += w.nbytes()
+                    if wbytes >= window_budget:
+                        flush(win)
+                        win, wbytes = [], 0
+            if win:
+                flush(win)
+            if not partials:
+                return storage.PartitionSet(self.n_partitions), 0, 1
+            if len(partials) > 1:
+                compact()
+        except _HostPath:
+            log.info("device fold: taking the host path")
+            return None
+
+        # one fetch for the whole reduce: the final partial's live rows
+        rh1, rh2, rv, rok = partials[0]
+        mask = rok == 1
+        fh1 = rh1[mask].cpu().numpy().view(np.uint32)
+        fh2 = rh2[mask].cpu().numpy().view(np.uint32)
+        fv = rv[mask].cpu().numpy()
+        self.store.count_d2h(fh1.nbytes + fh2.nbytes + fv.nbytes)
+        # hash -> key join against the table (every output hash entered
+        # it with its window)
+        tu, tk = table_compact()
+        fu = combine64(fh1, fh2)
+        idx = np.minimum(np.searchsorted(tu, fu), len(tu) - 1)
+        if not bool(np.all(tu[idx] == fu)):
+            raise RuntimeError("device fold lost a key")
+        pset, nrec = self._emit_keyed_fold(
+            tk.take(idx), fv, fh1, fh2, bool(stage.options.get("memory")))
+        with self._lock:
+            self.mesh_folds += 1
+        log.info("device fold: %d keys from %d device refs", nrec, dev_folds)
         return pset, nrec, 1
 
     def _emit_keyed_fold(self, keys, vals, h1, h2, pin):
@@ -1141,6 +1447,9 @@ class MTRunner(object):
                 raise TypeError(
                     "reduce inputs must be materialized partitions, got "
                     "{!r}".format(e))
+        fast = self._mesh_reduce(stage, entries)
+        if fast is not None:
+            return fast
         fast = self._tiny_assoc_reduce(stage, entries)
         if fast is not None:
             return fast
@@ -1206,7 +1515,7 @@ class MTRunner(object):
 
         def records(pid):
             if joinable and len(entries) == 2:
-                size = sum(r.nbytes for pset in entries
+                size = sum(r.total_bytes for pset in entries
                            for r in pset.refs(pid))
                 if size > threshold:
                     # over-budget join partition: a hash-ordered merge
@@ -1221,7 +1530,7 @@ class MTRunner(object):
                         _clone_op(stage.reducer))
             if len(entries) == 1:
                 prefs = entries[0].refs(pid)
-                if (sum(r.nbytes for r in prefs) > threshold
+                if (sum(r.total_bytes for r in prefs) > threshold
                         and isinstance(stage.reducer, base.AssocFoldReducer)
                         and stage.reducer.op.kind is not None):
                     stream = streaming_assoc_fold(prefs, stage.reducer.op)
@@ -1230,7 +1539,7 @@ class MTRunner(object):
             views = []
             for pset in entries:
                 refs = pset.refs(pid)
-                part_bytes = sum(r.nbytes for r in refs)
+                part_bytes = sum(r.total_bytes for r in refs)
                 if (len(entries) == 1 and order_insensitive
                         and part_bytes > threshold):
                     # out-of-core partition: one window per run resident
@@ -1308,6 +1617,12 @@ class MTRunner(object):
                 self.store.abort_writes()
             except Exception:
                 log.warning("spill writer abort failed", exc_info=True)
+            # a failed run's device lanes will never be read: they go, and
+            # the device budget returns to 0
+            try:
+                self.store.release_device()
+            except Exception:
+                log.warning("device release failed", exc_info=True)
             raise
         finally:
             self.store.stop_writes()
@@ -1315,7 +1630,8 @@ class MTRunner(object):
     def _run(self, outputs):
         t_start = time.perf_counter()
         launches0 = {k: kern.launches for k, kern in KERNELS.items()}
-        self.graph, self.plan_report = plan.prepare(self.graph, outputs)
+        self.graph, self.plan_report = plan.prepare(self.graph, outputs,
+                                                    runner=self)
         sto = self.store
         env = {}
         to_delete = []
@@ -1415,6 +1731,19 @@ class MTRunner(object):
             "d2h_bytes": sto.d2h_bytes,
             "kernels": {k: kern.launches - launches0[k]
                         for k, kern in KERNELS.items()},
+            # the HBM tier and the handoff: device edges the plan marked,
+            # device bytes registered with no host round trip, the drain
+            # bytes table batches never fetched, degrades to the spill
+            # path, the most device bytes held, offloads to the host, and
+            # the reduces that folded on the device (_mesh_reduce)
+            "handoff_edges": self.plan_report.get("handoff_edges", 0),
+            "handoff_bytes": sto.handoff_bytes,
+            "d2h_avoided_bytes": sto.d2h_avoided_bytes,
+            "handoff_degrades": sto.handoff_degrades,
+            "hbm_peak_bytes": sto.hbm_peak_bytes,
+            "hbm_offloads": sto.hbm_offloads,
+            "mesh_folds": self.mesh_folds,
+            "handoff": dict(dev["handoff"]),
             # the keyed batch ops' device calls (hash lanes, sort, segment
             # fold): calls and host seconds summed over jobs; their bytes
             # are in h2d_bytes/d2h_bytes

@@ -116,3 +116,57 @@ def lower_enabled():
 #: Tokens per device program dispatch (padded to a power of two).
 lower_batch = int(os.environ.get("DAMPR_TPU_TORCH_LOWER_BATCH",
                                  str(1 << 18)))
+
+
+def lower_forced():
+    """Was lowering forced on ("on"/"1")?"""
+    return str(lower).lower() in ("on", "1", "true", "yes")
+
+
+#: Device bytes the HBM tier may keep resident between a map and the fold
+#: that consumes its output (:class:`.storage.RunStore`); over it, the
+#: oldest device refs offload to host (the first spill step, before
+#: disk).  "auto" is 1 GiB when :data:`device` is CUDA and 0 on the CPU;
+#: 0 disables the tier.
+hbm_budget = "auto"
+
+
+def effective_hbm_budget():
+    if isinstance(hbm_budget, int):
+        return hbm_budget
+    s = str(hbm_budget).lower()
+    if s != "auto":
+        return int(s)
+    return 1 << 30 if _device_type() == "cuda" else 0
+
+
+#: The device-resident handoff (:mod:`.ops.handoff`): a lowered scanner
+#: map whose consumer is a device-lowered associative fold keeps its counts
+#: on the device from its batches to the fold's final fetch.  "on"/"off"
+#: force it; "auto" follows lowering where the HBM tier has a budget or
+#: lowering was forced (on the CPU device memory is host memory), but an
+#: explicit ``hbm_budget = 0`` declines it.
+handoff = "auto"
+
+
+def handoff_enabled():
+    s = str(handoff).lower()
+    if s in ("off", "0", "false", "no"):
+        return False
+    if s in ("on", "1", "true", "yes"):
+        return True
+    if str(hbm_budget).lower() != "auto" and effective_hbm_budget() == 0:
+        return False
+    return lower_enabled() and (effective_hbm_budget() > 0
+                                or lower_forced())
+
+
+def effective_handoff_budget():
+    """Device bytes the handoff may keep resident: the HBM budget where it
+    is funded, else (forced legs on the CPU) the stage memory budget."""
+    b = effective_hbm_budget()
+    if b > 0:
+        return b
+    if handoff_enabled():
+        return max_memory_per_stage
+    return 0

@@ -1,10 +1,18 @@
 """Out-of-core storage: block refs, the memory budget, the spill tier.
 
-Port of the host tiers of ``dampr_tpu/storage.py``.  Every stage output
-lives behind a :class:`BlockRef`; the run's :class:`RunStore` keeps the
-RAM-resident refs under ``settings.max_memory_per_stage`` by spilling the
-oldest unpinned ones to the run's scratch directory.  A pinned ref (a
-``cached()`` stage's output) stays in RAM, whole.
+Port of ``dampr_tpu/storage.py`` but its gzip ``cached()`` tier.  Every
+stage output lives behind a :class:`BlockRef`; the run's
+:class:`RunStore` keeps the RAM-resident refs under
+``settings.max_memory_per_stage`` by spilling the oldest unpinned ones to
+the run's scratch directory.  A pinned ref (a ``cached()`` stage's output)
+stays in RAM, whole.
+
+The tier order is device, RAM, disk.  A map output that a device fold
+reads keeps its integer value lane and hash lanes on the device (the HBM
+tier, ``settings.hbm_budget``), and the handoff registers a lowered map's
+counts there without a host round trip (:meth:`RunStore.register_device`);
+over the device budget the oldest device refs offload to the host, the
+first spill step.
 
 Spills ride :mod:`.io`: a block spills as a chunked-frame file (one
 independently compressed frame per ``SPILL_WINDOW`` records, an index
@@ -38,22 +46,166 @@ def _file_size(path):
 
 
 class BlockRef(object):
-    """A handle to one materialized block, RAM-resident or spilled.  Its
-    dtypes survive spilling (they steer the codec and the merge paths)."""
+    """A handle to one materialized block: device-resident (its value and
+    hash lanes on the card, the HBM tier), RAM-resident, or spilled.  Its
+    dtypes survive spilling (they steer the codec and the merge paths).
+
+    A device-resident ref keeps its value lane (int64) and both hash lanes
+    (int32 bit patterns) on the run's device, and its keys and hash lanes
+    on the host as well (``host_meta``: partition routing and the fold's
+    exact-key table), so a fold on the device reads the values without a
+    copy either way.  ``lane_abs``/``lane_min`` are the exactness numbers
+    the fold's overflow accounting needs, taken where the values were last
+    on the host (or summed on the device at the handoff's finalize)."""
 
     __slots__ = ("_block", "path", "nbytes", "nrecords", "value_dtype",
-                 "key_dtype", "store", "pin", "_dead")
+                 "key_dtype", "store", "pin", "_dead", "_dev", "_kmeta",
+                 "dev_bytes", "lane_abs", "lane_min", "_h2d_pending",
+                 "_ready")
 
-    def __init__(self, block, store=None, pin=False):
-        self._block = block
+    def __init__(self, block, store=None, pin=False, device_prep=None):
         self._dead = False
         self.path = None
-        self.nbytes = block.nbytes()
         self.nrecords = len(block)
         self.value_dtype = block.values.dtype
         self.key_dtype = block.keys.dtype
         self.store = store
         self.pin = pin
+        self._dev = None
+        self._kmeta = None
+        self.dev_bytes = 0
+        self.lane_abs = None
+        self.lane_min = None
+        self._h2d_pending = 0
+        self._ready = None
+        if device_prep is not None:
+            self._put_device(block, device_prep)
+        else:
+            self._block = block
+            self.nbytes = block.nbytes()
+
+    # -- the HBM tier --------------------------------------------------------
+    @staticmethod
+    def lane_prep(values):
+        """None (the lane stays on the host) or ``(lane, lane_abs,
+        lane_min)``: the int64 device lane of an integer or bool value
+        lane, a float64 over-estimate of its absolute sum and its minimum.
+        It mirrors the fold's lane whitelist
+        (``parallel.shuffle._lane_safe_values``), so a device ref never
+        meets a refusal at reduce time.  The reference's int32 branch (JAX
+        without x64) has no counterpart: torch lanes are int64.  Floats stay
+        on the host, as the port's float folds do (a device sum has no
+        fixed order); so do uint64 lanes."""
+        dt = values.dtype
+        if values.ndim != 1 or not (dt == np.bool_ or dt.kind in "iu") \
+                or dt == np.uint64:
+            return None
+        v64 = values.astype(np.int64)
+        if not len(v64):
+            return v64, 0.0, 0
+        # a float64 abs-sum: np.abs over int64 could wrap at int64's min
+        return v64, float(np.abs(v64.astype(np.float64)).sum()), \
+            int(v64.min())
+
+    def _put_device(self, block, prep):
+        """The value lane (cast by :meth:`lane_prep`) and hash lanes onto
+        the run's device; keys and hash lanes stay on the host as routing
+        metadata.  The copies are synchronous, so any stream may read the
+        lanes once this returns."""
+        import torch
+
+        dev = settings.resolve_device()
+        h1, h2 = block.hashes()
+        lane, self.lane_abs, self.lane_min = prep
+        self._dev = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                          for a in (lane, h1.view(np.int32),
+                                    h2.view(np.int32)))
+        self.dev_bytes = lane.nbytes + h1.nbytes + h2.nbytes
+        # h2d is charged once, when the store enters the ref
+        self._h2d_pending = self.dev_bytes
+        self._kmeta = (block.keys, h1, h2)
+        self._block = None
+        self.nbytes = _meta_bytes(block.keys, h1, h2)
+
+    @classmethod
+    def from_device_lanes(cls, keys, h1, h2, dev_vals, dev_h1, dev_h2,
+                          store=None, value_dtype=None, lane_abs=None,
+                          lane_min=None, h2d_bytes=0, ready=None):
+        """A device-resident ref over lanes already on the device (the
+        handoff): a lowered map's counts become the fold's input without
+        leaving the card.  ``keys``/``h1``/``h2`` are the host routing
+        metadata; ``value_dtype`` is what ``get()`` materializes on the
+        host; ``h2d_bytes`` charges only what was uploaded to build the ref
+        (the hash lanes), never the value lane; ``ready`` is a CUDA event
+        recorded after the lanes were made on their stream."""
+        ref = cls.__new__(cls)
+        ref._dead = False
+        ref.path = None
+        ref.nrecords = len(keys)
+        ref.value_dtype = (np.dtype(value_dtype) if value_dtype is not None
+                           else np.dtype(np.int64))
+        ref.key_dtype = keys.dtype
+        ref.store = store
+        ref.pin = False
+        ref._dev = (dev_vals, dev_h1, dev_h2)
+        ref._kmeta = (keys, h1, h2)
+        ref._block = None
+        ref.dev_bytes = sum(t.numel() * t.element_size() for t in ref._dev)
+        ref._h2d_pending = int(h2d_bytes)
+        ref._ready = ready
+        ref.lane_abs = lane_abs
+        ref.lane_min = lane_min
+        ref.nbytes = _meta_bytes(keys, h1, h2)
+        return ref
+
+    @property
+    def is_device(self):
+        return self._dev is not None
+
+    @staticmethod
+    def _for_current_stream(dev, ready):
+        """Make ``dev``'s lanes safe to read on this thread's current
+        stream: it waits for ``ready``, and the caching allocator keeps the
+        lanes' memory until the stream's queued work is done."""
+        if dev is None or dev[0].device.type != "cuda":
+            return dev
+        import torch
+
+        stream = torch.cuda.current_stream(dev[0].device)
+        if ready is not None:
+            stream.wait_event(ready)
+        for t in dev:
+            t.record_stream(stream)
+        return dev
+
+    def device_lanes(self):
+        """``(values int64, h1, h2)`` tensors on the device (hash lanes as
+        int32 bit patterns): the fold's input, readable on the caller's
+        current stream."""
+        return self._for_current_stream(self._dev, self._ready)
+
+    def host_meta(self):
+        """``(keys, h1, h2)`` host arrays."""
+        return self._kmeta
+
+    def offload(self):
+        """Device -> host, the HBM tier's spill step.  Returns
+        ``(freed_device_bytes, host_bytes_delta)``.  The host block is
+        published before the device lanes go, as ``spill()`` publishes its
+        path before it drops the block: a concurrent reader past the
+        device check uses its own snapshot (``get``)."""
+        if self._dev is None:  # raced with a concurrent drop
+            return 0, 0
+        blk = self.get()  # one counted fetch of the value lane
+        freed = self.dev_bytes
+        old_host = self.nbytes
+        self._block = blk
+        self.nbytes = blk.nbytes()
+        self._dev = None
+        self._kmeta = None
+        self._ready = None
+        self.dev_bytes = 0
+        return freed, self.nbytes - old_host
 
     @classmethod
     def from_disk(cls, path, nrecords, nbytes, key_dtype, value_dtype):
@@ -69,10 +221,22 @@ class BlockRef(object):
         ref.value_dtype = np.dtype(value_dtype)
         ref.store = None
         ref.pin = False
+        ref._dev = None
+        ref._kmeta = None
+        ref.dev_bytes = 0
+        ref.lane_abs = None
+        ref.lane_min = None
+        ref._h2d_pending = 0
+        ref._ready = None
         return ref
 
     def __len__(self):
         return self.nrecords
+
+    @property
+    def total_bytes(self):
+        """Host plus device bytes."""
+        return self.nbytes + self.dev_bytes
 
     @property
     def resident(self):
@@ -80,6 +244,22 @@ class BlockRef(object):
 
     def get(self):
         blk = self._block
+        if blk is not None:
+            return blk
+        # Snapshot the lanes and metadata: a concurrent offload() publishes
+        # _block first and then clears them, so a reader past this check
+        # must not read those slots again.
+        dev, kmeta, ready = self._dev, self._kmeta, self._ready
+        if dev is not None and kmeta is not None:
+            from .blocks import Block
+
+            lane = self._for_current_stream(dev, ready)[0].cpu().numpy()
+            if self.store is not None:
+                self.store.count_d2h(lane.nbytes)
+            keys, h1, h2 = kmeta
+            return Block(keys, lane.astype(self.value_dtype, copy=False),
+                         h1, h2)
+        blk = self._block  # an offload may have just published it
         if blk is not None:
             return blk
         # A publish lands ``path`` before it clears ``_block``, so a ref
@@ -92,9 +272,14 @@ class BlockRef(object):
         resident block yields array-view slices)."""
         blk = self._block
         if blk is None:
-            for w in iter_block_windows(self.path, self.store):
-                yield w
-            return
+            if self._dev is not None or self.path is None:
+                # device-resident, or an offload racing this read (the
+                # path exists only once spilled): get() reads the live tier
+                blk = self.get()
+            else:
+                for w in iter_block_windows(self.path, self.store):
+                    yield w
+                return
         for at in range(0, len(blk), SPILL_WINDOW):
             yield blk.slice(at, at + SPILL_WINDOW)
 
@@ -132,9 +317,27 @@ class BlockRef(object):
     def _delete_inner(self):
         self._dead = True
         self._block = None
+        self._dev = None
+        self._kmeta = None
+        self._ready = None
+        self.dev_bytes = 0
         if self.path and os.path.exists(self.path):
             os.unlink(self.path)
         self.path = None
+
+
+def _meta_bytes(keys, h1, h2):
+    """Host bytes of a device ref's metadata, object keys at the 64 bytes
+    a record ``Block.nbytes`` charges."""
+    from .blocks import is_numeric
+
+    kb = keys.nbytes if is_numeric(keys) else len(keys) * 64
+    return kb + h1.nbytes + h2.nbytes
+
+
+#: Least records of a reduce-feeding block worth the HBM tier's put (a
+#: smaller one stays on the host); a handoff edge's blocks take any size.
+HBM_MIN_RECORDS = 4096
 
 
 #: Records per spill window: the unit of streamed re-reads.  A k-way merge
@@ -220,11 +423,23 @@ class RunStore(object):
         self._lock = threading.Lock()
         self._resident = []  # RAM refs in registration order (spill order)
         self._resident_bytes = 0
+        self._dev_resident = []  # device refs in registration order
+        self._dev_bytes = 0
         self._stage = "stage_0"
         self.spill_count = 0
         self.spilled_bytes = 0
         self.h2d_bytes = 0
         self.d2h_bytes = 0
+        # the HBM tier: offloads to host and the most device bytes held
+        self.hbm_offloads = 0
+        self.hbm_peak_bytes = 0
+        # the handoff: set by the plan when it marked a device edge; the
+        # device bytes registered with no host round trip, the drain bytes
+        # table batches never fetched, and the degrades to the spill path
+        self.handoff_active = False
+        self.handoff_bytes = 0
+        self.d2h_avoided_bytes = 0
+        self.handoff_degrades = 0
         #: {op: {"calls", "seconds"}} of the keyed batch ops' device calls
         self.keyed = {}
         # streamed merge generations (register_stream)
@@ -263,6 +478,16 @@ class RunStore(object):
     def count_d2h(self, n):
         with self._lock:
             self.d2h_bytes += int(n)
+
+    def count_d2h_avoided(self, n):
+        """Drain bytes a handoff table batch kept on the device that the
+        classic path would have fetched."""
+        with self._lock:
+            self.d2h_avoided_bytes += int(n)
+
+    def count_handoff_degrade(self):
+        with self._lock:
+            self.handoff_degrades += 1
 
     def count_spill_read(self, nbytes, secs):
         with self._lock:
@@ -352,8 +577,8 @@ class RunStore(object):
             self._overlap_bytes += n
             self.overlap_peak_bytes = max(self.overlap_peak_bytes,
                                           self._overlap_bytes)
-            victims = self._select_victims_locked()
-        self._spill_victims(victims)
+            victims, evicted_dev = self._select_victims_locked()
+        self._spill_victims(victims, evicted_dev)
 
     def release_overlap(self, n):
         with self._lock:
@@ -377,19 +602,115 @@ class RunStore(object):
     def set_stage(self, stage_name):
         self._stage = "stage_{}".format(stage_name)
 
-    def register(self, block, pin=False):
-        """A ref to ``block``, RAM-resident; over budget, the oldest
-        unpinned refs spill.  ``pin=True`` (a ``cached()`` stage's output)
-        keeps this one in RAM for its life."""
-        ref = BlockRef(block, store=self, pin=pin)
+    def hbm_budget(self):
+        """The device bytes this run may hold: the handoff's budget once
+        the plan marked a device edge (on the CPU legs the plain HBM budget
+        is 0 and would offload at once what the handoff keeps), else the
+        HBM tier's."""
+        if self.handoff_active:
+            return settings.effective_handoff_budget()
+        return settings.effective_hbm_budget()
+
+    def register(self, block, pin=False, device=False, handoff=False):
+        """A ref to ``block``; over budget, the oldest unpinned refs spill.
+        ``pin=True`` (a ``cached()`` stage's output) keeps this one in RAM
+        for its life.  ``device=True`` (a map output a device fold reads)
+        puts an integer value lane on the device under the HBM budget when
+        the block holds at least :data:`HBM_MIN_RECORDS` records, or any
+        number on a handoff edge (``handoff=True``).  Such a block came
+        through the host, so it never counts in ``handoff_bytes``."""
+        prep = None
+        floor = 1 if handoff else HBM_MIN_RECORDS
+        if (device and not pin and settings.use_device
+                and self.hbm_budget() > 0 and len(block) >= floor):
+            prep = BlockRef.lane_prep(block.values)
+        return self._enter_ref(BlockRef(block, store=self, pin=pin,
+                                        device_prep=prep))
+
+    def register_device(self, ref):
+        """Enter a ref built on the device
+        (:meth:`BlockRef.from_device_lanes`, the handoff) under the same
+        budgets; only its pending hash-lane upload charges h2d."""
+        ref.store = self
+        return self._enter_ref(ref, handoff=True)
+
+    def _enter_ref(self, ref, handoff=False):
+        dev_victims = []
         with self._lock:
+            if ref.is_device:
+                self._dev_resident.append(ref)
+                self._dev_bytes += ref.dev_bytes
+                # h2d per transfer, from the ref's pending charge: a ref
+                # entered again adds nothing
+                self.h2d_bytes += ref._h2d_pending
+                ref._h2d_pending = 0
+                if handoff:
+                    self.handoff_bytes += ref.dev_bytes
+                self.hbm_peak_bytes = max(self.hbm_peak_bytes,
+                                          self._dev_bytes)
+                dev_victims = self._select_dev_victims_locked()
+            # the host budget charges what stays on the host: the block,
+            # or a device ref's keys and hash lanes
             self._resident.append(ref)
             self._resident_bytes += ref.nbytes
-            victims = self._select_victims_locked()
-        # the spill I/O runs outside the lock: victims already left the
-        # resident list, so each is selected once
-        self._spill_victims(victims)
+            victims, evicted_dev = self._select_victims_locked()
+        # offloads and spill I/O run outside the lock: victims already left
+        # their resident lists, so each is selected once
+        for v in dev_victims:
+            self._offload_ref(v)
+        self._spill_victims(victims, evicted_dev)
         return ref
+
+    def release_device(self):
+        """Drop every device-resident ref and return the device budget to
+        0: the failed run's path.  Its lanes will never be read, so they
+        go outright (no offload copy)."""
+        with self._lock:
+            victims = list(self._dev_resident)
+            self._dev_resident = []
+            self._dev_bytes = 0
+            for ref in victims:
+                if ref in self._resident:
+                    self._resident.remove(ref)
+                    self._resident_bytes -= ref.nbytes
+        for ref in victims:
+            ref.delete()
+
+    def _select_dev_victims_locked(self):
+        """The oldest device refs past the HBM budget, to offload to the
+        host (whose pressure then cascades to disk).  They leave both
+        resident lists here, so no later selection picks them twice;
+        :meth:`_offload_ref` enters them again as host refs."""
+        budget = self.hbm_budget()
+        if self._dev_bytes <= budget:
+            return []
+        victims = []
+        keep = []
+        for ref in self._dev_resident:
+            if self._dev_bytes > budget and ref.is_device:
+                victims.append(ref)
+                self._dev_bytes -= ref.dev_bytes
+                if ref in self._resident:
+                    self._resident.remove(ref)
+                    self._resident_bytes -= ref.nbytes
+            else:
+                keep.append(ref)
+        self._dev_resident = keep
+        return victims
+
+    def _offload_ref(self, ref):
+        """Device -> host for one ref already out of both resident lists
+        (outside the lock), then enter it again as a host ref, which may
+        spill."""
+        freed, _delta = ref.offload()
+        if not freed:
+            return  # raced with a concurrent drop
+        with self._lock:
+            self.hbm_offloads += 1
+            self._resident.append(ref)
+            self._resident_bytes += ref.nbytes
+            victims, evicted_dev = self._select_victims_locked()
+        self._spill_victims(victims, evicted_dev)
 
     def register_stream(self, blocks):
         """Write an iterator of key-sorted window blocks straight into a
@@ -457,12 +778,16 @@ class RunStore(object):
         Bytes queued in the writer pool (their RAM is still held) shrink
         the target, and so do the overlap executor's blocks in flight.
         Pinned refs stay whatever they weigh: the port holds ``cached()``
-        blocks whole in RAM."""
+        blocks whole in RAM.  Returns ``(victims, evicted_dev)``: a device
+        ref's host metadata cannot spill in place, so under host pressure
+        it is evicted whole (offload, then disk) and leaves both
+        accountings here."""
         inflight = 0 if self._writer is None else self._writer.inflight_bytes
         target = max(0, self.budget - self._overlap_bytes - inflight)
         if self._resident_bytes <= target:
-            return []
+            return [], []
         victims = []
+        evicted_dev = []
         keep = []
         for ref in self._resident:
             if self._resident_bytes <= target or ref.pin:
@@ -470,12 +795,18 @@ class RunStore(object):
             elif ref.resident:
                 victims.append(ref)
                 self._resident_bytes -= ref.nbytes
+            elif ref.is_device:
+                evicted_dev.append(ref)
+                self._resident_bytes -= ref.nbytes
+                if ref in self._dev_resident:
+                    self._dev_resident.remove(ref)
+                    self._dev_bytes -= ref.dev_bytes
             else:
                 keep.append(ref)
         self._resident = keep
-        return victims
+        return victims, evicted_dev
 
-    def _spill_victims(self, victims):
+    def _spill_victims(self, victims, evicted_dev=()):
         """Spill I/O for selected victims, outside the lock.  With the
         writer pool on, each victim queues and this thread returns; its RAM
         stays readable (and charged, as bytes in flight) until the write
@@ -484,14 +815,21 @@ class RunStore(object):
         A spill counts when it is decided: the victim left the resident
         set here, whether or not its queued write later lands for a live
         ref (a merge generation may drop the ref first), so the counts do
-        not depend on how fast the writer threads run."""
-        if not victims:
+        not depend on how fast the writer threads run.
+
+        ``evicted_dev`` refs (device refs under host pressure) offload
+        first, on this thread, and then take the same write path."""
+        if not victims and not evicted_dev:
             return
         directory = os.path.join(self.root, self._stage)
+        evicted_dev = [v for v in evicted_dev if v.offload()[0]]
+        if evicted_dev:
+            with self._lock:
+                self.hbm_offloads += len(evicted_dev)
         pool = self.writer_pool()
         freed = n_spilled = 0
         queued = []
-        for v in victims:
+        for v in list(evicted_dev) + list(victims):
             if pool is not None and v.path is None and v._block is not None:
                 queued.append(v)
             else:
@@ -520,6 +858,9 @@ class RunStore(object):
             if ref in self._resident:
                 self._resident.remove(ref)
                 self._resident_bytes -= ref.nbytes
+            if ref in self._dev_resident:
+                self._dev_resident.remove(ref)
+                self._dev_bytes -= ref.dev_bytes
         ref.delete()
 
     def cleanup(self):

@@ -46,8 +46,12 @@ def knobs(tmp_path):
     old_ref = {n: getattr(ref_settings, n) for n in _NAMES}
     old = {n: getattr(settings, n) for n in _PORT_NAMES}
     old_depth = R.OVERLAP_WINDOWS
+    old["handoff"] = settings.handoff
     settings.partitions = ref_settings.partitions = 8
     settings.device = "cpu"
+    # the classic lowered program's blocks ride the overlap executor; the
+    # handoff keeps them in its device vocabulary instead
+    settings.handoff = "off"
     settings.scratch_root = str(tmp_path / "port")
     ref_settings.scratch_root = str(tmp_path / "ref")
     yield

@@ -26,12 +26,15 @@ from dampr_tpu_torch.ops import text as port_text
 def knobs():
     old_ref = (ref_settings.lower, ref_settings.lower_batch)
     old_port = (port_settings.device, port_settings.lower,
-                port_settings.lower_batch)
+                port_settings.lower_batch, port_settings.handoff)
     port_settings.device = "cpu"
+    # the classic lowered program; the handoff's parity on these corpora
+    # is tests/test_torch_handoff.py's
+    port_settings.handoff = "off"
     yield
     ref_settings.lower, ref_settings.lower_batch = old_ref
     (port_settings.device, port_settings.lower,
-     port_settings.lower_batch) = old_port
+     port_settings.lower_batch, port_settings.handoff) = old_port
 
 
 def _write(tmp_path, name, data):
@@ -155,7 +158,8 @@ class TestSliceParity:
         launch counters stay put."""
         path = _write(tmp_path, "c.txt", CORPORA["text"]())
         _, _, stats = _port(path, "docfreq", "1")
-        assert stats["device"]["kernels"] == {"fnv": 0, "segfold": 0}
+        assert stats["device"]["kernels"] == {"fnv": 0, "segfold": 0,
+                                              "handoff": 0}
         assert stats["device"]["h2d_bytes"] > 0
 
     def test_memory_budget_spill_keeps_results(self, tmp_path):

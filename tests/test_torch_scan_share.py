@@ -35,10 +35,12 @@ _NAMES = ("partitions", "lower")
 
 @pytest.fixture(autouse=True)
 def knobs():
-    old = {n: getattr(settings, n) for n in _NAMES + ("device",)}
+    old = {n: getattr(settings, n) for n in _NAMES + ("device", "handoff")}
     old_ref = (ref_settings.partitions, ref_settings.scan_sharing)
     settings.partitions = ref_settings.partitions = 8
     settings.device = "cpu"
+    # the classic lowered program (its batches are counted below)
+    settings.handoff = "off"
     yield
     for n, v in old.items():
         setattr(settings, n, v)

@@ -31,10 +31,15 @@ from test_torch_pipeline import CORPORA, _write
 
 @pytest.fixture(autouse=True)
 def knobs():
-    old = (ref_settings.lower, port_settings.device, port_settings.lower)
+    old = (ref_settings.lower, port_settings.device, port_settings.lower,
+           port_settings.handoff)
     port_settings.device = "cpu"
+    # the classic lowered program; the TF-IDF pipeline with the handoff on
+    # is tests/test_torch_handoff.py's
+    port_settings.handoff = "off"
     yield
-    ref_settings.lower, port_settings.device, port_settings.lower = old
+    (ref_settings.lower, port_settings.device, port_settings.lower,
+     port_settings.handoff) = old
 
 
 def _idf(df, total):
