@@ -62,6 +62,23 @@ the kernels build for sm_90a).  Phases, each of which must pass:
    device refs (every store must end with no device bytes charged, and
    ``torch.cuda.memory_allocated()`` no higher than before the run); and
    one finalized ref offloaded (the card must get back its lanes' bytes);
+   then ``obs``: (a) the same pipeline untraced, then with
+   ``settings.trace`` and ``settings.profile`` on: sink lines equal the
+   oracle, copies and every kernel's launches equal in the two runs;
+   ``trace.json`` passes ``tools/validate_trace.py`` with the span
+   categories ``stage,job,codec,fold,device,handoff`` and the counter
+   series ``store.resident_bytes,store.hbm_bytes``; ``stats.json`` equals
+   ``em.stats()``; the critical path names a run verdict; the DocFreq
+   stage's profile has device sub-phases (one ``obs`` line: both walls,
+   their ratio, the devtime buckets, the stall fraction); (b) the traced
+   pipeline under ``settings.profile_dir``: from ``torch.profiler``'s
+   Chrome trace, the card's busy share (the union of kernel and copy
+   intervals over the run's wall window), the top 5 device operations and
+   the 5 longest idle gaps with the port's host spans inside each (both
+   clocks mapped to the wall clock: ``card_timeline``), and the
+   profiler's K1/K2/B4 kernels equal to the launch counters; (c) a traced
+   DocFreq run failed mid-map as above leaves a ``crashdump.json`` that
+   validates, and ``memory_allocated()`` reads the same before and after;
 9. ``joins``: (a) the TokenCounts and DocFreq fold outputs of the corpus,
    each filtered by its count, joined by word (inner, left, outer) against
    a dict oracle; (b) 2^20 and 2^19 seeded integer keys (half shared,
@@ -1712,6 +1729,74 @@ def phase_handoff_degrade(Dampr, DocFreq, settings, kernels, head, head_df):
         "distinct": len(got)}))
 
 
+class InjectedFailure(object):
+    """The kill mechanism: while active, the table program raises on the
+    first dispatch after a job registered its device refs; every
+    ``RunStore`` made and every device ref registered is kept."""
+
+    def __init__(self, storage, handoff):
+        self.storage, self.handoff = storage, handoff
+        self.stores, self.registered, self.table_batches = [], [], []
+
+    def __enter__(self):
+        st, ho = self.storage, self.handoff
+        self._real = (st.RunStore.__init__, st.RunStore.register_device,
+                      ho.HandoffVocab.dispatch)
+        real_init, real_reg, real_dispatch = self._real
+        stores, registered = self.stores, self.registered
+        table_batches = self.table_batches
+
+        def init(store, *a, **kw):
+            real_init(store, *a, **kw)
+            stores.append(store)
+
+        def register_device(store, ref):
+            registered.append(ref)
+            return real_reg(store, ref)
+
+        def dispatch(vocab, *a, **kw):
+            if registered:
+                raise RuntimeError("table program launch failed (injected)")
+            table_batches.append(1)
+            return real_dispatch(vocab, *a, **kw)
+
+        st.RunStore.__init__ = init
+        st.RunStore.register_device = register_device
+        ho.HandoffVocab.dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        (self.storage.RunStore.__init__,
+         self.storage.RunStore.register_device,
+         self.handoff.HandoffVocab.dispatch) = self._real
+        return False
+
+
+def allocated_after_failure(torch):
+    """``memory_allocated()`` once a failed run's lanes are freed."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    # an allocation lets the allocator retire blocks freed while another
+    # stream still held them (record_stream) before it is read
+    probe = torch.empty(1, device="cuda")
+    del probe
+    return torch.cuda.memory_allocated()
+
+
+def run_injected_failure(Dampr, DocFreq, head, name):
+    """DocFreq over ``head`` on one job thread, to fail under
+    :class:`InjectedFailure`; returns the failure's message."""
+    try:
+        (Dampr.text(head, os.path.getsize(head) // 4 + 1)
+         .custom_mapper(DocFreq(mode="word", lower=True, pair_values=False))
+         .fold_values(operator.add).run(name=name, n_maps=1))
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
 def phase_handoff_kill(torch, Dampr, DocFreq, storage, handoff, head):
     """A DocFreq run made to fail mid-map: its table program raises on the
     first dispatch after a job registered its device refs.  Every
@@ -1721,56 +1806,21 @@ def phase_handoff_kill(torch, Dampr, DocFreq, storage, handoff, head):
     as information only)."""
     import gc
 
-    stores, registered = [], []
-    real_init = storage.RunStore.__init__
-    real_reg = storage.RunStore.register_device
-    real_dispatch = handoff.HandoffVocab.dispatch
-    table_batches = []
-
-    def init(self, *a, **kw):
-        real_init(self, *a, **kw)
-        stores.append(self)
-
-    def register_device(self, ref):
-        registered.append(ref)
-        return real_reg(self, ref)
-
-    def dispatch(self, *a, **kw):
-        if registered:
-            raise RuntimeError("table program launch failed (injected)")
-        table_batches.append(1)
-        return real_dispatch(self, *a, **kw)
-
     gc.collect()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
-    storage.RunStore.__init__ = init
-    storage.RunStore.register_device = register_device
-    handoff.HandoffVocab.dispatch = dispatch
-    failed = None
-    try:
-        (Dampr.text(head, os.path.getsize(head) // 4 + 1)
-         .custom_mapper(DocFreq(mode="word", lower=True, pair_values=False))
-         .fold_values(operator.add).run(name="chip-handoff-kill", n_maps=1))
-    except RuntimeError as e:
-        failed = str(e)
-    finally:
-        storage.RunStore.__init__ = real_init
-        storage.RunStore.register_device = real_reg
-        handoff.HandoffVocab.dispatch = real_dispatch
+    with InjectedFailure(storage, handoff) as inj:
+        failed = run_injected_failure(Dampr, DocFreq, head,
+                                      "chip-handoff-kill")
+    stores, registered = inj.stores, inj.registered
+    table_batches = inj.table_batches
     check(failed is not None and "injected" in failed,
           "handoff kill: the run did not fail as made to: {}".format(failed))
     check(registered and table_batches,
           "handoff kill: no device ref or table batch before the failure")
     n_refs = len(registered)
     del registered[:]
-    gc.collect()
-    torch.cuda.synchronize()
-    # an allocation lets the allocator retire blocks freed while another
-    # stream still held them (record_stream) before it is read
-    probe = torch.empty(1, device="cuda")
-    del probe
-    after = torch.cuda.memory_allocated()
+    after = allocated_after_failure(torch)
     reserved = torch.cuda.memory_reserved()
     slack = reserved - after
     live = sum(1 for s in stores for r in s._dev_resident if not r._dead)
@@ -1828,6 +1878,280 @@ def check_ref_offload(torch, np, storage, handoff, hashing):
               "lanes: {}".format(line))
     finally:
         store.cleanup()
+
+
+# -- the obs phase -----------------------------------------------------------
+
+#: Span categories the traced TF-IDF run must record on the card: those
+#: the JAX package's accelerator path records for this pipeline.
+OBS_CATS = "stage,job,codec,fold,device,handoff"
+OBS_COUNTERS = "store.resident_bytes,store.hbm_bytes"
+
+#: The kernels' names in a ``torch.profiler`` trace, by launch counter.
+PROFILER_NAMES = {"fnv": K1_NAMES, "segfold": K2_NAMES,
+                  "handoff": HANDOFF_NAMES}
+
+
+def validate_trace_file(path, cats=None, counters=None):
+    """``tools/validate_trace.py`` on ``path`` (a subprocess: the tool is
+    stdlib-only); returns its output, fails the phase on a refusal."""
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "validate_trace.py")
+    cmd = [sys.executable, tool, path]
+    if cats:
+        cmd += ["--require-cats", cats]
+    if counters:
+        cmd += ["--require-counters", counters]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    out = (res.stdout + res.stderr).strip()
+    check(res.returncode == 0, "validate_trace refused {}: {}".format(
+        path, out))
+    return out
+
+
+def _union(intervals):
+    """Merged, sorted ``(t0, t1)`` intervals."""
+    out = []
+    for t0, t1 in sorted(i for i in intervals if i[1] > i[0]):
+        if out and t0 <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], t1)
+        else:
+            out.append([t0, t1])
+    return out
+
+
+def card_timeline(profile_path, tracer_doc, wall_s):
+    """The card's busy share, top device operations and longest idle
+    gaps in one run, from the ``torch.profiler`` Chrome trace
+    (``profile_path``) and the port's own ``trace.json`` (``tracer_doc``).
+
+    Clocks: both map to the wall clock in microseconds.  A
+    ``torch.profiler`` event's ``ts`` plus the trace's
+    ``baseTimeNanoseconds`` / 1000 is the realtime clock; a tracer span's
+    ``ts`` plus ``otherData.wall_start`` (``time.time()`` taken with the
+    tracer's perf_counter epoch) is the same clock.  The run's window is
+    ``[wall_start, wall_start + wall_seconds]``.  The check of the
+    alignment: the share of the table program's kernels whose launch
+    call (``cudaLaunchKernel``, joined by correlation id) falls inside one
+    of the tracer's ``table-probe`` spans."""
+    with open(profile_path) as f:
+        doc = json.load(f)
+    check("baseTimeNanoseconds" in doc,
+          "torch.profiler trace has no baseTimeNanoseconds: cannot align "
+          "its clock")
+    base = doc["baseTimeNanoseconds"] / 1e3
+    gpu, launch_ts = [], {}
+    for ev in doc["traceEvents"]:
+        if ev.get("ph") != "X":
+            continue
+        cat = str(ev.get("cat", "")).lower()
+        args = ev.get("args") or {}
+        t0 = float(ev["ts"]) + base
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            gpu.append((t0, t0 + float(ev.get("dur", 0)), ev.get("name", "?"),
+                        cat, args.get("correlation")))
+        elif cat == "cuda_runtime" and "correlation" in args:
+            launch_ts[args["correlation"]] = t0
+    check(gpu, "torch.profiler recorded no kernel or copy on the card")
+    w0 = float(tracer_doc["otherData"]["wall_start"]) * 1e6
+    w1 = w0 + wall_s * 1e6
+    busy = _union((max(a, w0), min(b, w1)) for a, b, _n, _c, _k in gpu)
+    busy_us = sum(b - a for a, b in busy)
+    ops = {}
+    for a, b, name, cat, _k in gpu:
+        o = ops.setdefault(name, [0, 0.0, cat])
+        o[0] += 1
+        o[1] += b - a
+    top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:5]
+    edges = [w0] + [x for iv in busy for x in iv] + [w1]
+    gaps = sorted(((edges[i], edges[i + 1])
+                   for i in range(0, len(edges) - 1, 2)
+                   if edges[i + 1] > edges[i]),
+                  key=lambda g: g[0] - g[1])[:5]
+    spans = [(ev["cat"], ev["name"], w0 + float(ev["ts"]),
+              w0 + float(ev["ts"]) + float(ev["dur"]))
+             for ev in tracer_doc["traceEvents"] if ev.get("ph") == "X"]
+    gap_lines = []
+    for g0, g1 in gaps:
+        over = {}
+        for cat, name, a, b in spans:
+            ov = min(b, g1) - max(a, g0)
+            if ov > 0 and cat != "stage":
+                key = "{}:{}".format(cat, name)
+                over[key] = over.get(key, 0.0) + ov
+        host = sorted(over.items(), key=lambda kv: -kv[1])[:4]
+        # a span's overlap with the gap, summed over the lanes (threads)
+        # that ran it: thread-milliseconds, so it can exceed the gap
+        gap_lines.append({
+            "start_s": round((g0 - w0) / 1e6, 6),
+            "ms": round((g1 - g0) / 1e3, 3),
+            "host_spans_thread_ms": [[k, round(v / 1e3, 3)]
+                                     for k, v in host]})
+    probes = [(a, b) for cat, name, a, b in spans
+              if cat == "handoff" and name == "table-probe"]
+    pk = [k for _a, _b, name, _c, k in gpu
+          if re.search(HANDOFF_NAMES, name) and k in launch_ts]
+    inside = sum(1 for k in pk
+                 if any(a - 50 <= launch_ts[k] <= b + 50 for a, b in probes))
+    counts = {k: sum(1 for _a, _b, name, cat, _c in gpu
+                     if cat == "kernel" and re.search(pat, name))
+              for k, pat in PROFILER_NAMES.items()}
+    return {"window_s": round(wall_s, 6),
+            "busy_s": round(busy_us / 1e6, 6),
+            "busy_share": round(busy_us / max(1e-9, w1 - w0), 6),
+            "gpu_events": len(gpu),
+            "top_device_ops": [
+                {"name": n[:96], "cat": v[2], "count": v[0],
+                 "ms": round(v[1] / 1e3, 4)} for n, v in top],
+            "idle_gaps": gap_lines,
+            "kernel_counts": counts,
+            "aligned_launch_share": (round(inside / len(pk), 4)
+                                     if pk else None)}
+
+
+def obs_run(Dampr, DocFreq, settings, kernels, corpus, chunk, workdir, tag,
+            trace=False, profile_dir=None):
+    """One TF-IDF run for the obs phase; returns ``(seconds, launches,
+    stats, sink lines)``."""
+    out_dir = os.path.join(workdir, "idf_obs_" + tag)
+    old = (settings.trace, settings.profile, settings.trace_dir,
+           settings.profile_dir)
+    settings.trace = settings.profile = trace
+    settings.trace_dir = os.path.join(workdir, "traces")
+    settings.profile_dir = profile_dir
+    try:
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        em = tfidf_pipeline(Dampr, DocFreq, corpus, chunk, out_dir).run(
+            name="chip-obs-" + tag)
+        secs = time.perf_counter() - t0
+        launches = read_launches(kernels)
+    finally:
+        (settings.trace, settings.profile, settings.trace_dir,
+         settings.profile_dir) = old
+    return secs, launches, em.stats(), part_lines(out_dir)
+
+
+def phase_obs(torch, Dampr, DocFreq, settings, storage, handoff, kernels,
+              corpus, chunk, nbytes, df, n_lines, workdir, plain_lines,
+              head):
+    """(a) TF-IDF untraced, then traced and profiled: equal sink lines,
+    copies and launches; the trace validates with the categories and
+    counters the path must record; stats.json round-trips to
+    ``em.stats()``; the critical path names a verdict; the DocFreq stage's
+    profile has device sub-phases.  (b) The same run under
+    ``settings.profile_dir`` (and traced): the card's busy share, top
+    operations and longest idle gaps with the host spans inside them; the
+    profiler's K1/K2/B4 kernels must equal the launch counters.  (c) A
+    traced run failed mid-map leaves a crashdump that validates, and
+    ``memory_allocated()`` reads the same before and after."""
+    want = tfidf_oracle_lines(df, n_lines)
+    runs = {}
+    for tag, trace in (("untraced", False), ("traced", True)):
+        secs, launches, stats, got = obs_run(
+            Dampr, DocFreq, settings, kernels, corpus, chunk, workdir, tag,
+            trace=trace)
+        check(got == want and got == plain_lines,
+              "obs {}: TF-IDF sink lines differ from the oracle".format(tag))
+        runs[tag] = (secs, launches, stats)
+    (s0, l0, st0), (s1, l1, st1) = runs["untraced"], runs["traced"]
+    d0, d1 = st0["device"], st1["device"]
+    check(l0 == l1 and all(l0.values()),
+          "obs: launches differ traced/untraced: {} {}".format(l0, l1))
+    check(d0["kernels"] == l0 and d1["kernels"] == l1,
+          "obs: stats kernels differ from the counters")
+    check((d0["h2d_bytes"], d0["d2h_bytes"]) == (d1["h2d_bytes"],
+                                                 d1["d2h_bytes"]),
+          "obs: copies differ traced/untraced")
+    check(st0["trace_file"] is None and st0["stats_file"] is None
+          and "spans" not in st0, "obs: the untraced run traced")
+    vout = validate_trace_file(st1["trace_file"], OBS_CATS, OBS_COUNTERS)
+    with open(st1["stats_file"]) as f:
+        on_disk = json.load(f)
+    check(on_disk == json.loads(json.dumps(st1, default=str)),
+          "obs: stats.json does not round-trip to em.stats()")
+    verdict = (st1.get("critpath") or {}).get("run", {}).get("verdict")
+    check(verdict, "obs: critpath names no run verdict")
+    dev_stages = [s for s in st1["profile"]["stages"] if s["device"]]
+    check(dev_stages and {"build", "h2d", "compute"} <= set(
+        dev_stages[0]["device"]), "obs: DocFreq has no device sub-phases: "
+                                  "{}".format(st1["profile"]["stages"]))
+    log("obs " + json.dumps({
+        "run": "traced-vs-untraced", "seconds_untraced": s0,
+        "seconds_traced": s1, "ratio": s1 / s0,
+        "mb_per_s_untraced": nbytes / 1e6 / s0,
+        "mb_per_s_traced": nbytes / 1e6 / s1,
+        "devtime_untraced": st0["devtime"], "devtime_traced": st1["devtime"],
+        "device_fraction": [d0["device_fraction"], d1["device_fraction"]],
+        "stall_fraction": [st0["overlap"]["stall_fraction"],
+                           st1["overlap"]["stall_fraction"]],
+        "h2d_bytes": d1["h2d_bytes"], "d2h_bytes": d1["d2h_bytes"],
+        "kernels": l1, "spans": st1["spans"], "validate": vout,
+        "critpath": st1["critpath"]["run"],
+        "critpath_stages": [(c["stage"], c["kind"], c["verdict"])
+                            for c in st1["critpath"]["stages"]],
+        "profile": [{"stage": s["stage"], "kind": s["kind"],
+                     "coverage": s["coverage"], "ops": s["ops"][:4],
+                     "device": s["device"]}
+                    for s in st1["profile"]["stages"]],
+        "sampler": st1["metrics"]["sampler"]}))
+
+    # -- (b) the card's timeline under torch.profiler --------------------
+    pdir = os.path.join(workdir, "torch_profile")
+    s2, l2, st2, got = obs_run(Dampr, DocFreq, settings, kernels, corpus,
+                               chunk, workdir, "profiled", trace=True,
+                               profile_dir=pdir)
+    check(got == want, "obs profiled: TF-IDF sink lines differ")
+    path = st2.get("profile_trace_file")
+    check(path and os.path.isfile(path), "obs: no torch.profiler trace")
+    with open(st2["trace_file"]) as f:
+        tdoc = json.load(f)
+    t0 = time.perf_counter()
+    tl = card_timeline(path, tdoc, st2["wall_seconds"])
+    tl_secs = time.perf_counter() - t0
+    check(tl["kernel_counts"] == l2, "obs: the profiler's kernels {} differ "
+          "from the launch counters {}".format(tl["kernel_counts"], l2))
+    # the card's work per run is the same with or without the profiler,
+    # whose host cost stretches the window: its busy seconds over the
+    # untraced run's wall
+    tl["busy_share_of_untraced_wall"] = round(
+        tl["busy_s"] / st0["wall_seconds"], 6)
+    log("obs " + json.dumps(dict(
+        tl, run="card-timeline", seconds=s2,
+        trace_mb=os.path.getsize(path) / 1e6, read_seconds=tl_secs,
+        launches=l2, corpus_bytes=nbytes)))
+
+    # -- (c) a traced run failed mid-map ---------------------------------
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    old = (settings.trace, settings.trace_dir)
+    settings.trace = True
+    settings.trace_dir = os.path.join(workdir, "traces")
+    try:
+        with InjectedFailure(storage, handoff):
+            failed = run_injected_failure(Dampr, DocFreq, head,
+                                          "chip-obs-kill")
+    finally:
+        settings.trace, settings.trace_dir = old
+    check(failed is not None and "injected" in failed,
+          "obs kill: the run did not fail as made to: {}".format(failed))
+    after = allocated_after_failure(torch)
+    dump = os.path.join(workdir, "traces", "chip-obs-kill", "trace",
+                        "crashdump.json")
+    check(os.path.isfile(dump), "obs kill: no crashdump.json")
+    dout = validate_trace_file(dump)
+    with open(dump) as f:
+        crash = json.load(f)["otherData"]
+    log("obs " + json.dumps({
+        "run": "traced-kill", "crashdump": dout, "crash": crash["crash"],
+        "log_codes": [r["code"] for r in crash.get("log", ())],
+        "allocated_before": before, "allocated_after": after}))
+    check(after == before, "obs kill: memory_allocated {} before, {} after"
+          .format(before, after))
+    return l1
 
 
 def main(argv=None):
@@ -2098,6 +2422,17 @@ def main(argv=None):
             "{:.3f} s".format(
                 time.perf_counter() - t0))
 
+        # -- observability: traced runs and the card's timeline -------------
+        t0 = time.perf_counter()
+        obs_launches = phase_obs(
+            torch, Dampr, DocFreq, settings, storage, handoff, KERNELS,
+            corpus, chunk, nbytes, df, n_lines, workdir,
+            part_lines(os.path.join(workdir, "idf")), head)
+        log("phase obs: traced and untraced TF-IDF equal in lines, copies "
+            "and launches; the trace and the crashdump validate; the "
+            "profiler's kernels equal the counters; in {:.3f} s".format(
+                time.perf_counter() - t0))
+
         # -- keyed joins ------------------------------------------------------
         t0 = time.perf_counter()
         phase_joins(Dampr, Map, DocFreq, TokenCounts, corpus, chunk, tc, df,
@@ -2162,6 +2497,7 @@ def main(argv=None):
             "launches_wc": wc_launches[name],
             "launches_ooc": ooc_launches[name],
             "launches_ingest": ingest_launches[name],
+            "launches_obs": obs_launches[name],
             "max_abs_err": err[name], "ms": main_t["ms"],
             "device_ms": main_t["device_ms"], "host_ms": main_t["host_ms"],
             "profiler_ms": main_t["profiler_ms"],
@@ -2191,6 +2527,7 @@ def main(argv=None):
         "launches_ooc": ooc_launches["handoff"],
         "launches_ingest": ingest_launches["handoff"],
         "launches_handoff": handoff_launches["handoff"],
+        "launches_obs": obs_launches["handoff"],
         "max_abs_err": err["handoff"], "ms": ht["ms"],
         "device_ms": ht["device_ms"], "host_ms": ht["host_ms"],
         "profiler_ms": ht["profiler_ms"], "plain_ms": ht["plain"]["ms"],

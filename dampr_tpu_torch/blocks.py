@@ -268,8 +268,13 @@ def merge_sorted_streams(streams):
     never straddle an emission.  A tie group over a quarter of the memory
     budget drains over later rounds instead (order holds, tie order may
     degrade)."""
+    from .obs import metrics as _metrics
+    from .obs import trace as _trace
+
     its = [iter(s) for s in streams]
     n = len(its)
+    # merge fan-in per merge: the distribution the planner's clamp bounds
+    _metrics.observe("merge.kway_streams", n)
 
     def gen():
         buf = [None] * n
@@ -292,6 +297,7 @@ def merge_sorted_streams(streams):
         for i in range(n):
             load(i)
         while True:
+            t0 = _trace.now()
             bound = None
             for i in range(n):
                 if buf[i] is not None and (bound is None or last[i] < bound):
@@ -336,6 +342,11 @@ def merge_sorted_streams(streams):
                         break
             merged = Block.concat(pieces)
             if len(merged):
+                # one span per round (a round drains at least a window):
+                # gather and sort, not the consumer's time
+                _trace.complete("merge", "k-way-round", t0,
+                                records=len(merged), streams=n)
+                _metrics.counter_add("merge.kway_records", len(merged))
                 yield merged.take(np.argsort(merged.keys, kind="stable"))
 
     return gen()

@@ -42,7 +42,9 @@ from .runner import MTRunner
 
 class RunStats(list):
     """Per-stage dicts that are also callable: ``stats()`` returns the run
-    summary (stages, plan, device counters, kernel launches)."""
+    summary, the ``stats.json`` payload (:mod:`.obs`): stages, devtime,
+    spill/merge totals, the device counters and kernel launches, the plan,
+    and the trace files of a traced run."""
 
     def __init__(self, stages=(), summary=None):
         super(RunStats, self).__init__(stages)
@@ -50,6 +52,16 @@ class RunStats(list):
 
     def __call__(self):
         return self.summary
+
+    @property
+    def trace_file(self):
+        """Path of the run's Chrome trace-event JSON (None untraced)."""
+        return self.summary.get("trace_file")
+
+    @property
+    def stats_file(self):
+        """Path of the persisted stats.json (None untraced)."""
+        return self.summary.get("stats_file")
 
 
 class ValueEmitter(object):

@@ -23,6 +23,8 @@ import gzip
 import logging
 import zlib
 
+from ..obs import log as _obslog
+
 log = logging.getLogger("dampr_tpu_torch.io.codecs")
 
 RAW, ZLIB, GZIP, LZ4, ZSTD = 0, 1, 2, 3, 4
@@ -155,9 +157,11 @@ def resolve(name, default_level=1):
     elif name not in ("raw", "none") and not available(name):
         for cand in _LADDER:
             if available(cand):
-                _log_once(("fallback", name), logging.WARNING,
-                          "spill codec %r unavailable; falling back to %r",
-                          name, cand)
+                if ("fallback", name) not in _logged:
+                    _logged.add(("fallback", name))
+                    _obslog.warn("codec-fallback",
+                                 "spill codec %r unavailable; falling back "
+                                 "to %r", name, cand, logger=log, codec=name)
                 name = cand
                 # the requested level was on the requested codec's scale
                 level = None

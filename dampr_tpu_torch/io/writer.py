@@ -24,6 +24,8 @@ import queue
 import threading
 import time
 
+from ..obs import log as _obslog
+from ..obs import trace as _trace
 from . import frames
 
 log = logging.getLogger("dampr_tpu_torch.io.writer")
@@ -87,12 +89,15 @@ class SpillWriterPool(object):
                 self._raise_pending()
             if w0:
                 self.store.count_io_wait(time.perf_counter() - w0)
+                _trace.complete("io_wait", "writer-backpressure", w0,
+                                bytes=nbytes)
             self.inflight_bytes += nbytes
             self.inflight_peak = max(self.inflight_peak, self.inflight_bytes)
             self._outstanding += 1
             self.queue_peak = max(self.queue_peak, self._outstanding)
         self._ensure_threads()
-        self._q.put((ref, block, final_path, codec, nbytes))
+        self._q.put((ref, block, final_path, codec, nbytes,
+                     _trace.now()))
 
     # -- worker side --------------------------------------------------------
     def _worker(self):
@@ -100,21 +105,26 @@ class SpillWriterPool(object):
             item = self._q.get()
             if item is _STOP:
                 return
-            ref, block, final, codec, nbytes = item
+            ref, block, final, codec, nbytes, t_enq = item
             if self._aborting or ref._dead:
                 # dropped while queued (merge planners drop merged runs):
                 # a publish would only unlink the file
                 self._settle(nbytes)
                 continue
+            # how long the write sat behind the pool's backlog
+            _trace.complete("spill_queue", "queued", t_enq, bytes=nbytes)
             tmp = final + ".tmp"
             try:
                 t0 = time.perf_counter()
-                with open(tmp, "wb") as f:
-                    frames.write_block_frames(block, f, codec, self.window,
-                                              at_least_one=True)
-                    f.flush()
-                    os.fsync(f.fileno())
-                os.replace(tmp, final)
+                with _trace.span("spill", "spill-write", bytes=nbytes,
+                                 records=len(block)):
+                    with open(tmp, "wb") as f:
+                        frames.write_block_frames(block, f, codec,
+                                                  self.window,
+                                                  at_least_one=True)
+                        f.flush()
+                        os.fsync(f.fileno())
+                    os.replace(tmp, final)
                 secs = time.perf_counter() - t0
                 self.store.publish_spill(ref, final,
                                          os.path.getsize(final), secs)
@@ -167,6 +177,8 @@ class SpillWriterPool(object):
         for t in self._threads:
             t.join(timeout=5.0)
             if t.is_alive():
-                log.warning("spill writer thread %s did not stop within "
-                            "5.0 s; abandoning it (daemon)", t.name)
+                _obslog.warn("writer-pool-stuck",
+                             "spill writer thread %s did not stop within "
+                             "5.0 s; abandoning it (daemon)", t.name,
+                             logger=log, thread=t.name)
         self._threads = []

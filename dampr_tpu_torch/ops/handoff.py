@@ -47,6 +47,8 @@ import torch
 
 from .. import settings
 from ..csrc import build
+from ..obs import trace as _trace
+from . import devtime
 from .hashing import _FNV_OFFSET1, _FNV_PRIME1, M32, mul32
 
 log = logging.getLogger("dampr_tpu_torch.ops.handoff")
@@ -482,12 +484,14 @@ class HandoffVocab(object):
             runs = np.diff(np.concatenate(([0], bound, [n])))
             if int(runs.max()) <= _DEDUP_WINDOW:
                 dedup_k = _DEDUP_WINDOW
+        nbytes = sum(t.numel() * t.element_size() for t in inputs)
         if self.store is not None:
-            self.store.count_h2d(sum(t.numel() * t.element_size()
-                                     for t in inputs))
+            self.store.count_h2d(nbytes)
         cuda = self.stream is not None
         start = event = keep = None
-        with self._on_stream():
+        with devtime.track("device"), _trace.span(
+                "handoff", "table-probe", tokens=int(n),
+                bytes=int(nbytes)), self._on_stream():
             if cuda:
                 start = torch.cuda.Event(enable_timing=True)
                 start.record(self.stream)
@@ -583,6 +587,7 @@ class HandoffVocab(object):
         self.degraded = True
         if self.store is not None:
             self.store.count_handoff_degrade()
+        _trace.instant("handoff", "degrade", reason=reason)
         log.info("handoff degraded to the spill path: %s", reason)
         return self.flush_block()
 
@@ -637,7 +642,9 @@ class HandoffVocab(object):
         keys[:] = self.keys
         sh1, sh2 = h1[perm], h2[perm]
         ready = None
-        with self._on_stream():
+        with devtime.track("device"), _trace.span(
+                "handoff", "finalize", records=int(self.nslots)), \
+                self._on_stream():
             vals = self.acc.index_select(0, self._upload(perm.astype(
                 np.int64)))
             dev_h1 = self._upload(sh1.view(np.int32))
@@ -659,6 +666,7 @@ class HandoffVocab(object):
             self.store.count_h2d(perm.nbytes + 16 * len(starts))
         lane_min = int(meta[-1])
         mapping = {}
+        total_dev = 0
         for i, (s, e) in enumerate(zip(starts.tolist(), ends.tolist())):
             ref = BlockRef.from_device_lanes(
                 keys[perm[s:e]], sh1[s:e], sh2[s:e], *lanes[i],
@@ -666,6 +674,9 @@ class HandoffVocab(object):
                 lane_abs=int(meta[i]), lane_min=lane_min,
                 h2d_bytes=8 * (e - s), ready=ready)
             store.register_device(ref)
+            total_dev += ref.dev_bytes
             mapping.setdefault(int(sorted_pid[s]), []).append(ref)
+        _trace.instant("handoff", "registered", bytes=int(total_dev),
+                       partitions=len(mapping))
         self._reset()
         return (), mapping

@@ -157,7 +157,7 @@ def _fnv(mat, lens):
                      torch.from_numpy(lens).to(dev))
     out = (h1.cpu().numpy().view(np.uint32).copy(),
            h2.cpu().numpy().view(np.uint32).copy())
-    devtime.add("fnv_lanes", time.perf_counter() - t0,
+    devtime.keyed("fnv_lanes", time.perf_counter() - t0,
                 mat.nbytes + lens.nbytes, 8 * n)
     return out
 
@@ -174,7 +174,7 @@ def _mix_int(vals_i64):
         np.ascontiguousarray(vals_i64, dtype=np.int64)).to(dev))
     out = (h1.cpu().numpy().astype(np.uint32),
            h2.cpu().numpy().astype(np.uint32))
-    devtime.add("mix_int", time.perf_counter() - t0, 8 * n, 16 * n)
+    devtime.keyed("mix_int", time.perf_counter() - t0, 8 * n, 16 * n)
     return out
 
 
@@ -264,7 +264,8 @@ def _hash_bytes_list(bs):
     if not settings.use_device_for(len(bs)):
         from .. import native
 
-        res = native.hash_bytes_batch(bs)
+        with devtime.track("codec"):
+            res = native.hash_bytes_batch(bs)
         if res is not None:
             return res
     mat, lens = encode_str_keys(bs)

@@ -29,6 +29,17 @@ On a ``handoff="device"`` edge the sink keeps the counts on the device
 instead (:mod:`.handoff`): the first batches' drains seed a per-job
 vocabulary, later batches run its table program, and the job's end
 registers the counts as device-resident refs for the fold.
+
+Observability, at the JAX package's sites: the scan and the padded
+batch are ``codec`` time (devtime), each dispatch is a ``device`` span
+(``map-fold``) and ``device`` time, each wait for a batch's results a
+``device`` span (``drain``; a table batch's dispatch and wait are
+``handoff`` spans, :mod:`.handoff`).  Under the per-operator profiler
+the host seconds split into ``build`` (the padded batch), ``h2d``
+(copies and kernels queued), ``compute`` (the host blocked on the card:
+the batch's event, which covers its copies back) and ``d2h`` (the
+results read and decoded).  No site adds a synchronisation: the drain's
+wait is the sink's own.
 """
 
 import time
@@ -37,6 +48,9 @@ import numpy as np
 import torch
 
 from .. import settings
+from ..obs import profile as _profile
+from ..obs import trace as _trace
+from . import devtime
 from . import fnv as _fnv
 from . import segfold as _segfold
 from .text import (_LOWER, _SHORT_TOKEN, _block_of, _token_bounds,
@@ -328,6 +342,16 @@ class DeviceTokenFoldSink(object):
     def _pad_batch(self, buf, starts, lens, lines):
         """The padded program inputs, built in place in (pinned) host
         tensors: rows pad to a power of two with lens 0 (hence invalid)."""
+        prof = _profile.active()
+        t0 = time.perf_counter()
+        with devtime.track("codec"):
+            out = self._pad_rows(buf, starts, lens, lines)
+        if prof is not None:
+            prof.device_add("build", time.perf_counter() - t0,
+                            out[0].numel())
+        return out
+
+    def _pad_rows(self, buf, starts, lens, lines):
         n = len(starts)
         L = _len_bucket(lens.max())
         npad = _pow2(n)
@@ -351,11 +375,23 @@ class DeviceTokenFoldSink(object):
         """Queue one classic batch: inputs up, the program, results down."""
         t0 = time.perf_counter()
         inputs = self._pad_batch(buf, starts, lens, lines)
+        nbytes = sum(t.numel() * t.element_size() for t in inputs)
         if self.store is not None:
-            self.store.count_h2d(sum(t.numel() * t.element_size()
-                                     for t in inputs))
+            self.store.count_h2d(nbytes)
         t1 = time.perf_counter()
         self.seconds["pad"] += t1 - t0
+        with devtime.track("device"), _trace.span(
+                "device", "map-fold", tokens=len(starts), bytes=nbytes):
+            batch = self._enqueue(inputs, starts, lens)
+        t2 = time.perf_counter()
+        self.seconds["enqueue"] += t2 - t1
+        prof = _profile.active()
+        if prof is not None:
+            prof.device_add("h2d", t2 - t1, nbytes)
+        self.batches += 1
+        return batch
+
+    def _enqueue(self, inputs, starts, lens):
         start = None
         if self._cuda:
             with torch.cuda.stream(self._stream):
@@ -375,8 +411,6 @@ class DeviceTokenFoldSink(object):
         else:
             out = token_fold(*inputs, self.dedup)
             event, keep = None, None
-        self.seconds["enqueue"] += time.perf_counter() - t1
-        self.batches += 1
         return _Batch(out, start, event, keep, starts, lens)
 
     def _next_batch(self, buf, starts, lens, lines, out):
@@ -391,7 +425,11 @@ class DeviceTokenFoldSink(object):
             self.seconds["pad"] += t1 - t0
             batch = self._hv.dispatch(inputs, starts, lens, lines,
                                       len(starts))
-            self.seconds["enqueue"] += time.perf_counter() - t1
+            t2 = time.perf_counter()
+            self.seconds["enqueue"] += t2 - t1
+            prof = _profile.active()
+            if prof is not None:
+                prof.device_add("h2d", t2 - t1, inputs[0].numel())
             if batch is not None:
                 self.batches += 1
                 return batch
@@ -401,13 +439,21 @@ class DeviceTokenFoldSink(object):
             self.classic_batches += 1
         return self._dispatch(buf, starts, lens, lines)
 
-    def _wait(self, batch):
-        """Block until one dispatch's results are on the host."""
+    def _wait(self, batch, cat="device", name="drain"):
+        """Block until one dispatch's results are on the host (a table
+        batch's wait is a ``handoff`` span, as its dispatch is)."""
         t0 = time.perf_counter()
-        if batch.event is not None:
-            batch.event.synchronize()
-            self.stream_seconds += batch.start.elapsed_time(batch.event) / 1e3
-        self.seconds["wait"] += time.perf_counter() - t0
+        with devtime.track("device"), _trace.span(cat, name,
+                                                  tokens=len(batch.starts)):
+            if batch.event is not None:
+                batch.event.synchronize()
+                self.stream_seconds += batch.start.elapsed_time(
+                    batch.event) / 1e3
+        dt = time.perf_counter() - t0
+        self.seconds["wait"] += dt
+        prof = _profile.active()
+        if prof is not None:
+            prof.device_add("compute", dt)
         batch.keep = None
 
     def _resolve(self, buf, batch, out):
@@ -420,7 +466,7 @@ class DeviceTokenFoldSink(object):
             if blk is not None and len(blk):
                 out.append(blk)
             return
-        self._wait(batch)
+        self._wait(batch, "handoff", "table-drain")
         t0 = time.perf_counter()
         phase = "decode"
         if not self._handoff_live:
@@ -451,9 +497,10 @@ class DeviceTokenFoldSink(object):
         t1 = time.perf_counter()
         sh1, sh2, tot, live, rep_orig, collisions = (
             t.numpy() for t in batch.out)
+        d2h_bytes = sum(t.numel() * t.element_size() for t in batch.out)
         if self.store is not None:
-            self.store.count_d2h(sum(t.numel() * t.element_size()
-                                     for t in batch.out))
+            self.store.count_d2h(d2h_bytes)
+        prof = _profile.active()
         if int(collisions):
             lines = line_ids(buf, batch.starts) if self.dedup else None
             blk = self._host_batch(buf, batch.starts, batch.lens, lines)
@@ -475,6 +522,8 @@ class DeviceTokenFoldSink(object):
         h1g, h2g = sh1[idx].view(np.uint32), sh2[idx].view(np.uint32)
         t2 = time.perf_counter()
         self.seconds["decode"] += t2 - t1
+        if prof is not None:
+            prof.device_add("d2h", t2 - t1, d2h_bytes)
         blk = None
         if self._handoff_live:
             ok, new_frac = self._hv.absorb_drain(keys, counts, h1g, h2g,
@@ -504,9 +553,13 @@ class DeviceTokenFoldSink(object):
 
         t0 = time.perf_counter()
         scan = chunk_doc_freq if self.dedup else chunk_token_counts
-        blk = scan(data, self.mode, self.lower, self.pair_values)
-        self.host_bootstraps += 1
-        self._absorb_or_out((blk,) if blk is not None else (), out)
+        with _trace.span("handoff", "bootstrap-host", bytes=len(data)):
+            # the host grouping is codec work: traced and bucketed as such
+            with devtime.track("codec"), _trace.span(
+                    "codec", "codec-window", bytes=len(data)):
+                blk = scan(data, self.mode, self.lower, self.pair_values)
+            self.host_bootstraps += 1
+            self._absorb_or_out((blk,) if blk is not None else (), out)
         if self._handoff_live and self._hv.nslots:
             self._hv.table_mode = True
             if self.store is not None and blk is not None:
@@ -538,10 +591,11 @@ class DeviceTokenFoldSink(object):
                 and not self._hv.nslots and _handoff._host_bootstrap()):
             return self._bootstrap_on_host(data, out)
         t0 = time.perf_counter()
-        if self.lower:
-            buf = _LOWER[buf]
-        starts, lens = _token_bounds(buf, self.mode)
-        line_id = line_ids(buf, starts) if self.dedup else None
+        with devtime.track("codec"):
+            if self.lower:
+                buf = _LOWER[buf]
+            starts, lens = _token_bounds(buf, self.mode)
+            line_id = line_ids(buf, starts) if self.dedup else None
         self.seconds["scan"] += time.perf_counter() - t0
         if len(starts) == 0:
             return ()

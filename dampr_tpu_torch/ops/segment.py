@@ -88,7 +88,7 @@ def hash_sort_perm(h1, h2):
             torch.from_numpy(h2.astype(np.int64)).to(dev))
         _, perm = torch.sort(key, stable=True)
         out = perm.to(torch.int32).cpu().numpy()
-        devtime.add("hash_sort", time.perf_counter() - t0, 16 * n, 4 * n)
+        devtime.keyed("hash_sort", time.perf_counter() - t0, 16 * n, 4 * n)
         return out
     return np.lexsort((h2, h1)).astype(np.int32)
 
@@ -239,7 +239,7 @@ def _device_fold(vals, starts, ends, kind):
         out.scatter_reduce_(0, seg, v, reduce="amin" if kind == "min"
                             else "amax", include_self=False)
     folded = out.cpu().numpy()
-    devtime.add("segment_fold", time.perf_counter() - t0,
+    devtime.keyed("segment_fold", time.perf_counter() - t0,
                 vals.nbytes + 8 * ng, folded.nbytes)
     return folded
 

@@ -18,6 +18,7 @@ exact for ASCII; non-ASCII bytes ride inside tokens.
 import numpy as np
 
 from ..base import Mapper, _one_input
+from . import devtime
 from . import hashing
 
 # --- byte classification tables -------------------------------------------
@@ -166,8 +167,10 @@ def _native_counts_block(data, mode, lower, dedup_per_line,
     from .. import native
 
     buf = np.frombuffer(data, dtype=np.uint8)
-    res = native.token_counts(buf, 1 if mode == "word" else 0,
-                              1 if lower else 0, dedup_per_line)
+    # the native codec's time is devtime's codec bucket
+    with devtime.track("codec"):
+        res = native.token_counts(buf, 1 if mode == "word" else 0,
+                                  1 if lower else 0, dedup_per_line)
     if res is None:
         return None
     h1, h2, counts, rep_start, rep_len = res
@@ -436,7 +439,9 @@ class ParseNumbers(Mapper):
         # value spans two windows.
         def scan(data):
             if self.dtype == np.int64:
-                arr = native.parse_i64(np.frombuffer(data, dtype=np.uint8))
+                with devtime.track("codec"):
+                    arr = native.parse_i64(np.frombuffer(data,
+                                                         dtype=np.uint8))
                 if arr is not None:
                     return (Block(arr, arr.copy()),) if len(arr) else ()
             # no native library, or float64: numpy parses each token in C

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 
 from .. import settings
+from ..obs import trace as _trace
+from ..ops import devtime
 from ..ops import segfold as _segfold
 from ..ops.hashing import M32
 from ..ops.segment import packed_lane_key
@@ -104,8 +106,13 @@ def _lane_safe_values(v, kind):
 
 
 def _fold(inv, h1, h2, v, kind, nonneg):
-    inv, h1, h2, v = _local_fold(inv, h1, h2, v, kind, nonneg)
-    return h1, h2, v, (inv == 0).to(torch.int32)
+    # host seconds queueing the fold (its sums and the K2 launch); the
+    # card's work surfaces where the caller fetches
+    with devtime.track("device"), _trace.span(
+            "collective", "keyed-fold:{}".format(kind),
+            records=int(h1.shape[0])):
+        inv, h1, h2, v = _local_fold(inv, h1, h2, v, kind, nonneg)
+        return h1, h2, v, (inv == 0).to(torch.int32)
 
 
 def _padded(lanes, n_pad):

@@ -54,16 +54,25 @@ order-insensitive reducer reads a :class:`~.base.StreamingGroupedView`
 (:func:`~.base.streaming_merge_join`).  Spills go through the store's
 writer pool, drained at every stage boundary and aborted on a failed run.
 
-``stats()`` (the emitter's ``stats()``) reports the plan (rules fired,
-stages before and after fusion, per-stage targets), per-stage spill and
-merge counts, the ``io`` section (spill write and read MB/s, ``io_wait``,
-the writer pool's peaks, the overlap executor's peak bytes in flight),
-the streamed reduces, the scan-shared groups (``scan_sharing``), the
-tiny folds, and, under ``device``,
-``device_stages``, ``device_fraction``, the h2d/d2h bytes, each kernel's
-launches, the keyed batch ops' device calls (``keyed``) and the HBM
-tier's and the handoff's counters during the run; every job charges its keyed calls to the run's store
-(:mod:`.ops.devtime`), so their copies count in the h2d/d2h bytes.
+``stats()`` (the emitter's ``stats()``) is the JAX package's run summary
+(``dampr-tpu-stats/1``, :mod:`.obs`), built by :meth:`MTRunner.
+_finalize_obs` on success and failure: the plan (rules fired, stages
+before and after fusion, per-stage targets), per-stage records and bytes
+in and out, spill and merge counts, the devtime buckets, the ``io``
+section (spill write and read MB/s, ``io_wait``, the writer pool's peaks,
+the overlap executor's peak bytes in flight), the streamed reduces, the
+scan-shared groups (``scan_sharing``), the tiny folds, and, under
+``device``, ``device_stages``, ``device_fraction`` (devtime's device
+bucket over wall), the sink's host phases, the h2d/d2h bytes, each
+kernel's launches, the keyed batch ops' device calls (``keyed``) and the
+HBM tier's and the handoff's counters during the run; every job charges
+its keyed calls to the run's store (:mod:`.ops.devtime`), so their copies
+count in the h2d/d2h bytes.  ``MTRunner.run`` owns the observability
+lifecycle (``_start_obs``/``_stop_obs``): the tracer, the metrics plane,
+the structured log, the flight recorder (flushed on failure, after the
+store's writes are aborted and its device lanes released), the
+per-operator profiler, and the ``settings.profile_dir`` hatch
+(``torch.profiler``).
 
 The **device handoff** (:mod:`.ops.handoff`): when the plan marks a
 lowered map's edge into a device fold ``handoff="device"``, each job keeps
@@ -75,8 +84,7 @@ card from the map's batches to the fold's final fetch.  A failed run
 releases every device ref.
 
 Mesh execution across cards, mitigation, faults/resume and quarantine,
-reuse, the observability plane and per-operator profiler, and the
-certified lane programs are later slices.
+reuse, and the certified lane programs are later slices.
 """
 
 import collections
@@ -103,6 +111,10 @@ from .ops import handoff as _handoff
 from .ops import lower as ops_lower
 from .ops import segfold as _segfold
 from .ops import segment
+from .obs import log as _obslog
+from .obs import metrics as _metrics
+from .obs import profile as _profile
+from .obs import trace as _trace
 
 log = logging.getLogger("dampr_tpu_torch.runner")
 
@@ -180,7 +192,7 @@ def _record_batches(chunk, B):
     return slices()
 
 
-def _run_record_chain(chain, batches, B, push):
+def _run_record_chain(chain, batches, B, push, prof=None):
     """Run a record-op chain over ``batches`` through each op's
     ``apply_batch`` and push the survivors as ``B``-record blocks.
 
@@ -188,8 +200,11 @@ def _run_record_chain(chain, batches, B, push):
     still emits full blocks; a ``FlatMap`` takes its input in slices sized
     to its observed fan-out, so ``B x fan-out`` records never exist at
     once.  Slices keep stream order, so results equal the streamed
-    chain's."""
+    chain's.  With the per-operator profiler ``prof``, each op's
+    ``apply_batch`` is timed once per batch under its index-prefixed
+    label."""
     pk, pv = [], []
+    labels = _profile.chain_labels(chain) if prof is not None else None
 
     def emit(ks, vs):
         pk.extend(ks)
@@ -206,15 +221,25 @@ def _run_record_chain(chain, batches, B, push):
                 n, at, step = len(ks), 0, 1024
                 while at < n:
                     took = min(step, n - at)
+                    t0 = time.perf_counter() if prof is not None else 0.0
                     sks, svs = op.apply_batch(ks[at:at + took],
                                               vs[at:at + took])
+                    if prof is not None:
+                        prof.op_add(labels[i], time.perf_counter() - t0,
+                                    records=len(sks))
                     at += took
                     if sks:
                         fan = -(-len(sks) // took)
                         step = max(64, min(B, B // fan))
                         run(sks, svs, i + 1)
                 return
-            ks, vs = op.apply_batch(ks, vs)
+            if prof is None:
+                ks, vs = op.apply_batch(ks, vs)
+            else:
+                t0 = time.perf_counter()
+                ks, vs = op.apply_batch(ks, vs)
+                prof.op_add(labels[i], time.perf_counter() - t0,
+                            records=len(ks))
             if not ks:
                 return
         emit(ks, vs)
@@ -241,12 +266,22 @@ def _overlap_stream(items, store, size_of=None):
     A producer that does not stop within ``_PRODUCER_JOIN_SECONDS`` fails
     the run: it may still hold a budget charge or drive the device sink.
 
+    Critical-path accounting, as in the JAX package: each produced block
+    is one ``codec`` span on the producer's lane; while the consumer
+    waits with its producer inside the native codec
+    (``devtime.active_in``), the slot counts as stalled, and ``codec_wait``
+    accumulates the wall-clock union of intervals where every live slot is
+    stalled at once; each wait is one ``stall`` span.
+
     Returns ``items`` unchanged when the depth is 0 or there is no store."""
     depth = OVERLAP_WINDOWS
     if depth <= 0 or store is None:
         return items
     if size_of is None:
         size_of = lambda b: b.nbytes()  # noqa: E731
+    # one codec span per produced block: the generator's next(), not the
+    # queue wait (a pass-through when tracing is off)
+    items = _trace.timed_iter(items, "codec", "codec-window")
 
     q = queue.Queue(maxsize=depth)
     stop = threading.Event()
@@ -261,6 +296,7 @@ def _overlap_stream(items, store, size_of=None):
                 if item is None:
                     continue  # the serial loop drops empty windows too
                 nb = size_of(item) or 0
+                _metrics.counter_add("overlap.windows", 1)
                 if nb:
                     store.reserve_overlap(nb)
                 while not stop.is_set():
@@ -296,17 +332,38 @@ def _overlap_stream(items, store, size_of=None):
             if nb:
                 store.release_overlap(nb)
 
-    def gen():
-        thread.start()
+    def get():
+        """The next queued ``(item, nb)``; a wait is a ``stall`` span, and
+        counts toward ``codec_wait`` while the producer is in the codec
+        (a sibling job's codec is not what this fold waits on)."""
+        try:
+            return q.get_nowait()
+        except queue.Empty:
+            pass
+        wait_t0 = _trace.now()
         try:
             while True:
+                stalled = devtime.active_in(thread.ident, "codec")
+                if stalled:
+                    devtime.slot_stall()
                 try:
-                    item, nb = q.get(timeout=0.05)
+                    return q.get(timeout=0.05)
                 except queue.Empty:
                     if state["done"] and q.empty():
-                        item, nb = end, 0
-                    else:
-                        continue
+                        return end, 0
+                finally:
+                    if stalled:
+                        devtime.slot_unstall()
+        finally:
+            _trace.complete("stall", "pipe-wait", wait_t0)
+            _metrics.counter_add("overlap.consumer_stalls", 1)
+
+    def gen():
+        thread.start()
+        devtime.slot_enter()
+        try:
+            while True:
+                item, nb = get()
                 if item is end:
                     if state["err"] is not None:
                         raise state["err"]
@@ -317,6 +374,7 @@ def _overlap_stream(items, store, size_of=None):
                     if nb:
                         store.release_overlap(nb)
         finally:
+            devtime.slot_exit()
             stop.set()
             drain()
             deadline = time.perf_counter() + _PRODUCER_JOIN_SECONDS
@@ -327,6 +385,11 @@ def _overlap_stream(items, store, size_of=None):
                 thread.join(timeout=0.05)
             drain()
             if thread.is_alive():
+                _obslog.warn(
+                    "overlap-producer-stuck",
+                    "overlap producer thread %s did not stop within %s s",
+                    thread.name, _PRODUCER_JOIN_SECONDS, logger=log,
+                    thread=thread.name)
                 raise RuntimeError(
                     "overlap producer {} did not stop within {} s".format(
                         thread.name, _PRODUCER_JOIN_SECONDS))
@@ -579,36 +642,56 @@ class _SinkOutput(object):
 
 
 class StageStats(object):
-    """Per-stage metrics.  Spill counts are causal: a spill is charged to
-    the stage whose registrations evicted the block, which an earlier
-    stage may have produced."""
+    """Per-stage metrics, the JAX package's fields and the port's ``op``
+    and ``launches``.  Spill counts are causal: a spill is charged to the
+    stage whose registrations evicted the block, which an earlier stage
+    may have produced.  ``records_in``/``bytes_in`` count the stage's
+    materialized inputs (a tap's size is unknown until read: 0),
+    ``bytes_out`` its output's host and device bytes or its part files'.
+    ``retries``, ``quarantined`` and ``shuffle_target`` hold what a run
+    on one device without faults gives (job retries, quarantine and
+    shuffle routing are later slices)."""
 
-    __slots__ = ("stage_id", "kind", "op", "target", "n_jobs",
-                 "records_out", "seconds", "spill_count", "spill_bytes",
-                 "merge_gens", "merge_gen_bytes", "launches")
+    __slots__ = ("stage_id", "kind", "op", "target", "shuffle_target",
+                 "n_jobs", "records_in", "records_out", "bytes_in",
+                 "bytes_out", "seconds", "spill_count", "spill_bytes",
+                 "merge_gens", "merge_gen_bytes", "retries", "quarantined",
+                 "launches")
 
     def __init__(self, stage_id, kind, op, target):
         self.stage_id = stage_id
         self.kind = kind
         self.op = op
         self.target = target
+        self.shuffle_target = None
         self.n_jobs = 0
+        self.records_in = 0
         self.records_out = 0
+        self.bytes_in = 0
+        self.bytes_out = 0
         self.seconds = 0.0
         self.spill_count = 0
         self.spill_bytes = 0
         self.merge_gens = 0
         self.merge_gen_bytes = 0
+        self.retries = 0
+        self.quarantined = 0
         self.launches = {}
 
     def as_dict(self):
         return {"stage": self.stage_id, "kind": self.kind, "op": self.op,
                 "target": self.target, "jobs": self.n_jobs,
-                "records_out": self.records_out, "seconds": self.seconds,
+                "records_in": self.records_in,
+                "records_out": self.records_out,
+                "bytes_in": self.bytes_in, "bytes_out": self.bytes_out,
                 "spill_count": self.spill_count,
                 "spill_bytes": self.spill_bytes,
                 "merge_gens": self.merge_gens,
                 "merge_gen_bytes": self.merge_gen_bytes,
+                "retries": self.retries,
+                "quarantined": self.quarantined,
+                "shuffle_target": self.shuffle_target,
+                "seconds": self.seconds,
                 # each kernel's launches during the stage (stages run one
                 # at a time, so the counts are the stage's own)
                 "launches": dict(self.launches)}
@@ -650,15 +733,65 @@ class MTRunner(object):
         self.scan_groups = []
         # reduces that took the tiny associative fold
         self.tiny_folds = 0
+        # job re-executions (the port has no job retries yet: always 0)
+        self.retries_total = 0
+        # the observability plane, run-scoped (_start_obs/_stop_obs)
+        self.tracer = None
+        self.metrics = None
+        self.profiler = None
+        self.flightrec = None
+        self.logstream = None
+        self._sampler = None
+        self._progress = None
+        self._status = {}
+        self._run_failed = False
+        #: the torch.profiler Chrome trace of a ``settings.profile_dir`` run
+        self.profile_trace_file = None
 
     # -- helpers -----------------------------------------------------------
-    def _pool_map(self, fn, jobs, n_workers):
+    def _pool_map(self, fn, jobs, n_workers, label=None):
         """Run ``fn`` over ``jobs`` on a thread pool; every job's
         exception surfaces (results are read in order) and its keyed
-        device calls are charged to this run's store."""
+        device calls are charged to this run's store.  ``label`` names
+        each job's ``job`` span (on its worker's lane) when tracing; the
+        profiler gets each job's thread-seconds, the metrics plane its
+        start and end."""
         def charged(j):
             with devtime.charging(self.store):
                 return fn(j)
+
+        if label is not None and _trace.enabled():
+            inner_t = charged
+
+            def charged(j):  # noqa: F811 - one job span per job
+                with _trace.span("job", label):
+                    return inner_t(j)
+
+        prof = _profile.active()
+        if prof is not None:
+            inner_p = charged
+
+            def charged(j):  # noqa: F811
+                t0 = time.perf_counter()
+                try:
+                    return inner_p(j)
+                finally:
+                    prof.job_add(time.perf_counter() - t0)
+
+        m = _metrics.active()
+        if m is not None:
+            st = self._status
+            st["jobs_total"] = len(jobs)
+            st["jobs_done"] = 0
+            inner_m = charged
+
+            def charged(j):  # noqa: F811
+                m.counter_add("run.jobs_started", 1)
+                try:
+                    return inner_m(j)
+                finally:
+                    m.counter_add("run.jobs_done", 1)
+                    st["jobs_done"] = st.get("jobs_done", 0) + 1
 
         workers = max(1, min(n_workers, len(jobs)))
         if workers == 1:
@@ -749,7 +882,8 @@ class MTRunner(object):
                 chunks = [BlockDataset(refs)]
         mj = self._map_job(stage, supplementary, stage_id)
         try:
-            results = self._pool_map(mj.job, chunks, self.n_maps)
+            results = self._pool_map(mj.job, chunks, self.n_maps,
+                                     label="map")
         finally:
             close_readahead(chunks)
         pset = self._collect_partitions(results, mj)
@@ -815,9 +949,18 @@ class MTRunner(object):
                     for blk in wsink.finish() or ():
                         yield mi, blk
 
+            gen = codec()
+            prof = _profile.active()
+            if prof is not None:
+                # one window pass serves every member: its time goes once
+                # to a label naming the fused scanners
+                gen = prof.timed_iter(
+                    gen, "scan:" + "+".join(
+                        type(s.mapper).__name__ for s in stages),
+                    records_of=lambda it: len(it[1]))
             try:
                 for mi, blk in _overlap_stream(
-                        codec(), self.store,
+                        gen, self.store,
                         size_of=lambda it: it[1].nbytes()):
                     members[mi][1](blk)
             finally:
@@ -828,7 +971,8 @@ class MTRunner(object):
                           (wsink, push, end), mj in zip(members, parts)]
 
         try:
-            results = self._pool_map(group_job, chunks, self.n_maps)
+            results = self._pool_map(group_job, chunks, self.n_maps,
+                                     label="map-group")
         finally:
             close_readahead(chunks)
         ret = []
@@ -924,21 +1068,31 @@ class MTRunner(object):
                     raw.append(blk)
                     return
                 t0 = time.perf_counter()
-                partials.append(segment.fold_block(blk, combine_op))
-                if len(partials) >= _PARTIAL_FANIN:
-                    merged = segment.fold_block(Block.concat(partials),
-                                                combine_op)
-                    del partials[:]
-                    partials.append(merged)
-                self._add_combine_seconds(time.perf_counter() - t0)
+                with _trace.span("fold", "partial-fold", records=len(blk)):
+                    partials.append(segment.fold_block(blk, combine_op))
+                    if len(partials) >= _PARTIAL_FANIN:
+                        merged = segment.fold_block(Block.concat(partials),
+                                                    combine_op)
+                        del partials[:]
+                        partials.append(merged)
+                dt = time.perf_counter() - t0
+                self._add_combine_seconds(dt)
+                prof = _profile.active()
+                if prof is not None:
+                    prof.op_add("combine", dt, records=len(blk))
 
             def end():
                 blocks = raw
                 if combine_op is not None and partials:
                     t0 = time.perf_counter()
-                    blocks = [segment.fold_block(Block.concat(partials),
-                                                 combine_op)]
-                    self._add_combine_seconds(time.perf_counter() - t0)
+                    with _trace.span("fold", "final-fold"):
+                        blocks = [segment.fold_block(Block.concat(partials),
+                                                     combine_op)]
+                    dt = time.perf_counter() - t0
+                    self._add_combine_seconds(dt)
+                    prof = _profile.active()
+                    if prof is not None:
+                        prof.op_add("combine", dt)
                 if sorted_run_mode:
                     out = try_sorted_run(blocks)
                     if out is not None:
@@ -998,6 +1152,8 @@ class MTRunner(object):
             chain = (base.record_op_chain(mapper)
                      if not supplementary and not dev_lowered
                      and not use_blocks and not ident_blocks else None)
+            # the per-operator profiler: one None check per job
+            prof = _profile.active()
             sink = None
             if dev_lowered and (hasattr(chunk, "read_bytes")
                                 or hasattr(chunk, "iter_byte_blocks")):
@@ -1013,14 +1169,31 @@ class MTRunner(object):
                 finally:
                     self._note_device_sink(sink)
             elif use_blocks:
-                for blk in _overlap_stream(mapper.map_blocks(chunk),
-                                           self.store):
+                blocks = mapper.map_blocks(chunk)
+                if prof is not None:
+                    # each window's scan and tokenize is the scanner's
+                    blocks = prof.timed_iter(blocks,
+                                             _profile.op_label(mapper, 0))
+                for blk in _overlap_stream(blocks, self.store):
                     push(blk)
             elif ident_blocks:
                 for blk in chunk.iter_blocks():
                     push(blk)
             elif chain is not None:
-                _run_record_chain(chain, _record_batches(chunk, B), B, push)
+                _run_record_chain(chain, _record_batches(chunk, B), B, push,
+                                  prof)
+            elif prof is not None and combine_op is None:
+                # a generator chain does not decompose per op: the whole
+                # stream under one label keeps the stage's coverage
+                t0 = time.perf_counter()
+                nrec = 0
+                builder = BlockBuilder(B)
+                for k, v in mapper.map(chunk, *supplementary):
+                    nrec += 1
+                    push(builder.add(k, v))
+                push(builder.flush())
+                prof.op_add("stream:" + _profile.op_label(mapper),
+                            time.perf_counter() - t0, records=nrec)
             else:
                 builder = BlockBuilder(B)
                 for k, v in mapper.map(chunk, *supplementary):
@@ -1082,6 +1255,7 @@ class MTRunner(object):
         if not runs:
             return
         fanin = self._effective_merge_fanin(runs)
+        gen = 0
         while len(runs) > fanin:
             workers = max(1, min(settings.max_processes, 8, fanin // 2))
             group_cap = max(2, fanin // workers)
@@ -1097,6 +1271,11 @@ class MTRunner(object):
             to_merge = runs[:touched]
             keep = runs[touched:]
             groups = [g for g in (to_merge[i::m] for i in range(m)) if g]
+            if _metrics.enabled():
+                _metrics.counter_add("merge.generations", 1)
+                _metrics.gauge_set("merge.runs", len(runs))
+                for g in groups:
+                    _metrics.observe("merge.fanin", len(g))
             log.info("sorted-run merge generation: %d runs over fan-in %d; "
                      "merging the %d smallest in %d group(s)", len(runs),
                      fanin, touched, len(groups))
@@ -1110,12 +1289,19 @@ class MTRunner(object):
                     self.store.drop_ref(r)
                 return merged
 
-            if len(groups) > 1 and workers > 1:
-                with ThreadPoolExecutor(
-                        max_workers=min(workers, len(groups))) as pool:
-                    merged = list(pool.map(merge_group, groups))
-            else:
-                merged = [merge_group(g) for g in groups]
+            # each generation on its own lane; its groups' merge-run spans
+            # land on their workers' lanes
+            with _trace.span("merge", "generation {}".format(gen),
+                             lane="merge gen {}".format(gen),
+                             runs=len(runs), fanin=fanin,
+                             groups=len(groups)):
+                if len(groups) > 1 and workers > 1:
+                    with ThreadPoolExecutor(
+                            max_workers=min(workers, len(groups))) as pool:
+                        merged = list(pool.map(merge_group, groups))
+                else:
+                    merged = [merge_group(g) for g in groups]
+            gen += 1
             runs = keep + merged
         pset.parts = {0: runs}
 
@@ -1132,6 +1318,9 @@ class MTRunner(object):
         the governor's one host round trip per round."""
         limit = MAX_FILES_PER_STAGE
         for pid, refs in list(pset.parts.items()):
+            if len(refs) > limit:
+                _trace.instant("merge", "compact", partition=pid,
+                               blocks=len(refs))
             while len(refs) > limit:
                 merged_refs = []
                 for at in range(0, len(refs), limit):
@@ -1395,19 +1584,23 @@ class MTRunner(object):
             return None
 
         # one fetch for the whole reduce: the final partial's live rows
-        rh1, rh2, rv, rok = partials[0]
-        mask = rok == 1
-        fh1 = rh1[mask].cpu().numpy().view(np.uint32)
-        fh2 = rh2[mask].cpu().numpy().view(np.uint32)
-        fv = rv[mask].cpu().numpy()
-        self.store.count_d2h(fh1.nbytes + fh2.nbytes + fv.nbytes)
-        # hash -> key join against the table (every output hash entered
-        # it with its window)
-        tu, tk = table_compact()
-        fu = combine64(fh1, fh2)
-        idx = np.minimum(np.searchsorted(tu, fu), len(tu) - 1)
-        if not bool(np.all(tu[idx] == fu)):
-            raise RuntimeError("device fold lost a key")
+        # (the refolds queued on the card finish here: the stage's final
+        # fold, as the host path's final-fold span)
+        with _trace.span("fold", "final-fold"):
+            rh1, rh2, rv, rok = partials[0]
+            mask = rok == 1
+            with devtime.track("device"):
+                fh1 = rh1[mask].cpu().numpy().view(np.uint32)
+                fh2 = rh2[mask].cpu().numpy().view(np.uint32)
+                fv = rv[mask].cpu().numpy()
+            self.store.count_d2h(fh1.nbytes + fh2.nbytes + fv.nbytes)
+            # hash -> key join against the table (every output hash
+            # entered it with its window)
+            tu, tk = table_compact()
+            fu = combine64(fh1, fh2)
+            idx = np.minimum(np.searchsorted(tu, fu), len(tu) - 1)
+            if not bool(np.all(tu[idx] == fu)):
+                raise RuntimeError("device fold lost a key")
         pset, nrec = self._emit_keyed_fold(
             tk.take(idx), fv, fh1, fh2, bool(stage.options.get("memory")))
         with self._lock:
@@ -1555,17 +1748,32 @@ class MTRunner(object):
         def job(pid):
             builder = BlockBuilder(settings.batch_size)
             refs = []
-            for k, v in records(pid):
-                blk = builder.add(k, v)
-                if blk is not None:
-                    refs.append(self.store.register(blk))
+            prof = _profile.active()
+            if prof is None:
+                for k, v in records(pid):
+                    blk = builder.add(k, v)
+                    if blk is not None:
+                        refs.append(self.store.register(blk))
+            else:
+                # a reducer does not decompose per op: grouping, the
+                # user's reduce and the registration under one label
+                t0 = time.perf_counter()
+                nrec = 0
+                for k, v in records(pid):
+                    nrec += 1
+                    blk = builder.add(k, v)
+                    if blk is not None:
+                        refs.append(self.store.register(blk))
+                prof.op_add("reduce:" + _profile.op_label(stage.reducer),
+                            time.perf_counter() - t0, records=nrec)
             blk = builder.flush()
             if blk is not None:
                 refs.append(self.store.register(blk))
             return pid, refs
 
         P = self.n_partitions
-        results = self._pool_map(job, list(range(P)), self.n_reducers)
+        results = self._pool_map(job, list(range(P)), self.n_reducers,
+                                 label="reduce")
         pset = storage.PartitionSet(P)
         for pid, refs in results:
             for ref in refs:
@@ -1590,26 +1798,241 @@ class MTRunner(object):
             i, chunk = args
             part = os.path.join(stage.path, "part-{}".format(i))
             n = 0
+            prof = _profile.active()
+            t0 = time.perf_counter() if prof is not None else 0.0
             with open(part, "w", encoding="utf-8") as f:
                 for _k, v in stage.sinker.map(chunk):
                     f.write("{}\n".format(v))
                     n += 1
+            if prof is not None:
+                prof.op_add("sink:" + _profile.op_label(stage.sinker),
+                            time.perf_counter() - t0, records=n)
             return part, n
 
         try:
             results = self._pool_map(job, list(enumerate(chunks)),
-                                     self.n_maps)
+                                     self.n_maps, label="sink")
         finally:
             close_readahead(chunks)
         return (_SinkOutput([p for p, _ in results]),
                 sum(n for _, n in results), len(chunks))
+
+    # -- observability -------------------------------------------------------
+    def _register_gauges(self):
+        """The pull gauges the sampler reads, installed once per run: the
+        paths whose state they expose pay nothing."""
+        m = self.metrics
+        sto = self.store
+        m.register_gauge("store.resident_bytes",
+                         lambda: sto._resident_bytes)
+        m.register_gauge(
+            "store.budget_occupancy",
+            lambda: (sto._resident_bytes / sto.budget) if sto.budget
+            else 0.0)
+        m.register_gauge("store.overlap_bytes", lambda: sto._overlap_bytes)
+        m.register_gauge("store.hbm_bytes", lambda: sto._dev_bytes)
+        m.register_gauge("store.spilled_bytes", lambda: sto.spilled_bytes)
+
+        def _writer(attr):
+            w = sto._writer
+            return 0 if w is None else getattr(w, attr)
+
+        m.register_gauge("writer.queue_depth",
+                         lambda: _writer("_outstanding"))
+        m.register_gauge("writer.inflight_bytes",
+                         lambda: _writer("inflight_bytes"))
+        m.register_gauge("overlap.live_slots", devtime.live_slots)
+        m.register_gauge("overlap.stalled_slots", devtime.stalled_slots)
+        m.register_gauge(
+            "run.active_jobs",
+            lambda: m.counters.get("run.jobs_started", 0)
+            - m.counters.get("run.jobs_done", 0))
+
+    def _start_obs(self):
+        """Run-scoped observability: the flight recorder (tracing or
+        metrics on), the structured log, the tracer (``settings.trace``),
+        the profiler (``settings.profile``), the metrics registry and its
+        sampler (``effective_metrics_interval_ms() > 0``) and the progress
+        line (``settings.progress``).  Returns the flight recorder."""
+        from .obs import flightrec as _flightrec
+
+        interval = settings.effective_metrics_interval_ms()
+        rec = None
+        if settings.trace or interval > 0:
+            # a crashdump describes the latest run under this name
+            _flightrec.clear_stale(self.name)
+            if _flightrec.RING_EVENTS > 0:
+                rec = _flightrec.FlightRecorder(self.name,
+                                                _flightrec.RING_EVENTS)
+                self.flightrec = rec
+                _flightrec.start(rec)
+        lvl = settings.effective_log_level()
+        if lvl or rec is not None:
+            # events.jsonl when a level is in force, else the recorder's
+            # WARN+ tail only
+            path = None
+            if lvl and _obslog.EVENTS_MAX > 0:
+                from .obs import export as _export
+
+                tdir = _export.run_trace_dir(self.name)
+                os.makedirs(tdir, exist_ok=True)
+                path = os.path.join(tdir, _obslog.FILE)
+            self.logstream = _obslog.LogStream(
+                self.name, rank=0, level=lvl or "warn", path=path,
+                recorder=rec)
+            _obslog.start(self.logstream)
+            _obslog.info("run-start", "run %s started", self.name,
+                         partitions=self.n_partitions)
+        if settings.trace:
+            self.tracer = _trace.Tracer(self.name)
+            self.tracer.recorder = rec
+            _trace.start(self.tracer)
+        if settings.profile:
+            self.profiler = _profile.Profiler(self.name)
+            _profile.start(self.profiler)
+        if interval > 0:
+            from .obs import progress as _progress
+            from .obs.metrics import Metrics
+            from .obs.sampler import Sampler
+
+            self.metrics = Metrics(self.name)
+            if self.tracer is not None:
+                # one clock: counter events share the tracer's epoch
+                self.metrics.epoch = self.tracer.epoch
+            self._register_gauges()
+            _metrics.start(self.metrics)
+            self._sampler = Sampler(self.metrics, interval, recorder=rec)
+            self._sampler.start()
+            if settings.progress:
+                self._progress = _progress.ProgressReporter(
+                    self.metrics, lambda: dict(self._status),
+                    _progress.INTERVAL_MS)
+                self._progress.start()
+        return rec
+
+    def _stop_obs(self):
+        from .obs import flightrec as _flightrec
+
+        if self._progress is not None:
+            self._progress.stop()
+            self._progress = None
+        if self._sampler is not None:
+            self._sampler.stop()
+            self._sampler = None
+        if self.metrics is not None:
+            _metrics.stop(self.metrics)
+        if self.tracer is not None:
+            _trace.stop(self.tracer)
+        if self.profiler is not None:
+            _profile.stop(self.profiler)
+        if self.flightrec is not None:
+            _flightrec.stop(self.flightrec)
+
+    def _torch_profile(self):
+        """``settings.profile_dir``: the run under ``torch.profiler``
+        (CPU, plus CUDA on a CUDA run), its Chrome trace exported to
+        :attr:`profile_trace_file` once the run returns.  The profiler
+        starts before the run's clock and stops after it, so its own
+        start-up is not in the run's wall.  A CUDA run whose profiler
+        cannot record the card raises: before it starts when CUDA
+        activity is unsupported, after it ends when kernels launched and
+        the trace holds no device event."""
+        import contextlib
+
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity
+
+        cuda = self.device.type == "cuda"
+        acts = [ProfilerActivity.CPU]
+        if cuda:
+            if ProfilerActivity.CUDA not in \
+                    torch.profiler.supported_activities():
+                raise RuntimeError(
+                    "settings.profile_dir: this torch cannot profile CUDA "
+                    "activity, and a CPU-only trace of a CUDA run would "
+                    "hide the card")
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(settings.profile_dir, exist_ok=True)
+        path = os.path.join(settings.profile_dir, "{}.pt.trace.json".format(
+            self.name.replace("/", "_")))
+        launches0 = {k: kern.launches for k, kern in KERNELS.items()}
+
+        @contextlib.contextmanager
+        def hatch():
+            self.profile_trace_file = path
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+            try:
+                yield
+            finally:
+                # a failed run's trace is written too
+                prof.stop()
+                prof.export_chrome_trace(path)
+            launched = sum(kern.launches - launches0[k]
+                           for k, kern in KERNELS.items())
+            if cuda and launched and not any(
+                    e.device_type == DeviceType.CUDA for e in prof.events()):
+                raise RuntimeError(
+                    "settings.profile_dir: the run launched {} kernels and "
+                    "torch.profiler recorded no CUDA event".format(launched))
+
+        return hatch()
 
     # -- the walk ----------------------------------------------------------
     def run(self, outputs):
         """Execute the graph; returns one dataset per requested output.
         Intermediate stage outputs are deleted once the walk ends.  A
         failed run discards its queued spill writes (their refs keep
-        their RAM blocks, no temp file stays)."""
+        their RAM blocks, no temp file stays), releases its device lanes
+        and then flushes the flight recorder to ``crashdump.json``.  The
+        summary (``run_summary``, ``em.stats()``) is built either way,
+        and a traced run persists it with its trace."""
+        if settings.profile_dir:
+            with self._torch_profile():
+                return self._run_observed(outputs)
+        return self._run_observed(outputs)
+
+    def _run_observed(self, outputs):
+        wall_start = time.time()
+        t_start = time.perf_counter()
+        epoch = devtime.epoch()
+        launches0 = {k: kern.launches for k, kern in KERNELS.items()}
+        rec = self._start_obs()
+        try:
+            return self._run_guarded(outputs)
+        except BaseException as e:
+            self._run_failed = True
+            if self.logstream is not None:
+                # the terminal record, before the flush, so the dump's log
+                # tail names the death (the exception is raised again: no
+                # stdlib line here)
+                self.logstream.emit(
+                    "error", "run-failed",
+                    "run {} failed: {}: {}".format(
+                        self.name, type(e).__name__, str(e)[:500]),
+                    data={"exception": type(e).__name__})
+            if rec is not None:
+                if self._sampler is not None:
+                    # one last sample: the dump shows the state at death
+                    self._sampler.stop()
+                    self._sampler = None
+                rec.flush("run-failed", e)
+            raise
+        finally:
+            self._stop_obs()
+            try:
+                self._finalize_obs(wall_start,
+                                   time.perf_counter() - t_start,
+                                   devtime.delta(epoch), launches0)
+            except Exception:
+                log.warning("stats/trace finalize failed", exc_info=True)
+            finally:
+                if self.logstream is not None:
+                    _obslog.stop(self.logstream)
+                    self.logstream = None
+
+    def _run_guarded(self, outputs):
         try:
             return self._run(outputs)
         except BaseException:
@@ -1627,25 +2050,81 @@ class MTRunner(object):
         finally:
             self.store.stop_writes()
 
+    def _entry_io(self, entry):
+        """``(records, bytes)`` of a stage input or output: exact for
+        materialized partitions and sink part files (records unknown),
+        ``(None, None)`` for a tap, unknown until read."""
+        if isinstance(entry, storage.PartitionSet):
+            recs = nbytes = 0
+            for r in entry.all_refs():
+                recs += len(r)
+                nbytes += r.total_bytes
+            return recs, nbytes
+        if isinstance(entry, _SinkOutput):
+            nbytes = 0
+            for p in entry.paths:
+                try:
+                    nbytes += os.path.getsize(p)
+                except OSError:
+                    pass
+            return None, nbytes
+        return None, None
+
+    def _fill_stage_io(self, st, stage, env, result, snap):
+        for src in stage.inputs:
+            r, b = self._entry_io(env.get(src))
+            if r:
+                st.records_in += r
+            if b:
+                st.bytes_in += b
+        _r, b = self._entry_io(result)
+        if b:
+            st.bytes_out += b
+        sto = self.store
+        st.spill_count = sto.spill_count - snap[0]
+        st.spill_bytes = sto.spilled_bytes - snap[1]
+        st.merge_gens = sto.merge_gens - snap[2]
+        st.merge_gen_bytes = sto.merge_gen_bytes - snap[3]
+
     def _run(self, outputs):
-        t_start = time.perf_counter()
-        launches0 = {k: kern.launches for k, kern in KERNELS.items()}
         self.graph, self.plan_report = plan.prepare(self.graph, outputs,
                                                     runner=self)
+        rep = self.plan_report
+        _trace.instant("plan", "optimize", lane="stages",
+                       stages_before=rep.get("stages_before"),
+                       stages_after=rep.get("stages_after"),
+                       rules={k: v for k, v in
+                              (rep.get("rules") or {}).items() if v})
         sto = self.store
         env = {}
         to_delete = []
         fused = {}  # scan-shared members' results, by stage id
+        n_stages = len(self.graph.stages)
         for sid, stage in enumerate(self.graph.stages):
             if isinstance(stage, GInput):
                 env[stage.output] = stage.tap
                 continue
             t0 = time.perf_counter()
+            t0_span = _trace.now()
             sto.set_stage(sid)
             snap = (sto.spill_count, sto.spilled_bytes, sto.merge_gens,
                     sto.merge_gen_bytes)
             stage_launches0 = {k: kern.launches
                                for k, kern in KERNELS.items()}
+            kind = ("map" if isinstance(stage, GMap) else
+                    "reduce" if isinstance(stage, GReduce) else "sink")
+            if self.profiler is not None:
+                self.profiler.begin_stage(
+                    sid, plan.ir.stage_kind(stage),
+                    provenance=plan.ir.stage_provenance(stage))
+            if _metrics.enabled():
+                # the progress line's stage, and stage boundaries in the
+                # sampled series
+                self._status.update({
+                    "sid": sid + 1, "n_stages": n_stages, "kind": kind,
+                    "stage_t0": time.time(), "jobs_total": 0,
+                    "jobs_done": 0})
+                _metrics.gauge_set("run.stage", sid)
             if isinstance(stage, GMap):
                 if sid in fused:
                     result, nrec, njobs = fused.pop(sid)
@@ -1661,15 +2140,15 @@ class MTRunner(object):
                         result, nrec, njobs = outs[0]
                     else:
                         result, nrec, njobs = self.run_map(sid, stage, env)
-                kind, op = "map", stage.mapper
+                op = stage.mapper
                 to_delete.append(stage.output)
             elif isinstance(stage, GReduce):
                 result, nrec, njobs = self.run_reduce(sid, stage, env)
-                kind, op = "reduce", stage.reducer
+                op = stage.reducer
                 to_delete.append(stage.output)
             elif isinstance(stage, GSink):
                 result, nrec, njobs = self.run_sink(sid, stage, env)
-                kind, op = "sink", stage.sinker
+                op = stage.sinker
             else:
                 raise TypeError("unknown stage type {!r}".format(stage))
             env[stage.output] = result
@@ -1681,13 +2160,12 @@ class MTRunner(object):
             st.n_jobs = njobs
             st.records_out = nrec
             st.seconds = time.perf_counter() - t0
-            st.spill_count = sto.spill_count - snap[0]
-            st.spill_bytes = sto.spilled_bytes - snap[1]
-            st.merge_gens = sto.merge_gens - snap[2]
-            st.merge_gen_bytes = sto.merge_gen_bytes - snap[3]
+            self._fill_stage_io(st, stage, env, result, snap)
             st.launches = {k: kern.launches - stage_launches0[k]
                            for k, kern in KERNELS.items()}
             self.stats.append(st)
+            _trace.complete("stage", "s{}:{}".format(sid, kind), t0_span,
+                            lane="stages", records=nrec, jobs=njobs)
             log.info("stage %d done: %s", sid, st.as_dict())
 
         ret = []
@@ -1704,29 +2182,43 @@ class MTRunner(object):
             if source not in keep:
                 env[source].delete(sto)
         sto.drain_writes()
-        wall = time.perf_counter() - t_start
-        self.run_summary = self._summary(wall, launches0)
         return ret
 
-    def _summary(self, wall, launches0):
-        dev = self._device
+    def _finalize_obs(self, wall_start, wall, dev, launches0):
+        """Build the run summary (``em.stats()``, the stats.json payload)
+        in the JAX package's shape, with the port's own device keys; a
+        traced run also writes trace.json and stats.json under its trace
+        directory.  Built on failure too."""
+        from .obs import export as _export
+
+        dstate = self._device
         sto = self.store
-        phases = dict(dev["phases"])
-        driving = phases["enqueue"] + phases["wait"]
+        rep = self.plan_report or {}
+        stages = [s.as_dict() for s in self.stats]
+        phases = dict(dstate["phases"])
+
+        def frac(x):
+            return x / wall if wall > 0 else 0.0
+
+        def mbps(nbytes, secs):
+            return nbytes / 1e6 / secs if secs > 1e-9 else 0.0
+
         device = {
             "device": str(self.device),
-            "device_stages": self.plan_report["device_stages"],
-            # host seconds spent driving the device (enqueue + waiting on
-            # results) over the run's wall time; jobs overlap, so it can
-            # exceed 1
-            "device_fraction": driving / wall if wall > 0 else 0.0,
+            "device_stages": rep.get("device_stages", 0),
+            "lowered": bool((rep.get("lowering") or {}).get("enabled")),
+            # devtime's device bucket over wall: host thread-seconds at
+            # the dispatch and result sites (jobs overlap: it can pass 1)
+            "device_fraction": frac(dev.get("device", 0.0)),
+            "device_seconds": dev.get("device", 0.0),
             # summed per-batch stream spans on the card over wall time
-            "stream_fraction": (dev["stream_seconds"] / wall if wall > 0
-                                else 0.0),
-            "stream_seconds": dev["stream_seconds"],
+            "stream_fraction": frac(dstate["stream_seconds"]),
+            "stream_seconds": dstate["stream_seconds"],
+            # the device sink's host seconds per phase (enqueue + wait is
+            # the host driving the card)
             "host_phase_seconds": phases,
-            "batches": dev["batches"],
-            "fallbacks": dev["fallbacks"],
+            "batches": dstate["batches"],
+            "fallbacks": dstate["fallbacks"],
             "h2d_bytes": sto.h2d_bytes,
             "d2h_bytes": sto.d2h_bytes,
             "kernels": {k: kern.launches - launches0[k]
@@ -1736,23 +2228,19 @@ class MTRunner(object):
             # bytes table batches never fetched, degrades to the spill
             # path, the most device bytes held, offloads to the host, and
             # the reduces that folded on the device (_mesh_reduce)
-            "handoff_edges": self.plan_report.get("handoff_edges", 0),
+            "handoff_edges": rep.get("handoff_edges", 0),
             "handoff_bytes": sto.handoff_bytes,
             "d2h_avoided_bytes": sto.d2h_avoided_bytes,
             "handoff_degrades": sto.handoff_degrades,
             "hbm_peak_bytes": sto.hbm_peak_bytes,
             "hbm_offloads": sto.hbm_offloads,
             "mesh_folds": self.mesh_folds,
-            "handoff": dict(dev["handoff"]),
+            "handoff": dict(dstate["handoff"]),
             # the keyed batch ops' device calls (hash lanes, sort, segment
             # fold): calls and host seconds summed over jobs; their bytes
             # are in h2d_bytes/d2h_bytes
             "keyed": {k: dict(v) for k, v in sto.keyed.items()},
         }
-
-        def mbps(nbytes, secs):
-            return nbytes / 1e6 / secs if secs > 1e-9 else 0.0
-
         # Spill I/O: bytes on disk and thread-seconds on the writer and
         # reader pools, and the seconds jobs waited on them (write side:
         # the writer pool's cap; read side: a frame not yet prefetched)
@@ -1766,11 +2254,9 @@ class MTRunner(object):
             "spill_read_mbps": mbps(sto.spill_read_bytes,
                                     sto.spill_read_seconds),
             "io_wait_seconds": sto.io_wait_seconds,
-            "io_wait_fraction": (sto.io_wait_seconds / wall if wall > 0
-                                 else 0.0),
+            "io_wait_fraction": frac(sto.io_wait_seconds),
             "io_wait_write_seconds": sto.io_wait_write_seconds,
-            "io_wait_write_fraction": (sto.io_wait_write_seconds / wall
-                                       if wall > 0 else 0.0),
+            "io_wait_write_fraction": frac(sto.io_wait_write_seconds),
             "writer_threads": settings.spill_write_threads,
             "read_prefetch": storage.SPILL_READ_PREFETCH,
             "inflight_peak_bytes": sto.spill_inflight_peak_bytes,
@@ -1782,21 +2268,97 @@ class MTRunner(object):
             "overlap_bytes": sto.overlap_bytes,
             "budget_bytes": sto.budget,
         }
-        return {"name": self.name, "wall_seconds": wall,
-                "stages": [s.as_dict() for s in self.stats],
-                "plan": self.plan_report, "device": device,
-                # host seconds in map-side combine folds, summed over jobs
-                "combine_seconds": dev["combine_seconds"],
-                "spill": {"count": sto.spill_count,
-                          "bytes": sto.spilled_bytes,
-                          "merge_gens": sto.merge_gens,
-                          "merge_gen_bytes": sto.merge_gen_bytes},
-                "io": io,
-                # reduce partitions that went out of core, by path
-                "streamed_assoc_folds": self.streamed_assoc_folds,
-                "streamed_views": self.streamed_views,
-                "streamed_joins": self.streamed_joins,
-                # map stages fused over one pass of a tap, per group
-                "scan_sharing": {"groups": [dict(g) for g in
-                                            self.scan_groups]},
-                "tiny_folds": self.tiny_folds}
+        summary = {
+            "schema": _export.STATS_SCHEMA,
+            "run": self.name,
+            "process": _export.process_section(),
+            "started_at": round(wall_start, 3),
+            "wall_seconds": wall,
+            "n_partitions": self.n_partitions,
+            "stages": stages,
+            "totals": {
+                "records_out": sum(s["records_out"] for s in stages),
+                "bytes_out": sum(s["bytes_out"] for s in stages),
+                "spill_bytes": sum(s["spill_bytes"] for s in stages),
+            },
+            "devtime": {k: round(v, 6) for k, v in dev.items()},
+            "overlap": {
+                "windows": OVERLAP_WINDOWS,
+                "stall_fraction": frac(dev.get("codec_wait", 0.0)),
+                "peak_bytes": sto.overlap_peak_bytes,
+            },
+            "io": io,
+            "store": {
+                "budget": sto.budget,
+                "spill_count": sto.spill_count,
+                "spilled_bytes": sto.spilled_bytes,
+                "merge_gens": sto.merge_gens,
+                "merge_gen_bytes": sto.merge_gen_bytes,
+                "h2d_bytes": sto.h2d_bytes,
+                "d2h_bytes": sto.d2h_bytes,
+                "hbm_offloads": sto.hbm_offloads,
+                "hbm_peak_bytes": sto.hbm_peak_bytes,
+                "overlap_peak_bytes": sto.overlap_peak_bytes,
+            },
+            # one device: nothing folds or moves across devices (the
+            # device folds on the card are device.mesh_folds)
+            "mesh": {"devices": 1, "folds": 0, "exchanges": 0,
+                     "exchange_bytes": 0,
+                     "exchange": {"bytes": 0, "steps": 0,
+                                  "peak_inflight_bytes": 0,
+                                  "mesh_stages": 0}},
+            "device": device,
+            "streamed_assoc_folds": self.streamed_assoc_folds,
+            "retries": self.retries_total,
+            "plan": self.plan_report or {"enabled": False},
+            "trace_file": None,
+            "stats_file": None,
+            # the port's own: host seconds in map-side combine folds
+            # summed over jobs, spill totals, reduce partitions out of
+            # core by path, scan-shared groups, tiny folds
+            "combine_seconds": dstate["combine_seconds"],
+            "spill": {"count": sto.spill_count,
+                      "bytes": sto.spilled_bytes,
+                      "merge_gens": sto.merge_gens,
+                      "merge_gen_bytes": sto.merge_gen_bytes},
+            "streamed_views": self.streamed_views,
+            "streamed_joins": self.streamed_joins,
+            "scan_sharing": {"groups": [dict(g) for g in
+                                        self.scan_groups]},
+            "tiny_folds": self.tiny_folds,
+        }
+        if self.profile_trace_file:
+            summary["profile_trace_file"] = self.profile_trace_file
+        if self.metrics is not None:
+            summary["metrics"] = self.metrics.summary()
+        if self.profiler is not None:
+            summary["profile"] = self.profiler.summary(
+                {s.stage_id: s.seconds for s in self.stats})
+        if self.flightrec is not None and self.flightrec.path:
+            summary["crashdump_file"] = self.flightrec.path
+        if self.logstream is not None:
+            if not self._run_failed:
+                self.logstream.emit(
+                    "info", "run-finish",
+                    "run {} finished in {:.3f}s".format(self.name, wall),
+                    data={"wall_seconds": round(wall, 3)})
+            summary["log"] = self.logstream.summary()
+        if self.tracer is not None:
+            summary["spans"] = self.tracer.span_summary()
+            try:
+                from .obs import critpath as _critpath
+
+                summary["critpath"] = _critpath.analyze(
+                    summary, self.tracer.events)
+            except Exception:
+                log.warning("critical-path analysis failed", exc_info=True)
+            tdir = _export.run_trace_dir(self.name)
+            os.makedirs(tdir, exist_ok=True)
+            summary["trace_file"] = _export.write_trace(
+                self.tracer, os.path.join(tdir, _export.TRACE_FILE),
+                metrics=self.metrics)
+            spath = os.path.join(tdir, _export.STATS_FILE)
+            summary["stats_file"] = spath
+            _export.write_stats(summary, spath)
+            log.info("trace: %s; stats: %s", summary["trace_file"], spath)
+        self.run_summary = summary

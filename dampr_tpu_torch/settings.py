@@ -170,3 +170,63 @@ def effective_handoff_budget():
     if handoff_enabled():
         return max_memory_per_stage
     return 0
+
+
+def _env_flag(name):
+    return os.environ.get(name, "0").lower() not in (
+        "0", "false", "no", "off", "")
+
+
+#: When set, every run is wrapped in ``torch.profiler.profile`` (CPU
+#: activity, plus CUDA on a CUDA run) and its Chrome trace is exported
+#: under this directory: the card's kernel and copy timeline.  A CUDA run
+#: whose profiler cannot record the card raises.
+profile_dir = os.environ.get("DAMPR_TPU_TORCH_PROFILE_DIR") or None
+
+#: Run-scoped engine tracing (:mod:`.obs`): spans at the engine's
+#: boundaries, persisted as ``trace.json`` (Chrome trace events, for
+#: Perfetto) and ``stats.json`` under ``<trace_dir or scratch_root>/
+#: <run>/trace/``.  Off, each span site is one ``None`` check.
+trace = _env_flag("DAMPR_TPU_TORCH_TRACE")
+
+#: Root of the trace artifacts; None puts them under :data:`scratch_root`.
+trace_dir = os.environ.get("DAMPR_TPU_TORCH_TRACE_DIR") or None
+
+#: Per-operator profiler (:mod:`.obs.profile`): ``stats()["profile"]``
+#: attributes each stage's job time to the user ops it was fused from,
+#: and a lowered stage's device work to build/h2d/compute/d2h.
+profile = _env_flag("DAMPR_TPU_TORCH_PROFILE")
+
+#: Cadence (ms) of the metrics plane's sampler (:mod:`.obs.metrics`,
+#: :mod:`.obs.sampler`); 0 = off unless a traced or progress run needs it
+#: (:func:`effective_metrics_interval_ms`).
+metrics_interval_ms = int(os.environ.get("DAMPR_TPU_TORCH_METRICS_MS", "0"))
+
+#: One live progress line per stage on stderr (:mod:`.obs.progress`);
+#: implies the metrics plane.
+progress = _env_flag("DAMPR_TPU_TORCH_PROGRESS")
+
+#: Floor of the structured event log ``events.jsonl`` (:mod:`.obs.log`):
+#: debug/info/warn/error; "" writes none (traced runs stream at info).
+log_level = os.environ.get("DAMPR_TPU_TORCH_LOG", "").strip().lower()
+
+
+def effective_metrics_interval_ms():
+    """The sampling cadence in force: the explicit setting, else 100 ms
+    for a traced or progress run (a traced run's crashdump carries recent
+    samples), else 0 (no registry, no sampler thread)."""
+    if metrics_interval_ms > 0:
+        return metrics_interval_ms
+    if trace or progress:
+        return 100
+    return 0
+
+
+def effective_log_level():
+    """The event log's floor in force: :data:`log_level`, else ``info``
+    for a traced run, else "" (no ``events.jsonl``)."""
+    if log_level:
+        return log_level
+    if trace:
+        return "info"
+    return ""

@@ -36,6 +36,9 @@ from . import settings
 from .io import codecs as _codecs
 from .io import frames as _frames
 from .io.writer import SpillWriterPool
+from .obs import metrics as _metrics
+from .obs import trace as _trace
+from .ops import devtime
 
 
 def _file_size(path):
@@ -117,10 +120,13 @@ class BlockRef(object):
         dev = settings.resolve_device()
         h1, h2 = block.hashes()
         lane, self.lane_abs, self.lane_min = prep
-        self._dev = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                          for a in (lane, h1.view(np.int32),
-                                    h2.view(np.int32)))
-        self.dev_bytes = lane.nbytes + h1.nbytes + h2.nbytes
+        nbytes = lane.nbytes + h1.nbytes + h2.nbytes
+        with devtime.track("transfer"), _trace.span("hbm", "h2d",
+                                                    bytes=int(nbytes)):
+            self._dev = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (lane, h1.view(np.int32), h2.view(np.int32)))
+        self.dev_bytes = nbytes
         # h2d is charged once, when the store enters the ref
         self._h2d_pending = self.dev_bytes
         self._kmeta = (block.keys, h1, h2)
@@ -253,7 +259,8 @@ class BlockRef(object):
         if dev is not None and kmeta is not None:
             from .blocks import Block
 
-            lane = self._for_current_stream(dev, ready)[0].cpu().numpy()
+            with devtime.track("transfer"):
+                lane = self._for_current_stream(dev, ready)[0].cpu().numpy()
             if self.store is not None:
                 self.store.count_d2h(lane.nbytes)
             keys, h1, h2 = kmeta
@@ -387,6 +394,9 @@ def iter_block_windows(path, store=None, prefetch=SPILL_READ_PREFETCH):
 
         def on_wait(secs):
             store.count_io_wait(secs, read=True)
+            if _trace.enabled():
+                _trace.complete("io_wait", "read-wait",
+                                time.perf_counter() - secs)
 
     reader = _frames.FrameReader(path)
     payloads = reader.iter_payloads(prefetch, on_read, on_wait)
@@ -455,6 +465,7 @@ class RunStore(object):
         self.io_wait_seconds = 0.0
         self.io_wait_write_seconds = 0.0
         self._writer = None
+        self._closed_peaks = (0, 0)  # (in-flight bytes, queue) of stopped pools
         # blocks a map job's codec has produced and its fold not yet taken
         # (the overlap executor), charged to the budget
         self._overlap_bytes = 0
@@ -518,12 +529,14 @@ class RunStore(object):
     @property
     def spill_inflight_peak_bytes(self):
         w = self._writer
-        return 0 if w is None else w.inflight_peak
+        now = 0 if w is None else w.inflight_peak
+        return max(now, self._closed_peaks[0])
 
     @property
     def spill_queue_peak(self):
         w = self._writer
-        return 0 if w is None else w.queue_peak
+        now = 0 if w is None else w.queue_peak
+        return max(now, self._closed_peaks[1])
 
     def writer_pool(self):
         """The store's background writer, or None when
@@ -597,6 +610,10 @@ class RunStore(object):
         w, self._writer = self._writer, None
         if w is not None:
             w.close()
+            # the run's peaks outlive its pool (the summary reads them
+            # after the pool stops)
+            self._closed_peaks = (max(self._closed_peaks[0], w.inflight_peak),
+                                  max(self._closed_peaks[1], w.queue_peak))
 
     # -- registration ------------------------------------------------------------
     def set_stage(self, stage_name):
@@ -635,6 +652,11 @@ class RunStore(object):
         return self._enter_ref(ref, handoff=True)
 
     def _enter_ref(self, ref, handoff=False):
+        if _metrics.enabled():
+            # stage-output throughput: every materialized block enters here
+            _metrics.counter_add("store.records", len(ref))
+            _metrics.counter_add("store.bytes", ref.nbytes + ref.dev_bytes)
+            _metrics.counter_add("store.blocks", 1)
         dev_victims = []
         with self._lock:
             if ref.is_device:
@@ -702,7 +724,8 @@ class RunStore(object):
         """Device -> host for one ref already out of both resident lists
         (outside the lock), then enter it again as a host ref, which may
         spill."""
-        freed, _delta = ref.offload()
+        with _trace.span("hbm", "offload", bytes=ref.dev_bytes):
+            freed, _delta = ref.offload()
         if not freed:
             return  # raced with a concurrent drop
         with self._lock:
@@ -727,6 +750,7 @@ class RunStore(object):
         total_records = total_bytes = 0
         write_secs = 0.0
         key_dtype = value_dtype = np.dtype(object)
+        t0 = _trace.now()
         try:
             for blk in blocks:
                 if not len(blk):
@@ -767,9 +791,15 @@ class RunStore(object):
             ref._block = Block.empty()  # empty stream: nothing on disk
         else:
             self.count_spill_write(_file_size(path), write_secs)
+        if _metrics.enabled():
+            _metrics.counter_add("store.records", total_records)
+            _metrics.counter_add("store.bytes", total_bytes)
+            _metrics.counter_add("store.blocks", 1)
         with self._lock:
             self.merge_gens += 1
             self.merge_gen_bytes += total_bytes
+        _trace.complete("merge", "merge-run", t0, bytes=total_bytes,
+                        records=total_records)
         return ref
 
     def _select_victims_locked(self):
@@ -822,7 +852,12 @@ class RunStore(object):
         if not victims and not evicted_dev:
             return
         directory = os.path.join(self.root, self._stage)
-        evicted_dev = [v for v in evicted_dev if v.offload()[0]]
+        offloaded = []
+        for v in evicted_dev:
+            with _trace.span("hbm", "offload", bytes=v.dev_bytes):
+                if v.offload()[0]:
+                    offloaded.append(v)
+        evicted_dev = offloaded
         if evicted_dev:
             with self._lock:
                 self.hbm_offloads += len(evicted_dev)
@@ -833,7 +868,9 @@ class RunStore(object):
             if pool is not None and v.path is None and v._block is not None:
                 queued.append(v)
             else:
-                got = v.spill(directory)
+                with _trace.span("spill", "spill", bytes=v.nbytes,
+                                 records=len(v)):
+                    got = v.spill(directory)
                 if got:
                     freed += got
                     n_spilled += 1

@@ -88,7 +88,9 @@ print(json.dumps({"modules": names, "reference": loaded,
                  "base", "dampr", "dataset", "inputs", "runner", "plan.lower",
                  "plan.passes", "plan.ir", "utils", "utils.common",
                  "utils.indexer", "io", "io.codecs", "io.frames",
-                 "io.writer", "storage"):
+                 "io.writer", "storage", "obs", "obs.critpath",
+                 "obs.export", "obs.flightrec", "obs.log", "obs.metrics",
+                 "obs.profile", "obs.progress", "obs.sampler", "obs.trace"):
         assert "dampr_tpu_torch." + name in report["modules"]
     assert report["idf"] == [["a", 2, 4], ["b", 2, 4], ["c", 1, 4]]
     assert report["len"] == [4]
