@@ -134,7 +134,23 @@ the kernels build for sm_90a).  Phases, each of which must pass:
     the overlap executor's peak of bytes in flight must be above 0 and
     within the memory budget, with none left at the end; (b) DocFreq over
     a plain (one-member) gzip of the corpus's first 16 MB, read as one
-    chunk, against the oracle of those lines.
+    chunk, against the oracle of those lines;
+14. ``analyze``, the static analyzer and the certified lane chain (B11):
+    (a) 2^22 seeded int64 values in [-2^40, 2^40) through ``map(x * 3 +
+    1) . filter(x % 2 == 0) . fold_by(x % 4096, add)`` in 8 partitions,
+    planned as the JAX package plans it (one certified ``ValueMap .
+    Filter . Rekey`` stage on the device, a device sum fold), with the
+    analyzer on (the lane program: every batch dispatched to the card and
+    verified, none mismatched, each job's first batch diff-checked
+    against the per-record chain) and off (the per-record path), both
+    equal to a numpy oracle, then traced (the ``numeric-chain`` spans'
+    seconds); B11 timed at one 65,536-lane batch; (b) 2^22 seeded float64
+    values through ``map(v * 0.5 + 3.0) . filter(v > 10.0)``, on and off,
+    exact; (c) ``python -m dampr_tpu_torch.analyze.lint --json`` over a
+    module building the port's ``wc``, ``word_stats`` and TF-IDF
+    pipelines: no error, no warning, and the report passes
+    ``tools/validate_lint.py``.  The ``tfidf`` and ``wc`` runs' plan
+    reports carry the analyzer's section, with no error and no warning.
 
 K1's lanes entry is also checked and timed at the ``wc`` batch shape (the
 corpus's first 65,536 words, padded as the combine pads them).  Every
@@ -644,6 +660,7 @@ def phase_tfidf(Dampr, DocFreq, kernels, corpus, chunk, nbytes, df, n_lines,
           and groups[0]["windowed"] == groups[0]["chunks"],
           "TF-IDF: DocFreq and len() did not share one window pass: {}"
           .format(groups))
+    check_analysis_clean("TF-IDF", stats)
     run = {"pipeline": "tfidf", "seconds": secs,
            "mb_per_s": nbytes / 1e6 / secs, "lines": n_lines,
            "sink_lines": len(got),
@@ -658,9 +675,20 @@ def phase_tfidf(Dampr, DocFreq, kernels, corpus, chunk, nbytes, df, n_lines,
            "scan_sharing": groups,
            "overlap_peak_bytes": stats["io"]["overlap_peak_bytes"],
            "budget_bytes": stats["io"]["budget_bytes"],
+           "analysis": stats["plan"]["analysis"]["counts"],
            "kernels": launches}
     log("e2e " + json.dumps(run))
     return launches
+
+
+def check_analysis_clean(what, stats):
+    """The plan report's ``analysis`` section of a main-path run: the
+    analyzer was on (the default) and found no error and no warning."""
+    sec = stats["plan"]["analysis"]
+    check(sec["enabled"] and sec["stages"]
+          and sec["counts"]["error"] == 0 and sec["counts"]["warn"] == 0,
+          "{}: the analysis section is off or not clean: {}".format(
+              what, sec["diagnostics"] if sec["enabled"] else sec))
 
 
 def _join_keys(left, right, how):
@@ -832,6 +860,7 @@ def phase_wc(Dampr, kernels, corpus, chunk, nbytes, wc):
     check(stats["plan"]["rules"]["fuse_maps"] == 1
           and stats["plan"]["rules"]["hoist_combiners"] == 1,
           "wc's plan fired {}".format(stats["plan"]["rules"]))
+    check_analysis_clean("wc", stats)
     run = dict(run_line(stats, secs, nbytes, launches), pipeline="wc",
                words=sum(wc.values()), distinct=len(wc))
     log("e2e " + json.dumps(run))
@@ -2154,6 +2183,302 @@ def phase_obs(torch, Dampr, DocFreq, settings, storage, handoff, kernels,
     return l1
 
 
+#: The ``analyze`` phase's inputs: 2^22 values from ``--seed``, the
+#: integer chain's uniform in [-2^40, 2^40) (past int32: the card runs the
+#: chain in int64), in 8 partitions (8 jobs of 524,288 records, 8 batches
+#: of 65,536 each, every batch at the card's dispatch floor).
+ANALYZE_N = 1 << 22
+ANALYZE_PARTS = 8
+ANALYZE_KEYS = 4096
+
+#: The module ``analyze.lint`` lints: the port's ``wc``, ``word_stats``
+#: and TF-IDF pipelines, built by this script's own functions.
+LINT_MODULE = """
+import chip_smoke
+from dampr_tpu_torch import Dampr
+from dampr_tpu_torch.ops.text import DocFreq
+
+
+def lint_pipelines():
+    out = [("wc", chip_smoke.wc_pipeline(Dampr, {corpus!r}, {chunk}))]
+    ws = chip_smoke.word_stats_pipelines(Dampr, {corpus!r}, {chunk})
+    out += [("word_stats_%d" % i, p) for i, p in enumerate(ws)]
+    out.append(("tfidf", chip_smoke.tfidf_pipeline(
+        Dampr, DocFreq, {corpus!r}, {chunk}, {out!r})))
+    return out
+"""
+
+
+def int_chain(Dampr, vals):
+    """The integer chain: ``map . filter . fold_by`` (the JAX package plans
+    it as one certified ``ValueMap . Filter . Rekey`` stage on the device
+    and a device sum fold)."""
+    return (Dampr.memory(vals, partitions=ANALYZE_PARTS)
+            .map(lambda x: x * 3 + 1)
+            .filter(lambda x: x % 2 == 0)
+            .fold_by(lambda x: x % ANALYZE_KEYS, operator.add))
+
+
+def float_chain(Dampr, vals):
+    return (Dampr.memory(vals, partitions=ANALYZE_PARTS)
+            .map(lambda v: v * 0.5 + 3.0)
+            .filter(lambda v: v > 10.0))
+
+
+def int_chain_oracle(np, arr):
+    v = arr * 3 + 1
+    v = v[v % 2 == 0]
+    keys = v % ANALYZE_KEYS
+    sums = np.zeros(ANALYZE_KEYS, dtype=np.int64)
+    np.add.at(sums, keys, v)
+    present = np.bincount(keys, minlength=ANALYZE_KEYS) > 0
+    return [(int(k), int(sums[k])) for k in np.nonzero(present)[0]]
+
+
+def chain_program(pipe):
+    """The lane program the runner takes for the pipeline's first map
+    stage (the same program object: it is cached by the chain's UDFs)."""
+    from dampr_tpu_torch.analyze import torchtrace
+    from dampr_tpu_torch.plan import passes
+
+    graph, _ = passes.optimize(pipe.pmer.graph, [pipe.source])
+    stage = [s for s in graph.stages if hasattr(s, "mapper")][0]
+    prog = torchtrace.stage_program(stage)
+    check(prog is not None, "the chain did not certify: {}".format(
+        torchtrace.chain_claims(stage.mapper)[1]))
+    return prog
+
+
+def analyze_run(settings, build, name, analyze, kernels, trace_dir=None):
+    """One run of a chain pipeline: ``(records, seconds, stats,
+    counters of its lane program in this run, kernel launches)``."""
+    pipe = build()
+    prog = chain_program(pipe)
+    before = dict(prog.counters)
+    old = (settings.analyze, settings.trace, settings.trace_dir)
+    settings.analyze = analyze
+    settings.trace = trace_dir is not None
+    settings.trace_dir = trace_dir
+    try:
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        em = pipe.run(name="chip-analyze-" + name)
+        got = em.read()
+        secs = time.perf_counter() - t0
+        launches = read_launches(kernels)
+    finally:
+        settings.analyze, settings.trace, settings.trace_dir = old
+    stats = em.stats()
+    em.delete()
+    counters = {k: v - before[k] for k, v in prog.counters.items()}
+    return got, secs, stats, counters, launches, prog
+
+
+def check_counters(what, c):
+    check(c["batches"] >= 1 and c["device_dispatched"] == c["batches"]
+          and c["device_verified"] == c["device_dispatched"]
+          and c["device_mismatch"] == 0 and c["fallback"] == 0
+          and c["diff_checked"] >= 1 and c["diff_diverged"] == 0,
+          "{}: the lane program's counters fail the contract: {}".format(
+              what, c))
+
+
+def numeric_chain_spans(trace_file):
+    """The ``numeric-chain`` device spans of a trace: count, seconds in
+    all, and the median, smallest and largest span in ms."""
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    ms = sorted(e["dur"] / 1e3 for e in events
+                if e.get("name") == "numeric-chain" and e.get("ph") == "X")
+    return {"spans": len(ms), "seconds": sum(ms) / 1e3,
+            "median_ms": statistics.median(ms) if ms else None,
+            "min_ms": ms[0] if ms else None,
+            "max_ms": ms[-1] if ms else None}
+
+
+def lint_main_path(workdir, corpus, chunk):
+    """``python -m dampr_tpu_torch.analyze.lint --json`` (its ``main``, in
+    this process) over a module building the port's ``wc``,
+    ``word_stats`` and TF-IDF pipelines; the report must be clean and pass
+    ``tools/validate_lint.py``."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from dampr_tpu_torch.analyze import lint
+
+    path = os.path.join(workdir, "lint_main_path.py")
+    with open(path, "w") as f:
+        f.write(LINT_MODULE.format(corpus=corpus, chunk=chunk,
+                                   out=os.path.join(workdir, "idf_lint")))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = lint.main(["--json", path])
+    secs = time.perf_counter() - t0
+    report = json.loads(buf.getvalue())
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "validate_lint", os.path.join(root, "tools", "validate_lint.py"))
+    vl = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(vl)
+    with open(os.path.join(root, "docs", "lint_schema.json")) as f:
+        problems = vl.validate(report, json.load(f))
+    check(code == 0 and report["exit_code"] == 0
+          and report["counts"]["error"] == 0
+          and report["counts"]["warn"] == 0,
+          "lint of the main path's pipelines is not clean: {}".format(
+              report["diagnostics"]))
+    check(not problems, "validate_lint refused the lint report: {}".format(
+        problems))
+    check(len(report["targets"][0]["pipelines"]) == 6,
+          "lint found {}".format(report["targets"]))
+    return {"exit_code": code, "counts": report["counts"],
+            "pipelines": report["targets"][0]["pipelines"],
+            "codes": sorted({d["code"] for d in report["diagnostics"]}),
+            "schema_problems": problems, "seconds": secs}
+
+
+def time_lane_program(torch, np, prog, lane_np, reps):
+    """B11 at one 65,536-lane batch of the integer chain: ``device_ms``
+    (the card alone), ``host_ms`` (queueing the chain's launches),
+    ``ms`` (``run_device``: copy in, the chain, three copies back), the
+    host's numpy evaluation (``run_host``, the result that decides), one
+    batch of the per-record chain, and the kernels one dispatch launches
+    (from ``torch.profiler``; None where it shows none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lane = torch.from_numpy(lane_np).to("cuda")
+    fn = lambda: prog.device_program(lane)  # noqa: E731
+    out = {"shape": [len(lane_np)], "dtype": "int64"}
+    out["device_ms"], out["host_ms"] = time_split(torch, fn, 100)
+    walls = []
+    for _ in range(3 + reps):
+        t0 = time.perf_counter()
+        prog.run_device(lane_np, np.dtype(np.int64))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["ms"] = statistics.median(walls[3:])
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        prog.run_host(lane_np)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["host_eval_ms"] = statistics.median(walls)
+    vals = lane_np.tolist()
+    t0 = time.perf_counter()
+    for kind, f in prog.spec.ops:
+        vals = ([f(v) for v in vals] if kind == "map"
+                else [v for v in vals if f(v)])
+    key_f, value_f = prog.spec.rekey
+    [(key_f(v), value_f(v)) for v in vals]
+    out["per_record_ms"] = (time.perf_counter() - t0) * 1e3
+    n = len(lane_np)
+    out["bound_ms"], out["bound_by"] = bound_ms(8 * n + 8 * n + 8 * n + n,
+                                                0)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            fn()
+            torch.cuda.synchronize()
+        out["kernels_per_dispatch"] = sum(
+            r.count for r in p.key_averages()
+            if str(getattr(r, "device_type", "")).endswith("CUDA")) or None
+    except RuntimeError as e:
+        log("profiler unavailable: {}".format(e))
+        out["kernels_per_dispatch"] = None
+    return out
+
+
+def phase_analyze(torch, np, Dampr, settings, kernels, workdir, corpus,
+                  chunk, seed, reps):
+    """The static analyzer and the certified lane chain (B11) on the card:
+    (a) the integer chain at 2^22 values, analysis on (the lane program,
+    its counters) and off (the per-record path), both against a numpy
+    oracle, the plan against the JAX package's; (b) the float chain, on
+    and off, exact; (c) the linter over the main path's pipelines.  One
+    ``analyze`` JSON line."""
+    mem0 = torch.cuda.memory_allocated()
+    rng = np.random.RandomState(seed)
+    arr = rng.randint(-(1 << 40), 1 << 40, size=ANALYZE_N, dtype=np.int64)
+    ivals = arr.tolist()
+    farr = rng.standard_normal(ANALYZE_N) * 10.0
+    fvals = farr.tolist()
+    line = {"phase": "analyze", "n": ANALYZE_N,
+            "partitions": ANALYZE_PARTS, "cuts": []}
+
+    # (a) the integer chain
+    want = int_chain_oracle(np, arr)
+    build = lambda: int_chain(Dampr, ivals)  # noqa: E731
+    on, on_s, stats, c, launches, prog = analyze_run(
+        settings, build, "int-on", True, kernels)
+    check(on == want, "the integer chain differs from the numpy oracle "
+                      "({} keys against {})".format(len(on), len(want)))
+    check_counters("integer chain", c)
+    stages = [(s["kind"], s["op"], s["target"]) for s in stats["stages"]]
+    check(stages == [("map", "ValueMap . Filter . Rekey", "device"),
+                     ("reduce", "AssocFoldReducer", "device")],
+          "the integer chain's plan differs from the JAX package's "
+          "(one certified ValueMap . Filter . Rekey stage on the device, "
+          "a device sum fold): {}".format(stages))
+    off, off_s, off_stats, c_off, _l, _p = analyze_run(
+        settings, build, "int-off", False, kernels)
+    check(off == on, "the integer chain with analysis off differs")
+    check(c_off["batches"] == 0 and {s["target"] for s in
+                                     off_stats["stages"]
+                                     if s["kind"] == "map"} == {"host"},
+          "analysis off still took the lane program: {}".format(c_off))
+    tr_dir = os.path.join(workdir, "analyze_trace")
+    traced, tr_s, tr_stats, c_tr, _l, _p = analyze_run(
+        settings, build, "int-traced", True, kernels, trace_dir=tr_dir)
+    check(traced == on, "the traced integer chain differs")
+    spans = numeric_chain_spans(tr_stats["trace_file"])
+    check(spans["spans"] == c_tr["device_dispatched"],
+          "{} numeric-chain spans for {} dispatches".format(
+              spans["spans"], c_tr["device_dispatched"]))
+    line["int"] = {"records_on": len(on), "seconds_on": on_s,
+                   "records_off": len(off), "seconds_off": off_s,
+                   "seconds_traced": tr_s, "stages": stages,
+                   "counters": c, "launches": launches,
+                   "numeric_chain_device_seconds": spans["seconds"],
+                   "numeric_chain_spans": spans,
+                   "device_fraction": stats["device"]["device_fraction"]}
+    log("analyze-int " + json.dumps(line["int"]))
+
+    # B11 at one batch of the integer chain
+    batch = arr[:ANALYZE_N // ANALYZE_PARTS][:1 << 16]
+    line["b11"] = dict(time_lane_program(torch, np, prog, batch, reps),
+                       dispatches=c["device_dispatched"])
+    log("analyze-b11 " + json.dumps(line["b11"]))
+
+    # (b) the float chain
+    fwant = [v for v in (farr * 0.5 + 3.0).tolist() if v > 10.0]
+    fbuild = lambda: float_chain(Dampr, fvals)  # noqa: E731
+    fon, fon_s, fstats, fc, _l, _p = analyze_run(
+        settings, fbuild, "float-on", True, kernels)
+    check(fon == fwant, "the float chain differs from the numpy oracle")
+    check_counters("float chain", fc)
+    check([s["target"] for s in fstats["stages"]] == ["device"],
+          "the float chain did not lower: {}".format(fstats["stages"]))
+    foff, foff_s, _st, _c, _l, _p = analyze_run(
+        settings, fbuild, "float-off", False, kernels)
+    check(foff == fon, "the float chain with analysis off differs")
+    line["float"] = {"records_on": len(fon), "seconds_on": fon_s,
+                     "records_off": len(foff), "seconds_off": foff_s,
+                     "counters": fc}
+    log("analyze-float " + json.dumps(line["float"]))
+
+    # (c) the analyzer over the main path
+    line["lint"] = lint_main_path(workdir, corpus, chunk)
+    del ivals, fvals, on, off, traced, fon, foff
+    torch.cuda.synchronize()
+    line["memory_allocated_before"] = mem0
+    line["memory_allocated_after"] = torch.cuda.memory_allocated()
+    log(json.dumps(line))
+    return line
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mb", type=int, default=128,
@@ -2476,6 +2801,14 @@ def main(argv=None):
         log("phase ingest: BGZF TF-IDF equal to the plain run and the "
             "oracle in one shared read, plain gzip DocFreq exact, in {:.3f} "
             "s".format(time.perf_counter() - t0))
+
+        # -- the static analyzer and the certified lane chain (B11) ---------
+        t0 = time.perf_counter()
+        phase_analyze(torch, np, Dampr, settings, KERNELS, workdir, corpus,
+                      chunk, args.seed, args.reps)
+        log("phase analyze: the integer and float chains exact on and off, "
+            "every batch dispatched and verified; lint clean; in {:.3f} s"
+            .format(time.perf_counter() - t0))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -1,7 +1,7 @@
 """The fluent DSL: lazy, value-semantic pipeline construction.
 
-Port of ``dampr_tpu/dampr.py`` without the ``explain``/``validate``/
-``submit``/resume surfaces: the sources (``Dampr.text``/``json``/
+Port of ``dampr_tpu/dampr.py`` without the ``explain``/``submit``/resume
+surfaces: the sources (``Dampr.text``/``json``/
 ``memory``/``urls``/``read_input``/``from_dataset``),
 the per-record ops (``map``, ``map_values``, ``map_keys``, ``prefix``,
 ``suffix``, ``filter``, ``flat_map``, ``sample``, ``inspect``), the
@@ -9,7 +9,8 @@ associative folds (``fold_by``, ``a_group_by`` -> ``reduce``/``sum``/
 ``first``, ``count``, ``mean``), ``sort_by``, ``topk``, ``group_by`` ->
 :class:`PReduce`, ``len()``, the custom operators, the joins
 (:class:`PJoin`) and map-side crosses, ``checkpoint``/``cached``, the
-sinks, and single- and multi-output runs.
+sinks, single- and multi-output runs, and ``validate()`` (the static
+analyzer's diagnostics, :mod:`.analyze`).
 
 Every chained call is its own stage node; the plan (:mod:`.plan`) fuses
 chains of per-record stages into one executed map stage at ``run()``
@@ -24,6 +25,7 @@ import logging
 import random
 import sys
 import threading
+import weakref
 
 from . import settings
 from .base import (AssocFoldReducer, ComposedMapper, Filter, FlatMap,
@@ -90,12 +92,20 @@ class ValueEmitter(object):
         self.dataset.delete()
 
 
+#: Every live pipeline handle (weakly held).  The linter
+#: (:mod:`.analyze.lint`) discovers through it the pipelines a linted
+#: module constructed at import time, without running anything; the DSL
+#: itself never reads it.
+_live_handles = weakref.WeakSet()
+
+
 class PBase(object):
     def __init__(self, source, pmer):
         if not isinstance(source, Source):
             raise TypeError("source must be a graph Source")
         self.source = source
         self.pmer = pmer
+        _live_handles.add(self)
 
     def run(self, name=None, **kwargs):
         """Evaluate the graph; returns a ValueEmitter whose ``stats``
@@ -110,6 +120,24 @@ class PBase(object):
         em.stats = RunStats([s.as_dict() for s in runner.stats],
                             runner.run_summary)
         return em
+
+    def validate(self, resume=False, num_processes=1, probe=True):
+        """Pre-flight diagnostics for this pipeline, WITHOUT executing
+        anything: the ordered diagnostic list
+        (:class:`dampr_tpu_torch.analyze.Diagnostic`, errors first; empty
+        = clean).  Runs the full probe set — serialization, randomized
+        associativity, traceability — regardless of ``settings.analyze``:
+        an explicit call is its own opt-in.  ``num_processes > 1``
+        promotes unpicklable captures to errors; ``probe=False`` keeps it
+        to the fast bytecode-only classification.  ``resume=True`` (the
+        checkpoint fingerprint check) raises: the port has no resume
+        fingerprints yet."""
+        from .analyze import validate as _av
+
+        return _av.validate_graph(
+            self.pmer.graph, resume=resume,
+            num_processes=num_processes, probe_traceable=probe,
+            probe_assoc=probe, probe_pickle=probe)
 
     def read(self, k=None, **kwargs):
         """Shorthand for run() + read()."""

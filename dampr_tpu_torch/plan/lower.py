@@ -4,8 +4,12 @@ Port of ``dampr_tpu/plan/lower.py`` (``analyze``, ``handoff_analyze``
 and ``apply``; history-driven placement and shuffle routing are later
 slices):
 
-- a **map** stage lowers when the head of its (possibly fused) mapper
-  chain is a native-vocabulary scanner
+- a **map** stage lowers when its chain is a numeric ``map``/``filter``
+  chain the static analyzer certifies (:mod:`..analyze.torchtrace`,
+  ``settings.analyze``): the runner runs it as one lane program, checked
+  per batch against the host's 64-bit evaluation.  Otherwise it lowers
+  when the head of its (possibly fused) mapper chain is a native-vocabulary
+  scanner
   (:func:`dampr_tpu_torch.ops.lower.claims`) and the rest of the chain is
   identity, its map-side combiner (if any) is a ``sum``, and every
   consumer of its output (through bare checkpoints) folds it with a keyed
@@ -80,6 +84,18 @@ def _map_decision(stage, graph, protected):
     leaves = ir.flatten_mapper(stage.mapper)
     head, tail = leaves[0], leaves[1:]
     if ops_lower.claims(head) is None:
+        # A chain the static analyzer certifies (pure deterministic
+        # ValueMap/Filter lane ops, an optional trailing Rekey, each
+        # traced on meta tensors) lowers as a vectorized lane program,
+        # exactness-gated per batch at dispatch.  Its record multiplicity
+        # and grouping equal the host path's, so no combiner or consumer
+        # granularity constraint applies.
+        if settings.analyze:
+            from ..analyze import torchtrace
+
+            spec, why = torchtrace.chain_claims(stage.mapper)
+            if spec is not None:
+                return "device", why + " (verified-per-block lane program)"
         return "host", "no device lowering for {} (opaque UDF)".format(
             ir.part_name(head))
     bad = [p for p in tail if not ir.is_identity_mapper(p)]

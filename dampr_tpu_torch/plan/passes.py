@@ -7,7 +7,9 @@ Rules, all run before every run:
   reaches are dropped.
 - **map fusion**: a GMap ``A`` whose output only GMap ``B`` consumes,
   with no combiner on ``A`` and no barrier on either, collapses into
-  ``B``.  Pure per-record chains on both sides compose into one mapper;
+  ``B``.  Pure per-record chains on both sides compose into one mapper,
+  unless the static analyzer (``settings.analyze``) finds an
+  evidence-impure UDF on either side;
   an identity tail (a checkpoint head) dissolves into any producer, whose
   mapper (and with it a scanner's block or device path) stays as it was.
   The tail's combiner and output survive on the fused stage.
@@ -24,17 +26,13 @@ may absorb a private producer); stages whose chain holds ``Sample`` or
 consumer stays, which covers shared prefixes (``Graph.union`` dedupes
 them) and every requested output.
 
-The JAX package lets its static analyzer (``settings.analyze``) veto
-composing an evidence-impure UDF into another stage.  The port has no
-analyzer and so no veto: it fuses as the JAX package does with
-``analyze`` off.
-
 Every rewrite builds fresh nodes; nodes of the input graph are never
 mutated (other live handles may share them).
 """
 
 import logging
 
+from .. import settings
 from ..graph import GMap, GSink
 from . import ir
 
@@ -67,6 +65,27 @@ def _dead_stage_elimination(stages, outputs, report):
     return [s for i, s in enumerate(stages) if keep[i]]
 
 
+def _impure_blocks_compose(*stages):
+    """Does the static analyzer (settings.analyze) veto composing these
+    stages' record chains into one stage?  An evidence-impure UDF keeps
+    its own stage: fusing it would move its side effects into another
+    stage's job and retry scope.  ``assume_pure=True`` stage options
+    suppress (honored inside stage_verdict).  Identity dissolves never
+    consult this — they leave the surviving mapper untouched."""
+    if not settings.analyze:
+        return False
+    from ..analyze import props
+
+    for s in stages:
+        try:
+            if not props.stage_verdict(s).pure:
+                return True
+        except Exception:  # noqa: BLE001 - analysis never fails a plan
+            continue  # unclassifiable stage: benefit of the doubt,
+            #           but keep checking the OTHER stages
+    return False
+
+
 def _fusable_pair(a, b, counts, protected):
     """May GMap ``b`` absorb its producer GMap ``a``?  The rule's name
     ('fuse_maps' / 'hoist_combiners') or None."""
@@ -81,6 +100,8 @@ def _fusable_pair(a, b, counts, protected):
     if ir.is_identity_mapper(b.mapper):
         return "hoist_combiners" if ir.has_combiner(b) else "fuse_maps"
     if ir.is_record_chain(a.mapper) and ir.is_record_chain(b.mapper):
+        if _impure_blocks_compose(a, b):
+            return None
         return "fuse_maps"
     return None
 
@@ -118,7 +139,8 @@ def _fuse_maps(stages, protected, report):
                     and counts.get(a.output, 0) == 1
                     and not ir.has_combiner(a)
                     and ir.is_record_chain(a.mapper)
-                    and ir.is_record_chain(b.sinker)):
+                    and ir.is_record_chain(b.sinker)
+                    and not _impure_blocks_compose(a)):
                 rule = "fuse_sinks"
                 fused = GSink(a.inputs, b.output,
                               ir.compose_mappers(a.mapper, b.sinker),

@@ -16,6 +16,10 @@ the sort-merge joins of co-partitioned inputs.
   :mod:`.plan.lower`) drives the chunk's line-aligned windows through
   :class:`.ops.lower.DeviceTokenFoldSink` — the FNV and segmented-fold
   kernels on ``settings.device``;
+- a **certified numeric chain** (``exec_target == "device"`` on a chain
+  :mod:`.analyze.torchtrace` certifies) takes the batched record path
+  with its lane program: whole batches evaluated vectorized, dispatched
+  to ``settings.device`` and checked against the host's result;
 - everything else runs on host: ``map_blocks`` scanners, identity block
   pass-through, the **batched record path** (a chain of typed record ops,
   ``base.record_op_chain``, run a batch at a time through each op's
@@ -192,7 +196,7 @@ def _record_batches(chunk, B):
     return slices()
 
 
-def _run_record_chain(chain, batches, B, push, prof=None):
+def _run_record_chain(chain, batches, B, push, prof=None, prog=None):
     """Run a record-op chain over ``batches`` through each op's
     ``apply_batch`` and push the survivors as ``B``-record blocks.
 
@@ -202,7 +206,15 @@ def _run_record_chain(chain, batches, B, push, prof=None):
     once.  Slices keep stream order, so results equal the streamed
     chain's.  With the per-operator profiler ``prof``, each op's
     ``apply_batch`` is timed once per batch under its index-prefixed
-    label."""
+    label.
+
+    ``prog``, a certified chain's lane program
+    (:class:`.analyze.torchtrace.ChainProgram`), evaluates whole batches
+    vectorized (the 64-bit host result decides; the device dispatch is
+    verified per batch inside ``run_batch``); a batch outside its
+    contract runs the chain.  The first vectorized batch is also run
+    through the chain and compared: a divergence (int64 wrap, a
+    dtype-sensitive UDF) drops the rest of the job back to the chain."""
     pk, pv = [], []
     labels = _profile.chain_labels(chain) if prof is not None else None
 
@@ -214,7 +226,7 @@ def _run_record_chain(chain, batches, B, push, prof=None):
             del pk[:B]
             del pv[:B]
 
-    def run(ks, vs, start):
+    def run(ks, vs, start, emit=emit):
         for i in range(start, len(chain)):
             op = chain[i]
             if type(op) is base.FlatMap and len(ks) > 1024:
@@ -231,7 +243,7 @@ def _run_record_chain(chain, batches, B, push, prof=None):
                     if sks:
                         fan = -(-len(sks) // took)
                         step = max(64, min(B, B // fan))
-                        run(sks, svs, i + 1)
+                        run(sks, svs, i + 1, emit)
                 return
             if prof is None:
                 ks, vs = op.apply_batch(ks, vs)
@@ -244,8 +256,28 @@ def _run_record_chain(chain, batches, B, push, prof=None):
                 return
         emit(ks, vs)
 
+    diffed = False
     for ks, vs in batches:
-        run(ks, vs, 0)
+        out = prog.run_batch(ks, vs) if prog is not None else None
+        if out is not None and not diffed:
+            diffed = True
+            staged = []
+            run(ks, vs, 0, lambda a, b: staged.append((a, b)))
+            rks = [k for a, _ in staged for k in a]
+            rvs = [v for _, b in staged for v in b]
+            prog.count("diff_checked")
+            if rks != out[0] or rvs != out[1]:
+                prog.count("diff_diverged")
+                log.warning("lane program diverged from the per-record "
+                            "chain on its first batch (%s); the job falls "
+                            "back to the per-record path",
+                            prog.spec.describe())
+                prog = None
+                out = (rks, rvs)
+        if out is None:
+            run(ks, vs, 0)
+        else:
+            emit(*out)
     if pk:
         push(Block.from_lists(pk, pv))
 
@@ -1031,6 +1063,15 @@ class MTRunner(object):
                     and isinstance(s.reducer, base.AssocFoldReducer)
                     and s.reducer.op.kind in ("sum", "min", "max")
                     for s in self.graph.stages))
+        # A certified numeric chain (analyze.torchtrace): the batched
+        # record path runs whole batches through one lane program.
+        # stage_program certifies the chain again, so a stale annotation
+        # can never dispatch an unknown op.
+        lane_program = None
+        if stage.options.get("exec_target") == "device" and not dev_lowered:
+            from .analyze import torchtrace
+
+            lane_program = torchtrace.stage_program(stage)
         # The handoff: this stage's edge keeps the lowered program's counts
         # on the device into the fold (plan.lower.handoff_analyze).
         stage_handoff = sid is not None and sid in self._handoff_sids
@@ -1181,7 +1222,7 @@ class MTRunner(object):
                     push(blk)
             elif chain is not None:
                 _run_record_chain(chain, _record_batches(chunk, B), B, push,
-                                  prof)
+                                  prof, lane_program)
             elif prof is not None and combine_op is None:
                 # a generator chain does not decompose per op: the whole
                 # stream under one label keeps the stage's coverage

@@ -172,9 +172,20 @@ def effective_handoff_budget():
     return 0
 
 
-def _env_flag(name):
-    return os.environ.get(name, "0").lower() not in (
+def _env_flag(name, default="0"):
+    return os.environ.get(name, default).lower() not in (
         "0", "false", "no", "off", "")
+
+
+#: Static pipeline analysis (:mod:`.analyze`): UDF purity and determinism
+#: verdicts from bytecode, the pickle probe, fold associativity, and the
+#: traceability probe that certifies numeric ``map``/``filter`` chains as
+#: device lane programs.  On (the default), every run's plan report
+#: carries an ``analysis`` section, fusion declines to fuse across an
+#: evidence-impure UDF, and a certified chain lowers to the device.  Off
+#: (``DAMPR_TPU_TORCH_ANALYZE=0``), each hook is one flag check and plans
+#: and results are those of an engine without the analyzer.
+analyze = _env_flag("DAMPR_TPU_TORCH_ANALYZE", "1")
 
 
 #: When set, every run is wrapped in ``torch.profiler.profile`` (CPU

@@ -31,7 +31,8 @@ def test_port_imports_without_jax_or_the_jax_package(tmp_path):
     ``dampr_tpu`` module is loaded along the way, not even when the
     two-input stages run (the TF-IDF pipeline's cross and ``len()``, the
     joins) and the out-of-core paths (spill frames through the writer
-    pool, a streaming fold and join, sorted runs), on the CPU."""
+    pool, a streaming fold and join, sorted runs) and the static analyzer
+    (a certified chain's lane program, ``validate()``), on the CPU."""
     code = r"""
 import importlib, json, math, operator, pkgutil, sys
 sys.modules["jax"] = None
@@ -62,6 +63,10 @@ records = {"count": words.count().read(),
            "sorted": [c for _w, c in
                       words.count().sort_by(lambda wc: -wc[1]).read()],
            "kept": filter_by_count(words, lambda w: w, lambda c: c > 1).read()}
+chain = (Dampr.memory(list(range(5000)), partitions=1)
+         .map(lambda x: x * 3 + 1).filter(lambda x: x % 2 == 0))
+records["chain"] = sum(chain.read())
+records["validate"] = [d.code for d in chain.validate()]
 settings.streaming_reduce_threshold = 1
 ooc = {"fold": words.count().run(memory_budget=1).read(),
        "join": left.join(right).reduce(lambda l, r: (list(l), list(r)))
@@ -90,7 +95,10 @@ print(json.dumps({"modules": names, "reference": loaded,
                  "utils.indexer", "io", "io.codecs", "io.frames",
                  "io.writer", "storage", "obs", "obs.critpath",
                  "obs.export", "obs.flightrec", "obs.log", "obs.metrics",
-                 "obs.profile", "obs.progress", "obs.sampler", "obs.trace"):
+                 "obs.profile", "obs.progress", "obs.sampler", "obs.trace",
+                 "analyze", "analyze.assoc", "analyze.lint",
+                 "analyze.pickleprobe", "analyze.props", "analyze.torchtrace",
+                 "analyze.validate"):
         assert "dampr_tpu_torch." + name in report["modules"]
     assert report["idf"] == [["a", 2, 4], ["b", 2, 4], ["c", 1, 4]]
     assert report["len"] == [4]
@@ -103,7 +111,10 @@ print(json.dumps({"modules": names, "reference": loaded,
         "count": [["a", 2], ["b", 2], ["c", 1]],
         "mean": [[1, 1.0]],
         "sorted": [2, 2, 1],
-        "kept": ["a", "a", "b", "b"]}
+        "kept": ["a", "a", "b", "b"],
+        "chain": sum(v for v in (x * 3 + 1 for x in range(5000))
+                     if v % 2 == 0),
+        "validate": ["DTA501", "DTA501"]}
     assert report["ooc"] == {"fold": [["a", 2], ["b", 2], ["c", 1]],
                              "join": pair, "sort": [1, 2, 3]}
 
