@@ -150,7 +150,27 @@ the kernels build for sm_90a).  Phases, each of which must pass:
     module building the port's ``wc``, ``word_stats`` and TF-IDF
     pipelines: no error, no warning, and the report passes
     ``tools/validate_lint.py``.  The ``tfidf`` and ``wc`` runs' plan
-    reports carry the analyzer's section, with no error and no warning.
+    reports carry the analyzer's section, with no error and no warning;
+15. ``adapt``, the run-history corpus and the adaptive plan, under a
+    scratch root of its own: (a) the ``tfidf`` pipeline three times under
+    one run name, ``settings.handoff`` "auto" (an empty corpus), "off",
+    "auto": every sink line equal to the oracle, one ``adapt-tfidf`` line
+    per run (seconds, the handoff edges with their kind and reason,
+    ``device_fraction``, the adaptive and cost sections, the launches),
+    the "off" run's ``device_fraction`` above 0, and the third run's edge
+    the decision of ``plan.model.price_handoff`` over the two records
+    before it (an ``adapt-price`` line), the corpus holding three
+    records; (b) DocFreq over the first 16 MB twice under one name,
+    ``n_partitions`` not pinned: the second run adapts (``adapt-size``);
+    (c) with lowering off, a ``wc``-shaped count
+    (``fold_by(word, binop=operator.add, value=1)``: an ``early_fold``
+    edge) and an unfused map -> map chain (an impure UDF; sorted runs
+    off) over the same 16 MB, each with ``settings.pipeline`` "auto" and
+    "off": equal records, equal to a ``split()`` Counter and the line
+    lengths, the auto runs' edges executed (``adapt-stream`` lines with
+    the folder's fold, overlap and stall seconds); (d) ``explain()`` of
+    the TF-IDF and ``wc`` plans under their names launches no kernel and
+    leaves the corpora as they were (``adapt-explain``: line counts).
 
 K1's lanes entry is also checked and timed at the ``wc`` batch shape (the
 corpus's first 65,536 words, padded as the combine pads them).  Every
@@ -2479,6 +2499,234 @@ def phase_analyze(torch, np, Dampr, settings, kernels, workdir, corpus,
     return line
 
 
+def adapt_edges(stats):
+    """The TF-IDF run's handoff edges: (src, dst, handoff, kind, reason)."""
+    return [[e["src"], e["dst"], e["handoff"], e["kind"], e["reason"]]
+            for e in stats["plan"]["lowering"]["handoff"]]
+
+
+def phase_adapt(Dampr, DocFreq, settings, kernels, workdir, corpus, chunk,
+                nbytes, df, n_lines, plain_lines, head, head_df):
+    """The run-history corpus and the adaptive plan, under a fresh scratch
+    root of their own:
+
+    (a) the TF-IDF pipeline three times under one name (handoff "auto"
+        over an empty corpus, "off", "auto" again): each run's sink lines
+        equal the oracle; the third run's edge decision must be the one
+        ``plan.model.price_handoff`` gives over the two records before it,
+        and the corpus must end with three records;
+    (b) DocFreq -> ``fold_values(add)`` over the 16 MB head twice under
+        one name, ``n_partitions`` not pinned: the second run's plan report
+        says ``adaptive.applied`` with its changes, and both read back the
+        head's oracle;
+    (c) streamed edges, lowering off (a device-lowered fold keeps its
+        barrier): a ``wc``-shaped count over the head
+        (``fold_by(word, binop=operator.add, value=1)``, an ``early_fold``
+        edge) and an unfused map -> map chain over its lines (an impure
+        UDF keeps the optimizer from fusing; sorted runs off), each with
+        ``settings.pipeline`` "auto" then "off", records equal, the auto
+        runs' ``stats()["pipeline"]`` showing the edge executed (and early
+        folded blocks for the count);
+    (d) ``explain()`` of the TF-IDF and ``wc`` plans under their run
+        names: no kernel launches, the corpora unchanged.
+
+    Kernel counts are zeroed just before each run and read just after;
+    returns their sum over the phase."""
+    from dampr_tpu_torch.obs import history
+    from dampr_tpu_torch.plan import model
+
+    saved = {k: getattr(settings, k) for k in (
+        "scratch_root", "handoff", "pipeline", "lower", "sort_runs")}
+    settings.scratch_root = os.path.join(workdir, "adapt_scratch")
+    total = dict.fromkeys(kernels, 0)
+
+    def timed(build, name):
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        em = build().run(name=name)
+        secs = time.perf_counter() - t0
+        launches = read_launches(kernels)
+        for k, n in launches.items():
+            total[k] += n
+        return em, secs, launches
+
+    try:
+        # -- (a) the priced handoff on the main path ------------------------
+        name = "chip-adapt-tfidf"
+        want = tfidf_oracle_lines(df, n_lines)
+        runs = []
+        for i, mode in enumerate(("auto", "off", "auto")):
+            settings.handoff = mode
+            out_dir = os.path.join(workdir, "idf_adapt_{}".format(i))
+            em, secs, launches = timed(lambda: tfidf_pipeline(
+                Dampr, DocFreq, corpus, chunk, out_dir), name)
+            stats = em.stats()
+            got = part_lines(out_dir)
+            check(got == want and got == plain_lines,
+                  "adapt run {}: TF-IDF sink lines differ from the oracle"
+                  .format(i + 1))
+            d = stats["device"]
+            line = {"run": i + 1, "handoff_setting": mode, "seconds": secs,
+                    "mb_per_s": nbytes / 1e6 / secs,
+                    "edges": adapt_edges(stats),
+                    "handoff_edges": d["handoff_edges"],
+                    "device_fraction": d["device_fraction"],
+                    "n_partitions": stats["n_partitions"],
+                    "adaptive": stats["plan"]["adaptive"],
+                    "cost": {k: stats["plan"]["cost"].get(k) for k in (
+                        "enabled", "source", "reason")},
+                    "targets": [[t["sid"], t["target"]] for t in
+                                stats["plan"]["lowering"]["targets"]],
+                    "kernels": launches}
+            runs.append(line)
+            log("adapt-tfidf " + json.dumps(line))
+            check(launches["fnv"] > 0 and launches["segfold"] > 0,
+                  "adapt run {}: K1 or K2 never launched: {}".format(
+                      i + 1, launches))
+            check((launches["handoff"] > 0) == (d["handoff_edges"] > 0),
+                  "adapt run {}: B4 launches {} with {} device edges"
+                  .format(i + 1, launches["handoff"], d["handoff_edges"]))
+        check(runs[1]["device_fraction"] > 0,
+              "adapt: the handoff-off TF-IDF run reads device_fraction 0, "
+              "so it never votes in the handoff pricing")
+        recs = history.load(name)
+        check(len(recs) == 3, "adapt: the corpus holds {} records, not 3"
+              .format(len(recs)))
+        choice, why = model.price_handoff(recs[:2], recs[2]["fingerprint"])
+        priced = [e for e in runs[2]["edges"] if e[3] in ("priced",
+                                                          "resident")]
+        check(priced, "adapt run 3: no edge reached the pricing")
+        for e in priced:
+            if choice == "spill":
+                check(e[2:] == ["spill", "priced", why],
+                      "adapt run 3: edge {} is not the corpus's spill "
+                      "decision ({})".format(e, why))
+            else:
+                check(e[2:4] == ["device", "resident"],
+                      "adapt run 3: edge {} is not the corpus's device "
+                      "decision ({}, {})".format(e, choice, why))
+        log("adapt-price " + json.dumps({
+            "decision": choice, "reason": why,
+            "records": len(recs),
+            "walls": [r["wall_seconds"] for r in recs],
+            "input_mb": [max(st.get("bytes_in") or 0
+                             for st in r["stages"]) / 1e6 for r in recs],
+            "edges_resident": [r["handoff"]["edges"] for r in recs],
+            "device_fraction": [r["device_fraction"] for r in recs]}))
+        settings.handoff = saved["handoff"]
+
+        # -- (b) adaptive sizing ------------------------------------------
+        sized = []
+        for _ in range(2):
+            em, secs, launches = timed(lambda: (
+                Dampr.text(head, chunk // 8 + 1).custom_mapper(
+                    DocFreq(mode="word", lower=True, pair_values=False))
+                .fold_values(operator.add)), "chip-adapt-size")
+            got = em.read()
+            stats = em.stats()
+            em.delete()
+            check(got == sorted(head_df.items()),
+                  "adapt sizing: DocFreq of the head differs from the oracle")
+            sized.append({"seconds": secs,
+                          "n_partitions": stats["n_partitions"],
+                          "adaptive": stats["plan"]["adaptive"],
+                          "kernels": launches})
+        ad = sized[1]["adaptive"]
+        check(ad["applied"] and ad["changes"],
+              "adapt sizing: the second run did not adapt: {}".format(ad))
+        log("adapt-size " + json.dumps(sized))
+
+        # -- (c) streamed edges -------------------------------------------
+        settings.lower = "off"
+        settings.sort_runs = "off"
+        seen = []
+
+        def wc_count():
+            return (Dampr.text(head, chunk // 8 + 1)
+                    .flat_map(lambda line: line.split())
+                    .fold_by(lambda w: w, binop=operator.add,
+                             value=lambda w: 1))
+
+        def chain():
+            return (Dampr.text(head, chunk // 8 + 1)
+                    .map(lambda line: len(line))
+                    .map(lambda n: (seen.append(n), n * 2 + 1)[1]))
+
+        streamed, results = {}, {}
+        for what, build in (("early_fold", wc_count), ("chain", chain)):
+            out = {}
+            for mode in ("auto", "off"):
+                settings.pipeline = mode
+                em, secs, launches = timed(build, "chip-adapt-" + what)
+                got = em.read()
+                stats = em.stats()
+                em.delete()
+                edges = [e for e in stats["plan"]["pipeline"]["edges"]
+                         if e["decision"] == "streamed"
+                         and e["mode"] == what]
+                out[mode] = (got, stats, {
+                    "edge": what, "pipeline": mode, "seconds": secs,
+                    "records": len(got),
+                    "plan_edges": len(edges),
+                    "pipeline_stats": {k: v for k, v in
+                                       stats["pipeline"].items()
+                                       if k != "queue_depth_series"},
+                    "stage_kinds": [s["kind"] for s in stats["stages"]],
+                    "kernels": launches})
+                log("adapt-stream " + json.dumps(out[mode][2]))
+            on, off = out["auto"], out["off"]
+            check(on[0] == off[0], "adapt {}: pipelined records differ "
+                                   "from staged".format(what))
+            check(on[2]["plan_edges"] == 1 and on[1]["pipeline"][
+                "executed"] >= 1, "adapt {}: the streamed edge did not "
+                                  "execute: {}".format(what, on[2]))
+            check(off[1]["pipeline"]["executed"] == 0,
+                  "adapt {}: pipeline off still streamed".format(what))
+            streamed[what] = on[1]["pipeline"]
+            results[what] = on[0]
+        check(streamed["early_fold"]["early_folded_blocks"] > 0,
+              "adapt: the early folder folded no block")
+        words = collections.Counter()
+        lens = []
+        with open(head, encoding="utf-8") as f:
+            for line in f:
+                words.update(line.split())
+                lens.append(2 * len(line.rstrip("\n")) + 1)
+        check(results["early_fold"] == sorted(words.items()),
+              "adapt: the streamed count differs from the split() Counter")
+        check(sorted(results["chain"]) == sorted(lens),
+              "adapt: the streamed chain differs from the line lengths")
+        settings.lower = saved["lower"]
+        settings.sort_runs = saved["sort_runs"]
+        settings.pipeline = saved["pipeline"]
+
+        # -- (d) explain() runs nothing -------------------------------------
+        before = {n: len(history.load(n)) for n in (
+            "chip-adapt-tfidf", "chip-adapt-early_fold")}
+        zero_launches(kernels)
+        texts = {"tfidf": tfidf_pipeline(
+            Dampr, DocFreq, corpus, chunk,
+            os.path.join(workdir, "idf_explain")).explain(
+                name="chip-adapt-tfidf"),
+            "wc": wc_count().explain(name="chip-adapt-early_fold")}
+        check(all(v == 0 for v in read_launches(kernels).values()),
+              "adapt: explain() launched a kernel")
+        check(before == {n: len(history.load(n)) for n in before},
+              "adapt: explain() changed a corpus")
+        check(not os.path.exists(os.path.join(workdir, "idf_explain")),
+              "adapt: explain() wrote the sink")
+        for what, text in texts.items():
+            check("cost model:" in text and "pipeline:" in text,
+                  "adapt: explain() of {} lacks its plan sections"
+                  .format(what))
+        log("adapt-explain " + json.dumps(
+            {k: len(v.splitlines()) for k, v in texts.items()}))
+    finally:
+        for k, v in saved.items():
+            setattr(settings, k, v)
+    return total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mb", type=int, default=128,
@@ -2524,6 +2772,9 @@ def main(argv=None):
         .format(torch.__version__, torch.version.cuda))
 
     workdir = tempfile.mkdtemp(prefix="dampr-chip-smoke-")
+    # every run's spills and run history under this script's own root: no
+    # corpus of an earlier process sizes or prices a run here
+    settings.scratch_root = os.path.join(workdir, "scratch")
     try:
         corpus = os.path.join(workdir, "corpus.txt")
         t0 = time.perf_counter()
@@ -2809,6 +3060,17 @@ def main(argv=None):
         log("phase analyze: the integer and float chains exact on and off, "
             "every batch dispatched and verified; lint clean; in {:.3f} s"
             .format(time.perf_counter() - t0))
+
+        # -- the run-history corpus and the adaptive plan -------------------
+        t0 = time.perf_counter()
+        adapt_launches = phase_adapt(
+            Dampr, DocFreq, settings, KERNELS, workdir, corpus, chunk,
+            nbytes, df, n_lines, part_lines(os.path.join(workdir, "idf")),
+            head, head_df)
+        log("phase adapt: three named TF-IDF runs exact, the third priced "
+            "from the corpus; a sized run adapted; early-fold and chain "
+            "edges streamed, equal to staged; explain() ran nothing; in "
+            "{:.3f} s".format(time.perf_counter() - t0))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2831,6 +3093,7 @@ def main(argv=None):
             "launches_ooc": ooc_launches[name],
             "launches_ingest": ingest_launches[name],
             "launches_obs": obs_launches[name],
+            "launches_adapt": adapt_launches[name],
             "max_abs_err": err[name], "ms": main_t["ms"],
             "device_ms": main_t["device_ms"], "host_ms": main_t["host_ms"],
             "profiler_ms": main_t["profiler_ms"],
@@ -2861,6 +3124,7 @@ def main(argv=None):
         "launches_ingest": ingest_launches["handoff"],
         "launches_handoff": handoff_launches["handoff"],
         "launches_obs": obs_launches["handoff"],
+        "launches_adapt": adapt_launches["handoff"],
         "max_abs_err": err["handoff"], "ms": ht["ms"],
         "device_ms": ht["device_ms"], "host_ms": ht["host_ms"],
         "profiler_ms": ht["profiler_ms"], "plain_ms": ht["plain"]["ms"],

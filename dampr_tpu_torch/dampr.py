@@ -1,7 +1,7 @@
 """The fluent DSL: lazy, value-semantic pipeline construction.
 
-Port of ``dampr_tpu/dampr.py`` without the ``explain``/``submit``/resume
-surfaces: the sources (``Dampr.text``/``json``/
+Port of ``dampr_tpu/dampr.py`` without the ``submit``/resume surfaces:
+the sources (``Dampr.text``/``json``/
 ``memory``/``urls``/``read_input``/``from_dataset``),
 the per-record ops (``map``, ``map_values``, ``map_keys``, ``prefix``,
 ``suffix``, ``filter``, ``flat_map``, ``sample``, ``inspect``), the
@@ -9,8 +9,9 @@ associative folds (``fold_by``, ``a_group_by`` -> ``reduce``/``sum``/
 ``first``, ``count``, ``mean``), ``sort_by``, ``topk``, ``group_by`` ->
 :class:`PReduce`, ``len()``, the custom operators, the joins
 (:class:`PJoin`) and map-side crosses, ``checkpoint``/``cached``, the
-sinks, single- and multi-output runs, and ``validate()`` (the static
-analyzer's diagnostics, :mod:`.analyze`).
+sinks, single- and multi-output runs, ``explain()`` (the plan as text,
+:mod:`.plan.explain`) and ``validate()`` (the static analyzer's
+diagnostics, :mod:`.analyze`).
 
 Every chained call is its own stage node; the plan (:mod:`.plan`) fuses
 chains of per-record stages into one executed map stage at ``run()``
@@ -120,6 +121,16 @@ class PBase(object):
         em.stats = RunStats([s.as_dict() for s in runner.stats],
                             runner.run_summary)
         return em
+
+    def explain(self, name=None):
+        """This pipeline's plan as text, without executing anything: the
+        constructed and optimized stage lists, the fusion decisions, and
+        what the plan layers would decide.  ``name`` is a run name whose
+        history the adaptive sizing, the cost model and the handoff
+        pricing would read."""
+        from . import plan as _plan
+
+        return _plan.explain_text(self.pmer.graph, [self.source], name=name)
 
     def validate(self, resume=False, num_processes=1, probe=True):
         """Pre-flight diagnostics for this pipeline, WITHOUT executing
@@ -532,6 +543,10 @@ class PJoin(PBase):
 
     def run(self, name=None, **kwargs):
         return self.reduce(_pair_lists).run(name, **kwargs)
+
+    def explain(self, name=None):
+        # a bare join runs through the pairing reduce: explain that plan
+        return self.reduce(_pair_lists).explain(name=name)
 
     def _join(self, reducer):
         source, pmer = self.pmer._add_reducer([self.source, self.right],

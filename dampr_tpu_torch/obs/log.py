@@ -64,7 +64,11 @@ EVENT_CODES = {
                          "(daemon abandoned; wedged codec or disk write)",
     "overlap-producer-stuck": "an overlapped codec producer thread failed "
                               "to join at shutdown",
+    "early-fold-stuck": "the early-fold worker failed to drain at stage "
+                        "end; unfolded mappings used",
     # -- degraded execution paths --------------------------------------------
+    "early-fold-error": "an early-fold attempt raised; folding disabled "
+                        "for the stage (originals kept)",
     "codec-fallback": "a configured compression codec is unavailable; "
                       "encoding fell down the zstd->lz4->zlib ladder",
 }

@@ -168,6 +168,55 @@ def describe_stage(stage):
     return repr(stage)
 
 
+def stage_shape(stage):
+    """The structural key a stage matches a prior run's history by
+    (:mod:`.cost`): its kind and its operator chain's class names, not
+    its captured values, so two runs of the same pipeline code match."""
+    if isinstance(stage, GInput):
+        return "input:" + type(stage.tap).__name__
+    if isinstance(stage, GMap):
+        names = ".".join(type(p).__name__
+                         for p in flatten_mapper(stage.mapper))
+        if has_combiner(stage):
+            names += "+c"
+        return "map:" + names
+    if isinstance(stage, GReduce):
+        return "reduce:" + type(stage.reducer).__name__
+    if isinstance(stage, GSink):
+        return "sink:" + type(stage.sinker).__name__
+    return "other:" + type(stage).__name__
+
+
+def stage_shapes(graph):
+    """One shape record per executed stage, with the runner's stage id
+    (the index in the full stage list, inputs included)."""
+    return [{"sid": i, "shape": stage_shape(s)}
+            for i, s in enumerate(graph.stages) if not isinstance(s, GInput)]
+
+
+def graph_signature(graph):
+    """Structural signature for idempotence checks: stage kinds, operator
+    identities and input wiring (as producer positions)."""
+    pos = {s.output: i for i, s in enumerate(graph.stages)}
+    sig = []
+    for stage in graph.stages:
+        ops = ()
+        if isinstance(stage, GMap):
+            ops = tuple(id(p) for p in flatten_mapper(stage.mapper))
+            ops += (id(stage.combiner),)
+        elif isinstance(stage, GReduce):
+            ops = (id(stage.reducer),)
+        elif isinstance(stage, GSink):
+            ops = tuple(id(p) for p in flatten_mapper(stage.sinker))
+            ops += (stage.path,)
+        sig.append((stage_kind(stage),
+                    tuple(pos.get(s, -1) for s in stage.inputs),
+                    ops,
+                    tuple(sorted((k, repr(v)) for k, v in
+                                 (stage.options or {}).items()))))
+    return tuple(sig)
+
+
 def stage_provenance(stage):
     """The descriptions of the original stages a fused node was built
     from, or None for a stage never fused."""

@@ -1,8 +1,8 @@
 """The device-lowering pass: assign each executed stage a target.
 
-Port of ``dampr_tpu/plan/lower.py`` (``analyze``, ``handoff_analyze``
-and ``apply``; history-driven placement and shuffle routing are later
-slices):
+Port of ``dampr_tpu/plan/lower.py`` (``analyze`` with its history
+placement floor, ``handoff_analyze`` with its corpus pricing, and
+``apply``; shuffle routing waits for the multi-card slice):
 
 - a **map** stage lowers when its chain is a numeric ``map``/``filter``
   chain the static analyzer certifies (:mod:`..analyze.torchtrace`,
@@ -19,16 +19,25 @@ slices):
 - a **reduce** stage lowers when it is an associative ``sum``/``min``/
   ``max`` fold (the device segment folds, exact-lane gated per block).
 
-Lowered stages get ``options["exec_target"] = "device"`` on a fresh clone;
-the decisions with their reasons land in the plan report's ``lowering``
-section.  Master switch: ``settings.lower``.  Each edge from a lowered
-map into a lowered fold may then keep its counts on the device
-(:func:`handoff_analyze`, ``settings.handoff``).
+In "auto" lowering a named run's shape-matched history (:mod:`.cost`)
+places a stage back on the host when it emitted fewer than
+:data:`LOWER_MIN_RECORDS` records.  Lowered stages get
+``options["exec_target"] = "device"`` on a fresh clone; the decisions
+with their reasons land in the plan report's ``lowering`` section.
+Master switch: ``settings.lower``.  Each edge from a lowered map into a
+lowered fold may then keep its counts on the device
+(:func:`handoff_analyze`, ``settings.handoff``), unless the run's corpus
+prices the spill path faster.
 """
 
 from .. import base, settings
 from ..graph import GMap, GReduce
 from . import ir
+
+#: The history placement floor: in "auto" lowering a stage the plan would
+#: lower stays on the host when its shape-matched history shows it emitted
+#: fewer records than this (a dispatch costs more than it saves).
+LOWER_MIN_RECORDS = 4096
 
 
 def _fold_kind(stage):
@@ -127,8 +136,23 @@ def _reduce_decision(stage):
         "(exact-lane gate per block)".format(red.op.kind)
 
 
-def analyze(graph, outputs=()):
-    """Per-executed-stage decisions: [{sid, kind, target, reason}]."""
+def is_sort_stage(stage):
+    """A map whose chain re-keys for a global sort (``sort_by``'s
+    ``Rekey``): its output is read back key-sorted, and that read's range
+    redistribution is a shuffle to route."""
+    if not isinstance(stage, GMap):
+        return False
+    return any(isinstance(p, base.Rekey)
+               for p in ir.flatten_mapper(stage.mapper))
+
+
+def analyze(graph, outputs=(), history=None):
+    """Per-executed-stage decisions: [{sid, kind, target, reason}].
+    ``history`` (a shape-matched summary, :func:`.cost.matched_history`)
+    drives the placement floor."""
+    by_sid = {}
+    if history:
+        by_sid = {s.get("stage"): s for s in history.get("stages", [])}
     protected = set(outputs)
     decisions = []
     for sid, stage in enumerate(graph.stages):
@@ -141,27 +165,34 @@ def analyze(graph, outputs=()):
             target, reason = _reduce_decision(stage)
         else:
             target, reason = "host", "sinks write through the host"
+        if target == "device":
+            recs = (by_sid.get(sid) or {}).get("records_out")
+            if recs is not None and recs < LOWER_MIN_RECORDS:
+                target, reason = "host", (
+                    "history: {} records < lower_min_records={} — dispatch "
+                    "overhead dominates".format(recs, LOWER_MIN_RECORDS))
         decisions.append({"sid": sid, "kind": kind, "target": target,
                           "reason": reason})
     return decisions
 
 
-def handoff_analyze(graph, decisions):
+def handoff_analyze(graph, decisions, run_name=None):
     """Per edge out of a lowered map: may its counts stay on the device
     into the consumer (``handoff="device"``) or must they drain through the
     host tier (``"spill"``)?  Device when the consumer is a lowered
     associative fold, the handoff is enabled
-    (:func:`..settings.handoff_enabled`) and the scanner emits integer
-    counts.  Every decline carries its reason; results are equal either
-    way.  The reference also consults its cost model's run history here
-    (``cost.handoff_choice``), which the port has not yet: with no history
-    it decides "device", as this does."""
+    (:func:`..settings.handoff_enabled`), the scanner emits integer
+    counts, and, unless the handoff is forced, the corpus of ``run_name``
+    does not price the spill path faster (:func:`.cost.handoff_choice`:
+    edge kind ``"priced"``).  Every decline carries its reason; results
+    are equal either way."""
     from ..ops import lower as ops_lower
 
     targets = {d["sid"]: d for d in decisions}
     edges = []
     if not any(d["target"] == "device" for d in decisions):
         return edges
+    priced = None
     for sid, stage in enumerate(graph.stages):
         d = targets.get(sid)
         if d is None or d["target"] != "device" or d["kind"] != "map":
@@ -175,25 +206,39 @@ def handoff_analyze(graph, decisions):
             if (not isinstance(cons, GReduce) or cd is None
                     or cd["target"] != "device"):
                 edge.update(handoff="spill", kind="no-device-consumer",
-                            reason="consumer is not a device-lowered fold: "
-                                   "outputs drain through the host tier")
+                            reason="consumer is not a device-lowered fold "
+                                   "— outputs drain through the host "
+                                   "tier")
             elif not settings.handoff_enabled():
                 edge.update(handoff="spill", kind="settings",
                             reason="handoff off (settings.handoff={!r}; hbm "
-                                   "budget {} on this device)".format(
+                                   "budget {} on this backend)".format(
                                        settings.handoff,
                                        settings.effective_hbm_budget()))
             elif params is not None and params.get("pair_values"):
                 edge.update(handoff="spill", kind="object-lane",
                             reason="pair-values scanner emits an object "
-                                   "lane: no device tier for it")
+                                   "lane — no device tier for it")
             else:
+                if not settings.handoff_forced() and run_name:
+                    if priced is None:
+                        from . import cost
+
+                        priced = cost.handoff_choice(run_name, graph)
+                    if priced[0] == "spill":
+                        edge.update(handoff="spill", kind="priced",
+                                    reason=priced[1])
+                        edges.append(edge)
+                        continue
                 edge.update(handoff="device", kind="resident",
                             via=("scanner-program" if params is not None
                                  else "lane-program"),
                             reason="producer program outputs stay "
                                    "HBM-resident into the device fold: "
-                                   "d2h/spill/h2d skipped on this edge")
+                                   "d2h/spill/h2d skipped on this edge"
+                                   + ("" if priced is None
+                                      or priced[0] is None
+                                      else " ({})".format(priced[1])))
             edges.append(edge)
     return edges
 
@@ -210,13 +255,20 @@ def apply(graph, outputs, runner=None):
     if not settings.lower_enabled():
         section["reason"] = "off (settings.lower={!r})".format(settings.lower)
         return graph, section
-    decisions = analyze(graph, outputs)
+    from . import cost
+
+    run_name = getattr(runner, "name", None)
+    # history places stages in "auto" only: a forced switch stays
+    # deterministic whatever the corpus holds
+    history = (None if settings.lower_forced()
+               else cost.matched_history(run_name, graph))
+    decisions = analyze(graph, outputs, history)
     lowered = [d["sid"] for d in decisions if d["target"] == "device"]
     section.update(enabled=True, targets=decisions,
                    device_stages=len(lowered))
     if not lowered:
         return graph, section
-    edges = handoff_analyze(graph, decisions)
+    edges = handoff_analyze(graph, decisions, run_name=run_name)
     section["handoff"] = edges
     hand_sids = {e["src"] for e in edges if e["handoff"] == "device"}
     if runner is not None:

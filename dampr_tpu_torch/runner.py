@@ -87,8 +87,19 @@ tier; and a reduce whose input holds device refs folds on the device
 card from the map's batches to the fold's final fetch.  A failed run
 releases every device ref.
 
+The plan sizes a named run from its history (:mod:`.plan.cost`): the run's
+``n_partitions`` unless the caller passed one, a map stage's
+``batch_size`` and a reduce's ``n_reducers`` options.  A **streamed
+edge** (:mod:`.plan.pipeline`, ``runner._pipeline_edges``) dissolves a
+barrier: a map feeding an associative sum/min/max fold publishes each
+finished job's blocks to a folder thread that pre-folds them while the
+map runs (:class:`_StreamFolder`), and an unfused map -> map chain runs
+the consumer's jobs per finished producer block (:meth:`MTRunner.
+_run_chain`).  Every finalized run appends one record to its name's
+run history (:mod:`.obs.history`); a failed one appends nothing.
+
 Mesh execution across cards, mitigation, faults/resume and quarantine,
-reuse, and the certified lane programs are later slices.
+and the cross-run cache are later slices.
 """
 
 import collections
@@ -429,6 +440,230 @@ def _overlap_stream(items, store, size_of=None):
     return gen()
 
 
+class _FoldDeclined(Exception):
+    """:class:`_StreamFolder` control flow: this mapping keeps its
+    original refs (an ineligible value dtype, or folding disabled while
+    it ran)."""
+
+
+class _StreamFolder(object):
+    """The consumer half of a streamed map -> keyed-fold edge
+    (:mod:`.plan.pipeline`): finished map jobs' partition mappings publish
+    into a bounded queue, and a folder thread pre-folds each under the
+    consuming reduce's associative op while the map stage still runs, so
+    the reduce inherits compacted partials.
+
+    Exactness: folding only regroups partials across jobs, and both
+    reduce paths fold the exact hash groups and emit in key order, so for
+    commutative ops no output changes.  Commutativity is gated per block
+    on the records' dtype, the JAX package's rule: ``sum`` folds integer
+    and bool values only (reordered float addition is not exact), min/max
+    any numeric values.  The first ineligible block disables folding for
+    the stage; the remaining mappings pass through untouched.
+
+    Backpressure: ``publish`` runs on the dispatching thread after the
+    job's result is in, and waits while the queued bytes would pass
+    ``bound``.  Queued bytes are charged through ``store.reserve_overlap``
+    (the spill admission sees them) and released as each mapping folds.
+    A folder error never fails the run: its mappings keep their refs."""
+
+    def __init__(self, store, op, bound, device=False):
+        self.store = store
+        self.op = op
+        self.bound = max(1, int(bound))
+        self.device = device
+        self.folded = {}      # job idx -> replacement mapping
+        self.fold_delta = {}  # pid -> staged bytes minus folded bytes
+        self.stats = {"published": 0, "early_folded_blocks": 0,
+                      "bytes_in": 0, "bytes_out": 0, "fold_seconds": 0.0,
+                      "overlap_seconds": 0.0, "stall_seconds": 0.0,
+                      "queue_peak_bytes": 0, "queue_depth_series": []}
+        self._q = queue.Queue()
+        self._cv = threading.Condition()
+        self._pending = 0
+        self._disabled = False
+        self._t0 = time.perf_counter()
+        self._pool_done_at = None
+        self._thread = threading.Thread(
+            target=self._run, name="dampr-pipefold", daemon=True)
+        self._thread.start()
+
+    def _sample_depth(self):
+        # a bounded queue-depth series: every other sample goes once the
+        # cap is reached, so it stays an even sketch of the stage
+        series = self.stats["queue_depth_series"]
+        series.append([round(time.perf_counter() - self._t0, 4),
+                       self._pending])
+        if len(series) > 512:
+            del series[::2]
+
+    def publish(self, idx, mapping):
+        """Dispatch-thread side: charge, wait under the bound, enqueue.
+        ``mapping`` is the job's ``{pid: [refs]}``; the folder may replace
+        it whole in ``self.folded[idx]``."""
+        if self._disabled:
+            return
+        nb = sum(ref.total_bytes for refs in mapping.values()
+                 for ref in refs)
+        if nb <= 0:
+            return
+        wait_t0 = 0.0
+        with self._cv:
+            while (self._pending > 0 and self._pending + nb > self.bound
+                    and not self._disabled):
+                if not wait_t0:
+                    wait_t0 = _trace.now()
+                self._cv.wait(0.05)
+            if self._disabled:
+                if wait_t0:
+                    self.stats["stall_seconds"] += _trace.now() - wait_t0
+                return
+            self._pending += nb
+            self.stats["queue_peak_bytes"] = max(
+                self.stats["queue_peak_bytes"], self._pending)
+            self._sample_depth()
+        if wait_t0:
+            self.stats["stall_seconds"] += _trace.now() - wait_t0
+            _trace.complete("stall", "stream-wait", wait_t0)
+        self.store.reserve_overlap(nb)
+        self.stats["published"] += 1
+        self.stats["bytes_in"] += nb
+        self._q.put((idx, mapping, nb))
+
+    def _value_dtype_ok(self, block):
+        dt = getattr(getattr(block, "values", None), "dtype", None)
+        if dt is None:
+            return False
+        if self.op.kind == "sum":
+            return dt.kind in "iub"
+        return dt.kind in "iubf"
+
+    def _fold_one(self, mapping):
+        """Fold one job mapping atomically: every pid folds into a fresh
+        ref before any original drops, so a failure midway (or a dtype
+        disable) leaves the original refs in place."""
+        out = {}
+        blocks_in = sum(len(refs) for refs in mapping.values())
+        try:
+            with _trace.span("pipeline", "early-fold", lane="pipeline",
+                             blocks=blocks_in):
+                for pid, refs in mapping.items():
+                    if not refs:
+                        continue
+                    if self._disabled:
+                        raise _FoldDeclined()
+                    blocks = [r.get() for r in refs]
+                    merged = (blocks[0] if len(blocks) == 1
+                              else Block.concat(blocks))
+                    del blocks
+                    if not self._value_dtype_ok(merged):
+                        # one dtype per stage output: off for the stage
+                        with self._cv:
+                            self._disabled = True
+                            self._cv.notify_all()
+                        raise _FoldDeclined()
+                    folded = segment.fold_block(merged, self.op)
+                    out[pid] = [self.store.register(folded,
+                                                    device=self.device)]
+        except BaseException as e:
+            for refs in out.values():
+                for r in refs:
+                    self.store.drop_ref(r)
+            if isinstance(e, _FoldDeclined):
+                return None
+            raise
+        for pid, refs in mapping.items():
+            if pid in out:
+                self.stats["early_folded_blocks"] += len(refs)
+                for r in refs:
+                    self.store.drop_ref(r)
+            else:
+                out[pid] = list(refs)
+        return out
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            idx, mapping, nb = item
+            t0 = time.perf_counter()
+            try:
+                if not self._disabled:
+                    with devtime.charging(self.store):
+                        replacement = self._fold_one(mapping)
+                    if replacement is not None:
+                        self.folded[idx] = replacement
+                        self.stats["bytes_out"] += sum(
+                            ref.total_bytes for refs in replacement.values()
+                            for ref in refs)
+                        self._note_delta(mapping, replacement)
+            except Exception:  # noqa: BLE001 - an optimization only: the
+                #               originals stay registered
+                _obslog.warn("early-fold-error",
+                             "early-fold worker failed; disabling folding "
+                             "for this stage (originals kept)",
+                             logger=log, exc_info=True)
+                with self._cv:
+                    self._disabled = True
+                    self._cv.notify_all()
+            finally:
+                dt = time.perf_counter() - t0
+                self.stats["fold_seconds"] += dt
+                if self._pool_done_at is None:
+                    self.stats["overlap_seconds"] += dt
+                self.store.release_overlap(nb)
+                with self._cv:
+                    self._pending = max(0, self._pending - nb)
+                    self._sample_depth()
+                    self._cv.notify_all()
+
+    def _note_delta(self, mapping, replacement):
+        """Per-pid staged-minus-folded bytes: the reduce's size gate (the
+        tiny fold) decides on staged bytes, so the pipelined run takes
+        the branch the staged one would."""
+        for pid, refs in mapping.items():
+            orig = sum(r.total_bytes for r in refs)
+            now = sum(r.total_bytes for r in replacement.get(pid, ()))
+            self.fold_delta[pid] = self.fold_delta.get(pid, 0) + max(
+                0, orig - now)
+
+    def mark_pool_done(self):
+        """The map stage's jobs are done: fold seconds from here on no
+        longer overlap map compute."""
+        self._pool_done_at = time.perf_counter()
+
+    def finish(self):
+        """Drain, join, and return ``({idx: replacement}, stats)``."""
+        self._q.put(None)
+        self._thread.join(timeout=60.0)
+        if self._thread.is_alive():
+            # a wedged folder: its originals are still registered and
+            # right; the daemon releases its reservations as it drains
+            _obslog.warn("early-fold-stuck",
+                         "early-fold worker did not drain within 60s; "
+                         "using unfolded mappings", logger=log)
+            with self._cv:
+                self._disabled = True
+                self._cv.notify_all()
+            return {}, dict(self.stats)
+        return dict(self.folded), dict(self.stats)
+
+
+class _ChainedOutput(object):
+    """The env entry of a streamed chain producer's output: its blocks
+    went straight into the consumer's jobs and were dropped as each was
+    consumed, so nothing materialized."""
+
+    __slots__ = ("records",)
+
+    def __init__(self, records):
+        self.records = records
+
+    def total_records(self):
+        return self.records
+
+
 class _SharedScanChunk(object):
     """One read of a tap chunk shared by the scan-fused map stages that
     materialize its bytes: the first ``read_bytes()`` reads, later readers
@@ -742,6 +977,9 @@ class MTRunner(object):
         self.n_maps = n_maps or settings.max_processes
         self.n_reducers = n_reducers or settings.max_processes
         self.n_partitions = n_partitions or settings.partitions
+        # an explicit partition count is pinned: history-driven sizing
+        # (plan.cost) only retunes the default
+        self._explicit_partitions = n_partitions is not None
         self.store = storage.RunStore(name, budget=memory_budget)
         self.stats = []
         self.plan_report = None
@@ -755,6 +993,19 @@ class MTRunner(object):
         # handoff="device" (plan.lower.apply sets it): their jobs keep the
         # counts on the device for the consuming fold.
         self._handoff_sids = set()
+        # Streamed stage edges (plan.pipeline sets them): producer sid ->
+        # {"mode", "dst"}.  Like _handoff_sids a dispatch hint, never a
+        # stage option, so stage fingerprints do not depend on history.
+        self._pipeline_edges = {}
+        self._pipeline_stats = {
+            "executed": 0, "degraded": 0, "published": 0,
+            "early_folded_blocks": 0, "bytes_in": 0, "bytes_out": 0,
+            "fold_seconds": 0.0, "overlap_seconds": 0.0,
+            "stall_seconds": 0.0, "queue_peak_bytes": 0,
+            "queue_depth_series": []}
+        # a streamed chain's consumer results, computed at the producer's
+        # turn: the consumer's turn takes them instead of running
+        self._chain_results = {}
         # reduces that took _mesh_reduce's device fold
         self.mesh_folds = 0
         # reduce partitions that went out of core, by path
@@ -781,13 +1032,15 @@ class MTRunner(object):
         self.profile_trace_file = None
 
     # -- helpers -----------------------------------------------------------
-    def _pool_map(self, fn, jobs, n_workers, label=None):
+    def _pool_map(self, fn, jobs, n_workers, label=None, on_result=None):
         """Run ``fn`` over ``jobs`` on a thread pool; every job's
         exception surfaces (results are read in order) and its keyed
         device calls are charged to this run's store.  ``label`` names
         each job's ``job`` span (on its worker's lane) when tracing; the
         profiler gets each job's thread-seconds, the metrics plane its
-        start and end."""
+        start and end.  ``on_result(idx, result)`` (a streamed edge's
+        publish) runs on this thread as each result comes in, in job
+        order; it may wait, while the workers run ahead."""
         def charged(j):
             with devtime.charging(self.store):
                 return fn(j)
@@ -825,12 +1078,20 @@ class MTRunner(object):
                     m.counter_add("run.jobs_done", 1)
                     st["jobs_done"] = st.get("jobs_done", 0) + 1
 
+        def collect(results):
+            out = []
+            for r in results:
+                if on_result is not None:
+                    on_result(len(out), r)
+                out.append(r)
+            return out
+
         workers = max(1, min(n_workers, len(jobs)))
         if workers == 1:
-            return [charged(j) for j in jobs]
+            return collect(charged(j) for j in jobs)
         with ThreadPoolExecutor(max_workers=workers,
                                 thread_name_prefix="dampr-job") as pool:
-            return list(pool.map(charged, jobs))
+            return collect(pool.map(charged, jobs))
 
     def _as_chunks(self, entry):
         """Stage input -> list of job datasets."""
@@ -913,13 +1174,200 @@ class MTRunner(object):
             if refs is not None:
                 chunks = [BlockDataset(refs)]
         mj = self._map_job(stage, supplementary, stage_id)
+        folder = self._stage_folder(stage_id, mj)
+        replaced = {}
         try:
-            results = self._pool_map(mj.job, chunks, self.n_maps,
-                                     label="map")
+            results = self._pool_map(
+                mj.job, chunks, self.n_maps, label="map",
+                on_result=folder.publish if folder is not None else None)
         finally:
             close_readahead(chunks)
+            if folder is not None:
+                # drains on a failed stage too, so every queued
+                # reservation is released
+                folder.mark_pool_done()
+                replaced, fstats = folder.finish()
+                self._note_pipeline(stage_id, fstats)
+        for idx, mapping in replaced.items():
+            results[idx] = mapping
         pset = self._collect_partitions(results, mj)
+        if folder is not None and folder.fold_delta:
+            # the reduce's size gate decides on the bytes the staged run
+            # would have had (_tiny_assoc_reduce)
+            pset.pipeline_fold_delta = dict(folder.fold_delta)
         return pset, pset.total_records(), len(chunks)
+
+    # -- streamed edges (plan.pipeline) -------------------------------------
+    def _stage_folder(self, stage_id, mj):
+        """The early folder of a streamed map -> keyed-fold edge, or None
+        when the edge is not streamed or its producer's run mode rules it
+        out (then the staged barrier holds)."""
+        hint = self._pipeline_edges.get(stage_id)
+        if hint is None or hint["mode"] != "early_fold":
+            return None
+        if not settings.pipeline_enabled():
+            return None
+        op = getattr(getattr(self.graph.stages[hint["dst"]], "reducer",
+                             None), "op", None)
+        degrade = None
+        if mj.sorted_runs or mj.pin:
+            degrade = "producer run mode incompatible"
+        elif op is None or op.kind not in ("sum", "min", "max"):
+            degrade = "consumer op not early-foldable"
+        if degrade is not None:
+            self._pipeline_stats["degraded"] += 1
+            log.info("streamed edge s%s degraded to staged barrier: %s",
+                     stage_id, degrade)
+            return None
+        bound = settings.pipeline_queue_bytes or max(
+            1, self.store.budget // 4)
+        self._pipeline_stats["executed"] += 1
+        _trace.instant("pipeline", "streamed-edge", src=stage_id,
+                       dst=hint["dst"], mode="early_fold")
+        # folded partials register in the tier the originals went to, so
+        # a device fold's input stays on the card (the HBM tier)
+        return _StreamFolder(self.store, op, bound,
+                             device=mj.feeds_device_fold)
+
+    def _note_pipeline(self, stage_id, fstats):
+        """Add one streamed edge's folder stats to the run's."""
+        ps = self._pipeline_stats
+        for k in ("published", "early_folded_blocks", "bytes_in",
+                  "bytes_out", "fold_seconds", "overlap_seconds",
+                  "stall_seconds"):
+            ps[k] += fstats[k]
+        ps["queue_peak_bytes"] = max(ps["queue_peak_bytes"],
+                                     fstats["queue_peak_bytes"])
+        series = ps["queue_depth_series"]
+        series.extend([stage_id, t, b]
+                      for t, b in fstats["queue_depth_series"])
+        if len(series) > 1024:
+            del series[: len(series) - 1024]
+
+    def _run_chain(self, sid_p, stage_p, sid_c, env):
+        """A streamed map -> map chain: the consumer's jobs run per
+        finished producer partition block while the producer stage still
+        runs, and the producer's output never materializes.
+
+        Exactness: consumer results collect in the staged job order,
+        (producer pid, producer job index), the order the staged walk of
+        ``all_refs()`` feeds them in, and per-pid record order survives
+        compaction's order-preserving concat either way.  Block
+        boundaries differ, which the plan pass proved invisible (a pure
+        record stream, nothing boundary-sensitive downstream).
+
+        Returns (producer placeholder, records, jobs) for the producer's
+        bookkeeping and keeps the consumer's result in
+        ``self._chain_results[sid_c]``; None degrades to the barrier."""
+        stage_c = self.graph.stages[sid_c]
+        entries = [env[s] for s in stage_p.inputs]
+        chunks = self._as_chunks(entries[0])
+        supplementary = [self._as_chunks(e) for e in entries[1:]]
+        mj_p = self._map_job(stage_p, supplementary, sid_p)
+        mj_c = self._map_job(stage_c, [], sid_c)
+        if any(mj.combine_op is not None or mj.pin or mj.feeds_reduce
+               or mj.feeds_device_fold or mj.sorted_runs
+               for mj in (mj_p, mj_c)):
+            # the jobs disagree with the plan-time gates (a setting
+            # changed between plan and run): the barrier is always right
+            self._pipeline_stats["degraded"] += 1
+            log.info("streamed edge s%s degraded to staged barrier: "
+                     "job mode incompatible", sid_p)
+            return None
+
+        self._pipeline_stats["executed"] += 1
+        _trace.instant("pipeline", "streamed-edge", src=sid_p, dst=sid_c,
+                       mode="chain")
+        futures = {}  # (producer pid, producer job idx) -> (future, refs)
+        spans = []    # (t0, t1) per consumer job
+        spans_lock = threading.Lock()
+        acct = {"bytes_in": 0, "records_in": 0}
+
+        def job_c(ds):
+            t0 = time.perf_counter()
+            try:
+                with devtime.charging(self.store):
+                    if _trace.enabled():
+                        with _trace.span("job", "chain"):
+                            return mj_c.job(ds)
+                    return mj_c.job(ds)
+            finally:
+                with spans_lock:
+                    spans.append((t0, time.perf_counter()))
+
+        def publish(idx, mapping):
+            self._pipeline_stats["published"] += 1
+            for pid in sorted(mapping):
+                refs = list(mapping[pid])
+                if not refs:
+                    continue
+                acct["bytes_in"] += sum(r.total_bytes for r in refs)
+                acct["records_in"] += sum(len(r) for r in refs)
+                futures[(pid, idx)] = (
+                    pool_c.submit(job_c, BlockDataset(refs)), refs)
+
+        pool_c = ThreadPoolExecutor(
+            max_workers=max(1, min(self.n_maps, settings.max_processes)),
+            thread_name_prefix="dampr-chain")
+        pool_done_at = None
+        try:
+            self._pool_map(mj_p.job, chunks, self.n_maps, label="map",
+                           on_result=publish)
+            pool_done_at = time.perf_counter()
+            mappings_c = []
+            for key in sorted(futures):
+                fut, refs = futures[key]
+                mappings_c.append(fut.result())
+                for r in refs:
+                    self.store.drop_ref(r)
+        finally:
+            pool_c.shutdown(wait=True)
+            close_readahead(chunks)
+        fold_s = sum(t1 - t0 for t0, t1 in spans)
+        overlap_s = sum(max(0.0, min(t1, pool_done_at) - t0)
+                        for t0, t1 in spans)
+        self._note_pipeline(sid_p, {
+            "published": 0, "early_folded_blocks": 0,
+            "bytes_in": acct["bytes_in"],
+            "bytes_out": sum(r.total_bytes for m in mappings_c
+                             for refs in m.values() for r in refs),
+            "fold_seconds": fold_s, "overlap_seconds": overlap_s,
+            "stall_seconds": 0.0, "queue_peak_bytes": 0,
+            "queue_depth_series": []})
+        pset = self._collect_partitions(mappings_c, mj_c)
+        self._chain_results[sid_c] = (
+            pset, pset.total_records(), len(futures))
+        return (_ChainedOutput(acct["records_in"]), acct["records_in"],
+                len(chunks))
+
+    def _pipeline_section(self):
+        """``stats()["pipeline"]``: the plan's edge decisions and the
+        folder and chain counters.  ``overlap_fraction`` is the share of
+        the streamed consumers' seconds that ran while the producing
+        stage's jobs were still running."""
+        ps = self._pipeline_stats
+        rep = ((self.plan_report or {}).get("pipeline") or {})
+        fold_s = ps["fold_seconds"]
+        return {
+            "enabled": settings.pipeline_enabled(),
+            "edges_streamed": rep.get("streamed", 0),
+            "edges_barrier": rep.get("barriers", 0),
+            "executed": ps["executed"],
+            "degraded": ps["degraded"],
+            "published": ps["published"],
+            "early_folded_blocks": ps["early_folded_blocks"],
+            "bytes_in": ps["bytes_in"],
+            "bytes_out": ps["bytes_out"],
+            "fold_seconds": round(fold_s, 4),
+            "overlap_seconds": round(ps["overlap_seconds"], 4),
+            "overlap_fraction": (round(ps["overlap_seconds"] / fold_s, 4)
+                                 if fold_s > 1e-9 else 0.0),
+            "stall_seconds": round(ps["stall_seconds"], 4),
+            "queue_peak_bytes": ps["queue_peak_bytes"],
+            "queue_depth_series": [[sid, round(t, 4), b]
+                                   for sid, t, b
+                                   in ps["queue_depth_series"]],
+        }
 
     def _scan_share_group(self, sid, stage, env):
         """The later map stages that read the same tap as ``stage``: the
@@ -1037,7 +1485,8 @@ class MTRunner(object):
         elif "binop" in stage.options:
             combine_op = segment.as_assoc_op(stage.options["binop"])
         P = self.n_partitions
-        B = settings.batch_size
+        # the plan's cost layer may size this stage's blocks from history
+        B = stage.options.get("batch_size") or settings.batch_size
         pin = bool(stage.options.get("memory"))
         feeds_reduce = self._reduce_consumes(stage.output)
         # Sorted-run mode: an output no reduce consumes needs no hash
@@ -1045,7 +1494,8 @@ class MTRunner(object):
         # each job registers its chunk as ONE key-sorted run.  A job falls
         # back to hash fan-out when its keys are not uniformly numeric
         # (the ``_sorted`` marker records which happened).
-        sorted_run_mode = (combine_op is None
+        sorted_run_mode = (settings.sort_runs_enabled()
+                           and combine_op is None
                            and not feeds_reduce
                            and not pin
                            and not supplementary)
@@ -1401,7 +1851,13 @@ class MTRunner(object):
         thr = settings.streaming_reduce_threshold
         if thr is None:
             thr = self.store.budget
-        if sum(r.total_bytes for r in refs) > min(SMALL_STAGE_BYTES, thr):
+        # A streamed edge's early folds shrank the refs: gate on the bytes
+        # the staged run had, since this path's (hash-order) layout
+        # differs from the per-partition jobs'.
+        staged_extra = sum(getattr(entries[0], "pipeline_fold_delta",
+                                   {}).values())
+        if (staged_extra + sum(r.total_bytes for r in refs)
+                > min(SMALL_STAGE_BYTES, thr)):
             return None
         P = self.n_partitions
         merged = Block.concat([r.get() for r in refs])
@@ -1813,7 +2269,8 @@ class MTRunner(object):
             return pid, refs
 
         P = self.n_partitions
-        results = self._pool_map(job, list(range(P)), self.n_reducers,
+        n_reducers = stage.options.get("n_reducers", self.n_reducers)
+        results = self._pool_map(job, list(range(P)), n_reducers,
                                  label="reduce")
         pset = storage.PartitionSet(P)
         for pid, refs in results:
@@ -2167,7 +2624,20 @@ class MTRunner(object):
                     "jobs_done": 0})
                 _metrics.gauge_set("run.stage", sid)
             if isinstance(stage, GMap):
-                if sid in fused:
+                hint = self._pipeline_edges.get(sid)
+                chained = None
+                if (sid not in self._chain_results and sid not in fused
+                        and hint is not None and hint["mode"] == "chain"
+                        and settings.pipeline_enabled()):
+                    chained = self._run_chain(sid, stage, hint["dst"], env)
+                if sid in self._chain_results:
+                    # a streamed chain's consumer: its jobs ran at the
+                    # producer's turn, overlapped with the producer's
+                    result, nrec, njobs = self._chain_results.pop(sid)
+                elif chained is not None:
+                    result, nrec, njobs = chained
+                    kind = "map-chained"
+                elif sid in fused:
                     result, nrec, njobs = fused.pop(sid)
                 else:
                     group = self._scan_share_group(sid, stage, env)
@@ -2220,7 +2690,9 @@ class MTRunner(object):
                 ret.append(CatDataset(list(entry.chunks())))
         keep = set(outputs)
         for source in to_delete:
-            if source not in keep:
+            # a chained producer's placeholder holds nothing to delete
+            if source not in keep and isinstance(env[source],
+                                                 storage.PartitionSet):
                 env[source].delete(sto)
         sto.drain_writes()
         return ret
@@ -2350,8 +2822,9 @@ class MTRunner(object):
                                   "mesh_stages": 0}},
             "device": device,
             "streamed_assoc_folds": self.streamed_assoc_folds,
+            "pipeline": self._pipeline_section(),
             "retries": self.retries_total,
-            "plan": self.plan_report or {"enabled": False},
+            "plan": self.plan_report or plan.empty_report(self.graph),
             "trace_file": None,
             "stats_file": None,
             # the port's own: host seconds in map-side combine folds
@@ -2403,3 +2876,9 @@ class MTRunner(object):
             _export.write_stats(summary, spath)
             log.info("trace: %s; stats: %s", summary["trace_file"], spath)
         self.run_summary = summary
+        if not self._run_failed:
+            # one record per finalized run (a failed run's measurements
+            # would mislead the next run's sizing)
+            from .obs import history as _history
+
+            _history.append(summary)

@@ -119,8 +119,11 @@ lower_batch = int(os.environ.get("DAMPR_TPU_TORCH_LOWER_BATCH",
 
 
 def lower_forced():
-    """Was lowering forced on ("on"/"1")?"""
+    """Was lowering forced on ("on"/"1")?  A forced switch wins over the
+    run-history placement floor (``plan.lower.LOWER_MIN_RECORDS``): only
+    "auto" places stages from history."""
     return str(lower).lower() in ("on", "1", "true", "yes")
+
 
 
 #: Device bytes the HBM tier may keep resident between a map and the fold
@@ -147,6 +150,12 @@ def effective_hbm_budget():
 #: lowering was forced (on the CPU device memory is host memory), but an
 #: explicit ``hbm_budget = 0`` declines it.
 handoff = "auto"
+
+
+def handoff_forced():
+    """Was the handoff forced on?  Then no run history prices the edge
+    (:func:`.plan.lower.handoff_analyze`)."""
+    return str(handoff).lower() in ("on", "1", "true", "yes")
 
 
 def handoff_enabled():
@@ -186,6 +195,72 @@ def _env_flag(name, default="0"):
 #: (``DAMPR_TPU_TORCH_ANALYZE=0``), each hook is one flag check and plans
 #: and results are those of an engine without the analyzer.
 analyze = _env_flag("DAMPR_TPU_TORCH_ANALYZE", "1")
+
+
+#: Sorted-run mode for map outputs no reduce consumes (external sorts):
+#: each job registers its chunk as one key-sorted run and the final read
+#: merges the runs.  "auto" enables it; "off" hash-fans every map output
+#: (which lets an unfused map -> map edge stream, :mod:`.plan.pipeline`).
+sort_runs = "auto"
+
+
+def sort_runs_enabled():
+    return str(sort_runs).lower() not in ("off", "0", "false", "no")
+
+
+#: Run-history corpus (:mod:`.obs.history`): every finalized named run
+#: appends one compact record to ``<scratch_root>/<run>/history.jsonl``,
+#: kept to this many entries; 0 writes none.
+history_entries = 64
+
+#: Only the newest this-many shape-matching records feed the history
+#: medians and the handoff pricing.
+history_window = 8
+
+#: History-driven sizing (:mod:`.plan.cost`): a named run whose plan
+#: matches earlier runs' shapes takes its partition count, per-stage
+#: ``batch_size`` and reducer width from their measurements.
+plan_adapt = True
+
+#: Reduce-input bytes one adapted partition should carry.
+plan_partition_bytes = 32 * 1024 ** 2
+
+#: Bytes an adapted map-output block should hold when history shows fat
+#: records.
+plan_block_bytes = 8 * 1024 ** 2
+
+#: The learned per-operator cost model (:mod:`.plan.model`): "auto" fits
+#: per-class throughput over the corpus and may override the median
+#: sizing; "off" records the kill switch and leaves the median decisions.
+cost_model = "auto"
+
+
+def cost_model_enabled():
+    return str(cost_model).lower() not in ("0", "false", "no", "off")
+
+
+#: Measurements an operator class needs before its fit takes part.
+cost_model_min_points = 3
+
+#: Least predicted (or measured) fractional gain before a model choice
+#: overrides the static or median one.
+cost_model_margin = 0.02
+
+#: Streamed stage edges (:mod:`.plan.pipeline`): "auto" lets the runner
+#: dissolve the barrier on edges the plan marks ``streamed`` (early folds
+#: of map -> keyed sum/min/max, unfused map -> map chains); "off" runs
+#: every stage behind its barrier.  Results are equal either way, and the
+#: decisions are reported in both modes.
+pipeline = "auto"
+
+
+def pipeline_enabled():
+    return str(pipeline).lower() not in ("off", "0", "false", "no")
+
+
+#: Bytes of finished map output an early-fold queue may hold before the
+#: publishing thread waits; 0 = a quarter of the run's memory budget.
+pipeline_queue_bytes = 0
 
 
 #: When set, every run is wrapped in ``torch.profiler.profile`` (CPU

@@ -913,12 +913,16 @@ class PartitionSet(object):
     ``key_sorted_runs``: every ref is a KEY-sorted run of numeric keys
     registered without partition fan-out (sorted-run mode); the final read
     streams a k-way merge over the runs instead of re-sorting.
+    ``pipeline_fold_delta``: per pid, the bytes a streamed edge's early
+    folds took off the staged output (the reduce's size gate adds them
+    back).
     """
 
     def __init__(self, n_partitions, key_sorted_runs=False):
         self.n_partitions = n_partitions
         self.parts = {}
         self.key_sorted_runs = key_sorted_runs
+        self.pipeline_fold_delta = {}
 
     def add(self, pid, ref):
         self.parts.setdefault(pid, []).append(ref)

@@ -49,11 +49,11 @@ from test_torch_pipeline import CORPORA, _write
 _REF = ("lower", "handoff", "hbm_budget", "optimize", "analyze",
         "scan_window_bytes")
 _PORT = ("device", "lower", "handoff", "hbm_budget", "scan_window_bytes",
-         "lower_batch")
+         "lower_batch", "scratch_root")
 
 
 @pytest.fixture(autouse=True)
-def knobs():
+def knobs(tmp_path):
     old_ref = {n: getattr(ref_settings, n) for n in _REF}
     old_port = {n: getattr(port_settings, n) for n in _PORT}
     ref_settings.lower = "1"
@@ -63,6 +63,9 @@ def knobs():
     port_settings.device = "cpu"
     port_settings.lower = "on"
     port_settings.handoff = "auto"
+    # each test starts with an empty run history: a name's earlier runs
+    # (in this test process or an earlier one) would price its handoff edge
+    port_settings.scratch_root = str(tmp_path / "port-scratch")
     yield
     for n, v in old_ref.items():
         setattr(ref_settings, n, v)

@@ -33,6 +33,12 @@ def hbm_enabled(monkeypatch):
     old_ref = {n: getattr(ref_settings, n) for n in _REF}
     settings.partitions = ref_settings.partitions = 8
     settings.device = "cpu"
+    # Staged map -> fold boundaries, the ones these tests measure: the JAX
+    # side's 8-device rig keeps them (a mesh fold may engage, which bars
+    # streamed edges), and the port on one device would otherwise
+    # pre-fold the map's blocks on the host as they finish
+    # (test_torch_streamed_edges.py covers that path).
+    monkeypatch.setattr(settings, "pipeline", "off")
     ref_settings.mesh_fold = "auto"
     settings.hbm_budget = ref_settings.hbm_budget = 64 * 1024 * 1024
     ref_settings.hbm_min_records = 1

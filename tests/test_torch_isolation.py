@@ -31,8 +31,10 @@ def test_port_imports_without_jax_or_the_jax_package(tmp_path):
     ``dampr_tpu`` module is loaded along the way, not even when the
     two-input stages run (the TF-IDF pipeline's cross and ``len()``, the
     joins) and the out-of-core paths (spill frames through the writer
-    pool, a streaming fold and join, sorted runs) and the static analyzer
-    (a certified chain's lane program, ``validate()``), on the CPU."""
+    pool, a streaming fold and join, sorted runs), the static analyzer
+    (a certified chain's lane program, ``validate()``) and the adaptive
+    plan (a named run sized from its history, ``explain()``), on the
+    CPU."""
     code = r"""
 import importlib, json, math, operator, pkgutil, sys
 sys.modules["jax"] = None
@@ -67,6 +69,10 @@ chain = (Dampr.memory(list(range(5000)), partitions=1)
          .map(lambda x: x * 3 + 1).filter(lambda x: x % 2 == 0))
 records["chain"] = sum(chain.read())
 records["validate"] = [d.code for d in chain.validate()]
+settings.scratch_root = sys.argv[2]
+adapt = [words.count().run(name="iso").stats()["plan"]["adaptive"]["applied"]
+         for _ in range(2)]
+records["adapt"] = adapt + [bool(words.count().explain(name="iso"))]
 settings.streaming_reduce_threshold = 1
 ooc = {"fold": words.count().run(memory_budget=1).read(),
        "join": left.join(right).reduce(lambda l, r: (list(l), list(r)))
@@ -83,7 +89,8 @@ print(json.dumps({"modules": names, "reference": loaded,
     corpus = tmp_path / "c.txt"
     corpus.write_bytes(b"a b\nb\n\nc a")
     env = dict(os.environ, PYTHONPATH=ROOT)
-    res = subprocess.run([sys.executable, "-c", code, str(corpus)], cwd=ROOT,
+    res = subprocess.run([sys.executable, "-c", code, str(corpus),
+                          str(tmp_path / "scratch")], cwd=ROOT,
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
@@ -98,7 +105,8 @@ print(json.dumps({"modules": names, "reference": loaded,
                  "obs.profile", "obs.progress", "obs.sampler", "obs.trace",
                  "analyze", "analyze.assoc", "analyze.lint",
                  "analyze.pickleprobe", "analyze.props", "analyze.torchtrace",
-                 "analyze.validate"):
+                 "analyze.validate", "obs.history", "plan.cost",
+                 "plan.model", "plan.pipeline", "plan.explain"):
         assert "dampr_tpu_torch." + name in report["modules"]
     assert report["idf"] == [["a", 2, 4], ["b", 2, 4], ["c", 1, 4]]
     assert report["len"] == [4]
@@ -114,7 +122,8 @@ print(json.dumps({"modules": names, "reference": loaded,
         "kept": ["a", "a", "b", "b"],
         "chain": sum(v for v in (x * 3 + 1 for x in range(5000))
                      if v % 2 == 0),
-        "validate": ["DTA501", "DTA501"]}
+        "validate": ["DTA501", "DTA501"],
+        "adapt": [False, True, True]}
     assert report["ooc"] == {"fold": [["a", 2], ["b", 2], ["c", 1]],
                              "join": pair, "sort": [1, 2, 3]}
 

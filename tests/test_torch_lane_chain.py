@@ -29,7 +29,6 @@ from dampr_tpu.plan import lower as ref_plan_lower
 from dampr_tpu.plan import passes as ref_passes
 from dampr_tpu_torch import settings as port_settings
 from dampr_tpu_torch.analyze import torchtrace
-from dampr_tpu_torch.graph import GMap, GReduce, GSink
 from dampr_tpu_torch.plan import ir, passes
 from dampr_tpu_torch.plan import lower as port_plan_lower
 
@@ -49,28 +48,6 @@ def knobs():
      ref_settings.device_min_batch) = old_ref
     (port_settings.analyze, port_settings.device,
      port_settings.lower) = old_port
-
-
-def _graph_signature(graph):
-    """Stage kinds, operator identities, options and input wiring (the
-    JAX package's ``plan.ir.graph_signature``)."""
-    pos = {s.output: i for i, s in enumerate(graph.stages)}
-    sig = []
-    for stage in graph.stages:
-        ops = ()
-        if isinstance(stage, GMap):
-            ops = tuple(id(p) for p in ir.flatten_mapper(stage.mapper))
-            ops += (id(stage.combiner),)
-        elif isinstance(stage, GReduce):
-            ops = (id(stage.reducer),)
-        elif isinstance(stage, GSink):
-            ops = tuple(id(p) for p in ir.flatten_mapper(stage.sinker))
-            ops += (stage.path,)
-        sig.append((ir.stage_kind(stage),
-                    tuple(pos.get(s, -1) for s in stage.inputs), ops,
-                    tuple(sorted((k, repr(v)) for k, v in
-                                 (stage.options or {}).items()))))
-    return tuple(sig)
 
 
 def _fused_counts(pkg, opt, settings, build):
@@ -143,7 +120,7 @@ class TestFusion:
         g_on, _ = passes.optimize(pipe.pmer.graph, [pipe.source])
         port_settings.analyze = False
         g_off, _ = passes.optimize(pipe.pmer.graph, [pipe.source])
-        assert _graph_signature(g_on) == _graph_signature(g_off)
+        assert ir.graph_signature(g_on) == ir.graph_signature(g_off)
 
     def test_analysis_off_results_equal_around_impure_udf(self):
         def build(pkg, acc):

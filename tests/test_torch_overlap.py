@@ -38,7 +38,7 @@ from dampr_tpu_torch.storage import RunStore
 _NAMES = ("partitions", "max_memory_per_stage", "overlap_windows",
           "scratch_root")
 _PORT_NAMES = ("partitions", "max_memory_per_stage", "scratch_root",
-               "device", "lower")
+               "device", "lower", "pipeline")
 
 
 @pytest.fixture(autouse=True)
@@ -52,6 +52,10 @@ def knobs(tmp_path):
     # the classic lowered program's blocks ride the overlap executor; the
     # handoff keeps them in its device vocabulary instead
     settings.handoff = "off"
+    # the overlap executor's own bytes in flight: a streamed edge's early
+    # folder charges its queue to the same budget counter (the JAX side's
+    # 8-device rig bars streamed edges)
+    settings.pipeline = "off"
     settings.scratch_root = str(tmp_path / "port")
     ref_settings.scratch_root = str(tmp_path / "ref")
     yield
