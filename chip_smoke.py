@@ -170,7 +170,17 @@ the kernels build for sm_90a).  Phases, each of which must pass:
     lengths, the auto runs' edges executed (``adapt-stream`` lines with
     the folder's fold, overlap and stall seconds); (d) ``explain()`` of
     the TF-IDF and ``wc`` plans under their names launches no kernel and
-    leaves the corpora as they were (``adapt-explain``: line counts).
+    leaves the corpora as they were (``adapt-explain``: line counts);
+16. ``faults``, faults, retries and resume (:func:`phase_faults`), one
+    ``faults`` JSON line a run (seconds, the ``faults`` section, restored
+    and persisted stages, checkpoint bytes, copies, launches,
+    ``memory_allocated()`` before and after): a retried table-mode job
+    (``faults-retry``), absorbed spill I/O faults (``faults-io``), a
+    ``resume=True`` run failed after DocFreq's checkpoint and resumed
+    twice (``faults-resume-fail``, ``faults-resume``,
+    ``faults-resume-again``), ``resume="auto"`` through a transient fault
+    (``faults-auto``) and the cost of checkpointing (``faults-cost``),
+    every sink line equal to the oracle.
 
 K1's lanes entry is also checked and timed at the ``wc`` batch shape (the
 corpus's first 65,536 words, padded as the combine pads them).  Every
@@ -178,7 +188,8 @@ tolerance is exact: all outputs are integers, bytes or one float
 division of equal integers.  The handoff is at its default (``auto``:
 on, on the card) in every phase but ``ooc-tfidf`` and the ``handoff``
 phase's "off" run.  Prints a
-``{"kernels": [...]}`` JSON line second to last and
+``{"kernels": [...]}`` JSON line second to last (``launches_faults``: the
+retried TF-IDF run's) and
 ``{"ok": true, "device": {...}}`` last; exits non-zero, printing no
 result, if there is no card or any phase fails.
 """
@@ -2727,6 +2738,340 @@ def phase_adapt(Dampr, DocFreq, settings, kernels, workdir, corpus, chunk,
     return total
 
 
+#: The ``faults`` phase's I/O schedule: at p = 0.01 under seed 1411 the
+#: first ``spill_write`` fault fires at the 8th write, the first
+#: ``spill_read`` at the 3rd read, and no two fire within 4 invocations of
+#: a site in its first 3,000 (so the default two in-place retries absorb
+#: every one).
+FAULTS_IO_SPEC = "spill_write:p=0.01;spill_read:p=0.01;seed=1411"
+
+
+def ckpt_bytes(root):
+    """Bytes of the checkpoint blocks under a run's scratch root."""
+    total = 0
+    for d, _dirs, files in os.walk(os.path.join(root, "ckpt")):
+        total += sum(os.path.getsize(os.path.join(d, f)) for f in files)
+    return total
+
+
+def manifests(root):
+    mdir = os.path.join(root, "manifest")
+    return sorted(f for f in os.listdir(mdir)) if os.path.isdir(mdir) else []
+
+
+def faults_line(run, stats, secs, launches, before, after, root=None,
+                **extra):
+    """One ``faults`` JSON line: the run's faults section, its restored
+    and persisted stages and checkpoint bytes, its copies and launches,
+    and ``memory_allocated()`` before and after."""
+    d = stats["device"]
+    line = dict(
+        run=run, seconds=secs, faults=stats["faults"],
+        restored=[s["kind"] for s in stats["stages"]
+                  if s["kind"].startswith("resumed-")],
+        executed=[s["kind"] for s in stats["stages"]
+                  if not s["kind"].startswith("resumed-")],
+        persisted=len(manifests(root)) if root else 0,
+        checkpoint_bytes=ckpt_bytes(root) if root else 0,
+        h2d_bytes=d["h2d_bytes"], d2h_bytes=d["d2h_bytes"],
+        table_batches=d["handoff"]["table_batches"],
+        kernels=launches, allocated_before=before, allocated_after=after)
+    line.update(extra)
+    log("faults " + json.dumps(line))
+    return line
+
+
+def phase_faults(torch, Dampr, DocFreq, settings, faults, runner_mod,
+                 handoff, kernels, workdir, corpus, chunk, nbytes, df,
+                 n_lines, plain_lines, head, head_df):
+    """Faults, retries and resume on the card, each run printing one
+    ``faults`` line:
+
+    (a) ``faults-retry``: the TF-IDF pipeline with ``job_retries = 2`` and
+        one transient ``device_dispatch`` fault at the middle table
+        dispatch of a clean run (counted by a plan that never fires), so
+        it lands on a job whose vocabulary took the table program: sink
+        lines equal
+        the oracle, at least one job retried, more table batches than the
+        clean run (the failed attempt's) and K1 and B4 launched at least
+        as often, ``memory_allocated()`` no higher after than before;
+    (b) ``faults-io``: DocFreq -> fold over the 16 MB head, handoff off,
+        under a quarter of its map output as the budget (it spills), with
+        :data:`FAULTS_IO_SPEC`: exact, ``io_retries`` > 0, no job retry;
+    (c) ``faults-resume``: the TF-IDF pipeline under one name with
+        ``resume=True``, traced; the first run dies of a fatal
+        ``checkpoint_persist`` fault at the manifest of the stage after
+        the DocFreq map, DocFreq's landed: it leaves a crashdump that validates, its ``d2h`` bytes
+        cover DocFreq's device-resident counts fetched once for their
+        checkpoint, and ``memory_allocated()`` comes back; the rerun
+        restores DocFreq (the DocFreq stage launches nothing, B4 never
+        runs, K1 runs only to hash the cross stage's keys) and its sink
+        lines equal the oracle; a third run with nothing changed restores every
+        stage it needs and runs none;
+    (d) ``faults-auto``: the same pipeline with ``resume="auto"``,
+        ``job_retries = 0`` and one transient ``device_dispatch`` fault:
+        it completes on its second attempt, exact, the summary counts the
+        failed one, and ``memory_allocated()`` comes back;
+    (e) ``faults-cost``: the pipeline with ``resume=True`` and no fault
+        beside the same pipeline plain (seconds, checkpoint bytes and
+        copies: a number to record, not a gate).
+
+    Returns the launches of (a)'s retried run."""
+    want = tfidf_oracle_lines(df, n_lines)
+    olds = {n: getattr(settings, n) for n in (
+        "job_retries", "retry_backoff_ms", "handoff", "trace", "trace_dir",
+        "faults")}
+    lines = {}
+
+    def run_tfidf(tag, **run_args):
+        # the sink's path is part of its fingerprint: runs that resume
+        # one another share it
+        out_dir = os.path.join(workdir, "idf_" + tag.split(":")[0])
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        em = tfidf_pipeline(Dampr, DocFreq, corpus, chunk, out_dir).run(
+            **run_args)
+        secs = time.perf_counter() - t0
+        launches = read_launches(kernels)
+        # the part files stay: a resumed run's sink manifest names them
+        return part_lines(out_dir), em.stats(), secs, launches
+
+    try:
+        settings.retry_backoff_ms = 5
+        # -- (a) a retried job ------------------------------------------
+        # a plan that never fires counts the dispatches; the table
+        # program's ones are noted as they come
+        counter = faults.FaultPlan("device_dispatch:nth=1000000000")
+        rule = counter.rules["device_dispatch"]
+        table_at = []
+        real_dispatch = handoff.HandoffVocab.dispatch
+
+        def noting(vocab, *a, **kw):
+            table_at.append(rule.invocations)
+            return real_dispatch(vocab, *a, **kw)
+
+        faults.install(counter)
+        handoff.HandoffVocab.dispatch = noting
+        try:
+            got, clean, secs0, clean_l = run_tfidf(
+                "fault-clean", name="chip-faults-clean")
+        finally:
+            handoff.HandoffVocab.dispatch = real_dispatch
+            faults.clear()
+        dispatches = rule.invocations
+        check(got == want, "faults-retry: the clean run's lines differ")
+        check(table_at, "faults-retry: the clean run took no table batch")
+        # the middle table dispatch: every job seeds its vocabulary in its
+        # first dispatches, so by then the jobs run the table program
+        nth = sorted(table_at)[len(table_at) // 2]
+        settings.job_retries = 2
+        before = allocated_after_failure(torch)
+        faults.install(faults.FaultPlan(
+            "device_dispatch:nth={},kind=transient".format(nth)))
+        got, stats, secs, launches = run_tfidf(
+            "fault-retry", name="chip-faults-retry")
+        faults.clear()
+        after = allocated_after_failure(torch)
+        lines["retry"] = faults_line(
+            "faults-retry", stats, secs, launches, before, after,
+            nth=nth, dispatches=dispatches, table_dispatches=len(table_at),
+            clean_seconds=secs0,
+            clean_kernels=clean_l,
+            clean_table_batches=clean["device"]["handoff"]["table_batches"])
+        fa = stats["faults"]
+        check(got == want, "faults-retry: sink lines differ from the oracle")
+        check(got == plain_lines, "faults-retry: sink lines differ from "
+                                  "the tfidf phase's")
+        check(fa["injected"] == {"device_dispatch": 1}
+              and fa["job_retries"] >= 1,
+              "faults-retry: no retried job: {}".format(fa))
+        check(lines["retry"]["table_batches"]
+              > clean["device"]["handoff"]["table_batches"] > 0,
+              "faults-retry: the fault did not land in a table-mode job")
+        # the fault fails the attempt; it never moves the job to the host
+        # codec (a fallback) or off the table program (a degrade)
+        cd, rd = clean["device"], stats["device"]
+        # (a retried chunk repeats at most its own fallbacks)
+        check(rd["handoff_degrades"] == 0 and rd["device_stages"]
+              == cd["device_stages"]
+              and rd["fallbacks"] <= 2 * cd["fallbacks"],
+              "faults-retry: the fault degraded the job: {} against {}"
+              .format({k: rd[k] for k in ("handoff_degrades", "fallbacks",
+                                          "device_stages")},
+                      {k: cd[k] for k in ("handoff_degrades", "fallbacks",
+                                          "device_stages")}))
+        for k in ("fnv", "handoff"):
+            check(launches[k] >= clean_l[k] > 0,
+                  "faults-retry: {} launched {} times, the clean run {}"
+                  .format(k, launches[k], clean_l[k]))
+        check(after <= before, "faults-retry: memory_allocated {} before, "
+                               "{} after".format(before, after))
+        settings.job_retries = 0
+
+        # -- (b) absorbed spill I/O faults ------------------------------
+        budget = 8 * len(head_df) * 80 // 4
+        settings.handoff = "off"
+        zero_launches(kernels)
+        before = allocated_after_failure(torch)
+        faults.install(faults.FaultPlan(FAULTS_IO_SPEC))
+        t0 = time.perf_counter()
+        em = (Dampr.text(head, os.path.getsize(head) // 8 + 1)
+              .custom_mapper(DocFreq(mode="word", lower=True,
+                                     pair_values=False))
+              .fold_values(operator.add)
+              .run(name="chip-faults-io", memory_budget=budget))
+        got = em.read()
+        secs = time.perf_counter() - t0
+        launches = read_launches(kernels)
+        stats = em.stats()
+        em.delete()
+        faults.clear()
+        settings.handoff = olds["handoff"]
+        after = allocated_after_failure(torch)
+        fa = stats["faults"]
+        lines["io"] = faults_line(
+            "faults-io", stats, secs, launches, before, after,
+            spec=FAULTS_IO_SPEC, budget=budget,
+            spills=stats["spill"]["count"], io=stats["io"])
+        check(got == sorted(head_df.items()),
+              "faults-io: DocFreq differs from the oracle")
+        check(stats["spill"]["count"] > 0, "faults-io: nothing spilled")
+        check(sum(fa["io_retries"].values()) > 0,
+              "faults-io: no I/O retry: {}".format(fa))
+        check(fa["job_retries"] == 0, "faults-io: a job retried")
+
+        # -- (c) fail after DocFreq's checkpoint, resume ----------------
+        # stages persist in stage order: the fault takes the manifest of
+        # the stage after the lowered DocFreq map (the clean run's list)
+        ops = [st["op"] for st in clean["stages"]]
+        check("DocFreq" in ops, "faults-resume: no DocFreq stage in {}"
+              .format(ops))
+        persist_nth = ops.index("DocFreq") + 2
+        name = "chip-faults-resume"
+        root = os.path.join(settings.scratch_root, name)
+        settings.trace = True
+        settings.trace_dir = os.path.join(workdir, "traces")
+        before = allocated_after_failure(torch)
+        faults.install(faults.FaultPlan(
+            "checkpoint_persist:nth={},kind=fatal".format(persist_nth)))
+        pipe = tfidf_pipeline(Dampr, DocFreq, corpus, chunk,
+                              os.path.join(workdir, "idf_resume"))
+        r1 = runner_mod.MTRunner(name, pipe.pmer.graph, resume=True)
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        failed = None
+        try:
+            r1.run([pipe.source])
+        except faults.FatalInjectedFault as e:
+            failed = str(e)
+        secs = time.perf_counter() - t0
+        launches = read_launches(kernels)
+        faults.clear()
+        settings.trace = False
+        s1 = r1.run_summary
+        del r1, pipe
+        after = allocated_after_failure(torch)
+        check(failed is not None, "faults-resume: the first run did not "
+                                  "fail as made to")
+        dump = os.path.join(workdir, "traces", name, "trace",
+                            "crashdump.json")
+        check(os.path.isfile(dump), "faults-resume: no crashdump.json")
+        dout = validate_trace_file(dump)
+        # the DocFreq map stage's records are its jobs' vocabularies: each
+        # value lane (int64) came off the card once, for its checkpoint
+        df_stage = [st for st in s1["stages"] if st["op"] == "DocFreq"][0]
+        lines["resume-fail"] = faults_line(
+            "faults-resume-fail", s1, secs, launches, before, after,
+            root=root, crashdump=dout, failure=failed,
+            failed_manifest=persist_nth,
+            docfreq_records=df_stage["records_out"],
+            handoff_bytes=s1["device"]["handoff_bytes"])
+        check(s1["device"]["handoff_bytes"] > 0,
+              "faults-resume: DocFreq's counts were not on the card")
+        check(s1["device"]["d2h_bytes"] >= 8 * df_stage["records_out"],
+              "faults-resume: DocFreq's device refs were not fetched to be "
+              "persisted: {}".format(lines["resume-fail"]))
+        check(len(manifests(root)) == persist_nth - 1,
+              "faults-resume: {} manifests landed before the failure, not "
+              "{}".format(len(manifests(root)), persist_nth - 1))
+        check(after <= before, "faults-resume: memory_allocated {} before, "
+                               "{} after".format(before, after))
+        for i, tag in enumerate(("resume", "resume-again")):
+            before = allocated_after_failure(torch)
+            got, stats, secs, launches = run_tfidf("resume:" + tag,
+                                                   name=name, resume=True)
+            after = allocated_after_failure(torch)
+            stage_launches = [(st["kind"], st["op"], st["launches"])
+                              for st in stats["stages"]]
+            line = lines[tag] = faults_line(
+                "faults-" + tag, stats, secs, launches, before, after,
+                root=root, stage_launches=stage_launches)
+            check(got == want, "faults-{}: sink lines differ from the "
+                               "oracle".format(tag))
+            if i == 0:
+                # DocFreq restored: neither its K1 (the token fold) nor B4
+                # runs; K1's lanes entry may still hash the keys a stage
+                # past the failure registers (the cross's output)
+                df_st = [st for st in stats["stages"]
+                         if st["op"] == "DocFreq"]
+                check(df_st and df_st[0]["kind"] == "resumed-map"
+                      and not any(df_st[0]["launches"].values()),
+                      "faults-resume: DocFreq not restored: {}".format(
+                          stage_launches))
+                check(launches["handoff"] == 0 and launches["fnv"]
+                      < clean_l["fnv"],
+                      "faults-resume: K1/B4 launched: {}".format(launches))
+            else:
+                check(line["executed"] == [] and line["restored"],
+                      "faults-resume-again: a stage ran: {}".format(line))
+                check(sum(launches.values()) == 0,
+                      "faults-resume-again: kernels launched")
+
+        # -- (d) resume="auto" after a transient fault ------------------
+        before = allocated_after_failure(torch)
+        faults.install(faults.FaultPlan(
+            "device_dispatch:nth={},kind=transient".format(nth)))
+        got, stats, secs, launches = run_tfidf(
+            "auto", name="chip-faults-auto", resume="auto")
+        faults.clear()
+        after = allocated_after_failure(torch)
+        lines["auto"] = faults_line(
+            "faults-auto", stats, secs, launches, before, after,
+            root=os.path.join(settings.scratch_root, "chip-faults-auto"))
+        fa = stats["faults"]
+        check(got == want, "faults-auto: sink lines differ from the oracle")
+        check(fa.get("run_attempt") == 2 and fa.get("failed_attempts") == 1,
+              "faults-auto: not completed on its second attempt: {}"
+              .format(fa))
+        check(after <= before, "faults-auto: memory_allocated {} before, "
+                               "{} after".format(before, after))
+
+        # -- (e) the cost of checkpointing ------------------------------
+        cost = {}
+        for tag, args in (("plain", {}), ("resume", {"resume": True})):
+            got, stats, secs, launches = run_tfidf(
+                "cost-" + tag, name="chip-faults-cost-" + tag, **args)
+            check(got == want, "faults-cost {}: lines differ".format(tag))
+            root = os.path.join(settings.scratch_root,
+                                "chip-faults-cost-" + tag)
+            cost[tag] = {"seconds": secs, "d2h_bytes":
+                         stats["device"]["d2h_bytes"],
+                         "checkpoint_bytes": ckpt_bytes(root),
+                         "persisted": len(manifests(root))}
+        log("faults " + json.dumps({
+            "run": "faults-cost", "plain": cost["plain"],
+            "resume": cost["resume"],
+            "extra_seconds": cost["resume"]["seconds"]
+            - cost["plain"]["seconds"],
+            "extra_d2h_bytes": cost["resume"]["d2h_bytes"]
+            - cost["plain"]["d2h_bytes"], "corpus_bytes": nbytes}))
+    finally:
+        faults.clear()
+        for n, v in olds.items():
+            setattr(settings, n, v)
+    return lines["retry"]["kernels"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mb", type=int, default=128,
@@ -2748,7 +3093,8 @@ def main(argv=None):
               "(torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     try:
-        from dampr_tpu_torch import Dampr, Map, runner, settings, storage
+        from dampr_tpu_torch import (Dampr, Map, faults, runner, settings,
+                                     storage)
         from dampr_tpu_torch.csrc import build
         from dampr_tpu_torch.ops import (fnv, handoff, hashing, lower,
                                          segfold)
@@ -3071,6 +3417,17 @@ def main(argv=None):
             "from the corpus; a sized run adapted; early-fold and chain "
             "edges streamed, equal to staged; explain() ran nothing; in "
             "{:.3f} s".format(time.perf_counter() - t0))
+
+        # -- faults, retries and resume -----------------------------------
+        t0 = time.perf_counter()
+        faults_launches = phase_faults(
+            torch, Dampr, DocFreq, settings, faults, runner, handoff,
+            KERNELS, workdir, corpus, chunk, nbytes, df, n_lines,
+            part_lines(os.path.join(workdir, "idf")), head, head_df)
+        log("phase faults: a retried table-mode job, absorbed spill I/O "
+            "faults, a failed run resumed from DocFreq's checkpoint and "
+            "an auto-resumed run, all exact, memory back each time; in "
+            "{:.3f} s".format(time.perf_counter() - t0))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3094,6 +3451,7 @@ def main(argv=None):
             "launches_ingest": ingest_launches[name],
             "launches_obs": obs_launches[name],
             "launches_adapt": adapt_launches[name],
+            "launches_faults": faults_launches[name],
             "max_abs_err": err[name], "ms": main_t["ms"],
             "device_ms": main_t["device_ms"], "host_ms": main_t["host_ms"],
             "profiler_ms": main_t["profiler_ms"],
@@ -3125,6 +3483,7 @@ def main(argv=None):
         "launches_handoff": handoff_launches["handoff"],
         "launches_obs": obs_launches["handoff"],
         "launches_adapt": adapt_launches["handoff"],
+        "launches_faults": faults_launches["handoff"],
         "max_abs_err": err["handoff"], "ms": ht["ms"],
         "device_ms": ht["device_ms"], "host_ms": ht["host_ms"],
         "profiler_ms": ht["profiler_ms"], "plain_ms": ht["plain"]["ms"],

@@ -2,7 +2,7 @@
 ``dampr_tpu/analyze/lint.py``)::
 
     python -m dampr_tpu_torch.analyze.lint [--json] [--strict]
-        [--processes N] TARGET...
+        [--processes N] [--resume] TARGET...
 
 Lints the pipelines a Python module *constructs* — no pipeline runs.
 (One deliberate exception to "static": a fold binop the classifier
@@ -27,9 +27,8 @@ Exit codes: 0 = clean (or only warn/info without ``--strict``), 1 = any
 error-severity diagnostic (with ``--strict``: any warning too), 2 =
 import failure or no pipelines found.  ``--json`` emits the machine
 report (schema ``dampr-tpu-lint/1``, docs/lint_schema.json, validated
-by ``tools/validate_lint.py``), the JAX package's schema.  The JAX
-package's ``--resume`` check (``DTA402``) waits for the port's resume
-fingerprints.
+by ``tools/validate_lint.py``), the JAX package's schema.  ``--resume``
+adds the checkpoint fingerprint-stability check (``DTA402``).
 """
 
 import argparse
@@ -98,7 +97,7 @@ def collect_pipelines(target):
     return [("pipeline{}".format(i), h) for i, h in enumerate(maximal)]
 
 
-def lint_target(target, num_processes=1):
+def lint_target(target, num_processes=1, resume=False):
     """Lint one module: ``(target_record, [diagnostic_dict])``."""
     rec = {"target": str(target), "pipelines": [], "error": None}
     try:
@@ -111,7 +110,8 @@ def lint_target(target, num_processes=1):
     seen = set()
     for name, handle in pipelines:
         rec["pipelines"].append(name)
-        for d in handle.validate(num_processes=num_processes):
+        for d in handle.validate(resume=resume,
+                                 num_processes=num_processes):
             dd = d.to_dict()
             # Shared prefixes across one module's pipelines produce the
             # same diagnostic once per consumer — dedupe on content.
@@ -132,13 +132,14 @@ def _counts(diagnostics):
             for s in SEVERITIES}
 
 
-def run_lint(targets, num_processes=1, strict=False):
+def run_lint(targets, num_processes=1, resume=False, strict=False):
     """The whole-invocation report dict (docs/lint_schema.json)."""
     target_recs = []
     diagnostics = []
     failed = False
     for t in targets:
-        rec, diags = lint_target(t, num_processes=num_processes)
+        rec, diags = lint_target(t, num_processes=num_processes,
+                                 resume=resume)
         target_recs.append(rec)
         diagnostics.extend(diags)
         if rec["error"] is not None or not rec["pipelines"]:
@@ -203,9 +204,12 @@ def main(argv=None):
     ap.add_argument("--processes", type=int, default=1, metavar="N",
                     help="lint as if dispatching across N ranks "
                          "(promotes unpicklable captures to errors)")
+    ap.add_argument("--resume", action="store_true",
+                    help="add the resume=/cached() fingerprint-"
+                         "stability checks")
     args = ap.parse_args(argv)
     report = run_lint(args.targets, num_processes=args.processes,
-                      strict=args.strict)
+                      resume=args.resume, strict=args.strict)
     if args.json:
         print(json.dumps(report, indent=2, sort_keys=True))
     else:

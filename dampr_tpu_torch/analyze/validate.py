@@ -24,9 +24,8 @@ code        severity  meaning
                       HARD ERROR at dispatch time on multi-process runs
                       (:func:`preflight_dispatch_check`).
 ``DTA402``  warn      fingerprint-unstable operator under ``resume=`` /
-                      ``cached()`` (the JAX package's; not here yet: the
-                      port has no resume fingerprints, and
-                      ``validate_graph(resume=True)`` raises)
+                      ``cached()``: the stage can never match its
+                      checkpoint and recomputes every run
 ``DTA501``  info      certified numeric chain (:mod:`.torchtrace`): it
                       lowers to the device as one lane program
 ==========  ========  ====================================================
@@ -238,24 +237,47 @@ def validate_graph(graph, resume=False, num_processes=1,
                    probe_pickle=True):
     """Full pre-flight validation -> ordered [Diagnostic] (errors first).
 
-    ``num_processes > 1`` promotes unpicklable captures to errors (they
-    WILL fail at the process boundary).  ``resume=True`` (the JAX
-    package's fingerprint-stability check, ``DTA402``) raises: the port
-    has no resume fingerprints to check yet."""
-    if resume:
-        raise NotImplementedError(
-            "validate(resume=True): the fingerprint-stability check "
-            "(DTA402) needs resume fingerprints, which dampr_tpu_torch "
-            "does not have yet")
+    ``resume`` adds the fingerprint-stability checks (``DTA402``, which a
+    ``cached()`` or barrier stage gets regardless); ``num_processes > 1``
+    promotes unpicklable captures to errors (they WILL fail at the
+    process boundary)."""
     diagnostics = []
     records = analyze_stages(graph, probe_traceable=probe_traceable,
                              probe_assoc=probe_assoc,
                              probe_pickle=probe_pickle)
     by_sid = {r["sid"]: r for r in records}
+    # Fingerprinting pickles captured state: computed lazily, so a
+    # probe-free validate() and a graph with no resume/cached() stage
+    # never serialize a byte.
+    fps_cache = []
+    producer = {s.output: i for i, s in enumerate(graph.stages)}
     for sid, stage in enumerate(graph.stages):
         rec = by_sid.get(sid)
-        if rec is not None:
-            _diagnose_stage(rec, stage, diagnostics)
+        if rec is None:
+            continue
+        _diagnose_stage(rec, stage, diagnostics)
+        opts = getattr(stage, "options", None) or {}
+        wants_fp = resume or opts.get("memory") or opts.get("barrier")
+        if wants_fp and not fps_cache:
+            fps_cache.append(_fingerprints(graph))
+        fps = fps_cache[0] if fps_cache else None
+        if wants_fp and fps and not opts.get("assume_picklable"):
+            from .. import resume as _resume
+
+            # Volatility propagates downstream through input chaining:
+            # the diagnostic goes to the FIRST volatile stage (its own
+            # body is the cause, not an inherited upstream one).
+            inherited = any(
+                _resume.is_volatile(fps.get(producer.get(src), ""))
+                for src in stage.inputs if producer.get(src) in fps)
+            if _resume.is_volatile(fps.get(sid, "")) and not inherited:
+                diagnostics.append(Diagnostic(
+                    "DTA402", "warn", sid, rec["stage"],
+                    "fingerprint-unstable operator under resume=/"
+                    "cached(): the stage can never match its checkpoint "
+                    "and recomputes every run (capture only plain data "
+                    "and functions, or pass a fresh run name)",
+                    []))
     # A fold's binop rides both halves of the decomposition (the
     # combiner-carrying map and the final-fold reduce): one user fold,
     # one diagnostic.
@@ -279,6 +301,17 @@ def validate_graph(graph, resume=False, num_processes=1,
     order = {s: i for i, s in enumerate(SEVERITIES)}
     diagnostics.sort(key=lambda d: (order[d.severity], d.sid, d.code))
     return diagnostics
+
+
+def _fingerprints(graph):
+    """One full-graph fingerprint pass (None on any failure: the
+    fingerprint checks are best-effort)."""
+    from .. import resume as _resume
+
+    try:
+        return _resume.stage_fingerprints(graph)
+    except Exception:
+        return None
 
 
 def preflight_dispatch_check(graph, num_processes):

@@ -1,7 +1,7 @@
 """The fluent DSL: lazy, value-semantic pipeline construction.
 
-Port of ``dampr_tpu/dampr.py`` without the ``submit``/resume surfaces:
-the sources (``Dampr.text``/``json``/
+Port of ``dampr_tpu/dampr.py`` without the ``submit`` surface: the
+sources (``Dampr.text``/``json``/
 ``memory``/``urls``/``read_input``/``from_dataset``),
 the per-record ops (``map``, ``map_values``, ``map_keys``, ``prefix``,
 ``suffix``, ``filter``, ``flat_map``, ``sample``, ``inspect``), the
@@ -9,9 +9,10 @@ associative folds (``fold_by``, ``a_group_by`` -> ``reduce``/``sum``/
 ``first``, ``count``, ``mean``), ``sort_by``, ``topk``, ``group_by`` ->
 :class:`PReduce`, ``len()``, the custom operators, the joins
 (:class:`PJoin`) and map-side crosses, ``checkpoint``/``cached``, the
-sinks, single- and multi-output runs, ``explain()`` (the plan as text,
-:mod:`.plan.explain`) and ``validate()`` (the static analyzer's
-diagnostics, :mod:`.analyze`).
+sinks, single- and multi-output runs with ``run(name=..., resume=True |
+"auto")`` (durable per-stage checkpoints, :mod:`.resume`, and crash
+auto-resume), ``explain()`` (the plan as text, :mod:`.plan.explain`) and
+``validate()`` (the static analyzer's diagnostics, :mod:`.analyze`).
 
 Every chained call is its own stage node; the plan (:mod:`.plan`) fuses
 chains of per-record stages into one executed map stage at ``run()``
@@ -26,8 +27,10 @@ import logging
 import random
 import sys
 import threading
+import time
 import weakref
 
+from . import faults as _faults
 from . import settings
 from .base import (AssocFoldReducer, ComposedMapper, Filter, FlatMap,
                    Inspect, KeyedInnerJoin, KeyedLeftJoin, KeyedOuterJoin,
@@ -93,6 +96,49 @@ class ValueEmitter(object):
         self.dataset.delete()
 
 
+log = logging.getLogger("dampr_tpu_torch.dampr")
+
+
+def _drive_runner(make_runner, sources, resume):
+    """Run, with crash auto-resume under ``resume="auto"``: like
+    ``resume=True`` (durable per-stage checkpoints) plus a whole-run retry
+    loop.  A failed run builds a fresh runner (the dead one's store has
+    released its device lanes and its writes) and runs again; every stage
+    whose manifest survived restores, so only the work past the last
+    checkpoint repeats and the result equals a cold run's.  Fatal failures
+    never auto-resume; transient ones back off with jitter.  The runner
+    that completes counts the attempts that failed before it
+    (``stats()["faults"]["failed_attempts"]``).  Returns ``(runner,
+    datasets)``."""
+    auto = isinstance(resume, str) and resume.lower() == "auto"
+    attempts = (max(0, settings.run_retries) + 1) if auto else 1
+    prev_quarantine = None
+    for attempt in range(attempts):
+        runner = make_runner()
+        runner.run_attempt = attempt + 1
+        if prev_quarantine is not None and runner._quarantine is not None:
+            # the retry adopts the failed attempt's quarantine: its
+            # committed records (their stages may now restore without
+            # running) keep their budget charge and their sink lines
+            runner._quarantine = prev_quarantine
+            prev_quarantine.rewrite_sink()
+        try:
+            return runner, runner.run(sources)
+        except BaseException as e:
+            prev_quarantine = runner._quarantine
+            kind = _faults.classify(e)
+            if kind == "fatal" or attempt + 1 >= attempts:
+                raise
+            delay = _faults.backoff(attempt) if kind == "transient" else 0.0
+            log.warning(
+                "run failed (%s: %s, classified %s); auto-resume attempt "
+                "%d/%d runs again from the last durable checkpoint%s",
+                type(e).__name__, str(e)[:300], kind, attempt + 2, attempts,
+                " in %.0f ms" % (delay * 1000) if delay else "")
+            if delay:
+                time.sleep(delay)
+
+
 #: Every live pipeline handle (weakly held).  The linter
 #: (:mod:`.analyze.lint`) discovers through it the pipelines a linted
 #: module constructed at import time, without running anything; the DSL
@@ -110,13 +156,35 @@ class PBase(object):
 
     def run(self, name=None, **kwargs):
         """Evaluate the graph; returns a ValueEmitter whose ``stats``
-        carries the run's metrics."""
+        carries the run's metrics.
+
+        ``resume=True`` makes the run durable: each completed stage
+        checkpoints its output under the run's scratch root, and a rerun
+        under the same ``name`` skips every stage whose checkpoint is
+        still valid (:mod:`.resume`), so it needs an explicit name.
+        ``resume="auto"`` adds crash recovery: a run failing with a
+        non-fatal error runs again (up to ``settings.run_retries`` times)
+        from its last durable checkpoint, with a result equal to a cold
+        run's.
+
+        Input files are identified by (path, size, mtime_ns) and a hash
+        of their first and last 64 KB: an edit keeping the size, resetting
+        the mtime and touching only the interior of a file over 128 KB
+        goes unseen; pass a fresh ``name`` after one.  Starting a run
+        under a name removes the scratch blocks no checkpoint references
+        (unless another live process runs under that name), so read a
+        previous run's output before running its name again."""
+        if kwargs.get("resume") and name is None:
+            raise ValueError(
+                "resume=True requires a stable run name: run(name=..., "
+                "resume=True)")
         if name is None:
             name = "dampr/{}".format(random.random())
         if settings.seed is not None:
             _reset_sample_rngs()
-        runner = self.pmer.runner(name, self.pmer.graph, **kwargs)
-        ds = runner.run([self.source])
+        runner, ds = _drive_runner(
+            lambda: self.pmer.runner(name, self.pmer.graph, **kwargs),
+            [self.source], kwargs.get("resume"))
         em = ValueEmitter(ds[0])
         em.stats = RunStats([s.as_dict() for s in runner.stats],
                             runner.run_summary)
@@ -140,9 +208,8 @@ class PBase(object):
         associativity, traceability — regardless of ``settings.analyze``:
         an explicit call is its own opt-in.  ``num_processes > 1``
         promotes unpicklable captures to errors; ``probe=False`` keeps it
-        to the fast bytecode-only classification.  ``resume=True`` (the
-        checkpoint fingerprint check) raises: the port has no resume
-        fingerprints yet."""
+        to the fast bytecode-only classification.  ``resume=True`` adds the
+        checkpoint fingerprint-stability check (``DTA402``)."""
         from .analyze import validate as _av
 
         return _av.validate_graph(
@@ -632,11 +699,16 @@ class Dampr(object):
             graph = (pm.pmer.graph if graph is None
                      else pm.pmer.graph.union(graph))
             sources.append(pm.source)
+        if kwargs.get("resume") and kwargs.get("name") is None:
+            raise ValueError(
+                "resume=True requires a stable run name: Dampr.run(..., "
+                "name=..., resume=True)")
         name = kwargs.pop("name", None) or "dampr/{}".format(random.random())
         if settings.seed is not None:
             _reset_sample_rngs()
-        runner = pm.pmer.runner(name, graph, **kwargs)
-        datasets = runner.run(sources)
+        runner, datasets = _drive_runner(
+            lambda: pm.pmer.runner(name, graph, **kwargs), sources,
+            kwargs.get("resume"))
         stats = RunStats([s.as_dict() for s in runner.stats],
                          runner.run_summary)
         emitters = []

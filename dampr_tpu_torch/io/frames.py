@@ -28,6 +28,7 @@ import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
+from .. import faults as _faults
 from . import codecs
 
 MAGIC = b"DTFR"
@@ -138,7 +139,31 @@ class FrameReader(object):
         return len(self.index)
 
     def read_frame(self, i):
-        """Read and decompress frame ``i`` -> payload bytes (thread-safe)."""
+        """Read and decompress frame ``i`` -> payload bytes (thread-safe).
+        A transient read failure (a flaky disk, an injected
+        ``spill_read`` fault) retries in place with backoff
+        (``settings.io_retries``): a pread of a published file is
+        idempotent.  Format errors are deterministic and raise at once."""
+        return self._read_frame_timed(i)[0]
+
+    def _read_frame_timed(self, i):
+        """``(payload, seconds)``, the seconds of the attempt that
+        succeeded only: a failed attempt and its backoff sleep stay out of
+        the store's read seconds (and so out of its MB/s)."""
+        cell = [0.0]
+
+        def attempt():
+            t0 = time.perf_counter()
+            try:
+                return self._read_frame_once(i)
+            finally:
+                cell[0] = time.perf_counter() - t0
+
+        payload = _faults.retry_io(attempt, "spill_read")
+        return payload, cell[0]
+
+    def _read_frame_once(self, i):
+        _faults.check("spill_read")
         off, cid, raw_len, comp_len, _records = self.index[i]
         data = os.pread(self._fd, _FRAME.size + comp_len, off)
         if len(data) < _FRAME.size + comp_len:
@@ -158,10 +183,6 @@ class FrameReader(object):
                     self.path, i, len(payload), raw_len))
         return payload
 
-    def _read_frame_timed(self, i):
-        t0 = time.perf_counter()
-        payload = self.read_frame(i)
-        return payload, time.perf_counter() - t0
 
     def iter_payloads(self, prefetch=0, on_read=None, on_wait=None):
         """Yield every frame's payload in order.

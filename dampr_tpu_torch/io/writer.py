@@ -24,6 +24,7 @@ import queue
 import threading
 import time
 
+from .. import faults as _faults
 from ..obs import log as _obslog
 from ..obs import trace as _trace
 from . import frames
@@ -69,9 +70,15 @@ class SpillWriterPool(object):
             err, self._error = self._error, None
             raise err
 
-    def submit(self, ref, block, final_path, codec):
+    def submit(self, ref, block, final_path, codec, clear_block=True):
         """Queue one block's write.  ``block`` is the submitter's snapshot
         of the ref's data (a concurrent delete may clear ``ref._block``).
+        ``clear_block=True`` is a spill (the publish frees the RAM copy);
+        ``False`` a checkpoint persist (the block stays, only ``ref.path``
+        lands).  The charge is the larger of the ref's host bytes and the
+        snapshot's: a device ref persisted through the pool carries
+        metadata-only ``nbytes`` while its fetched value lane is what sits
+        in the queue.
 
         Blocks only while the bytes in flight already sit at the cap (the
         fold-side ``io_wait``).  Admission is by the current backlog, not
@@ -96,7 +103,7 @@ class SpillWriterPool(object):
             self._outstanding += 1
             self.queue_peak = max(self.queue_peak, self._outstanding)
         self._ensure_threads()
-        self._q.put((ref, block, final_path, codec, nbytes,
+        self._q.put((ref, block, final_path, codec, clear_block, nbytes,
                      _trace.now()))
 
     # -- worker side --------------------------------------------------------
@@ -105,7 +112,7 @@ class SpillWriterPool(object):
             item = self._q.get()
             if item is _STOP:
                 return
-            ref, block, final, codec, nbytes, t_enq = item
+            ref, block, final, codec, clear_block, nbytes, t_enq = item
             if self._aborting or ref._dead:
                 # dropped while queued (merge planners drop merged runs):
                 # a publish would only unlink the file
@@ -114,25 +121,37 @@ class SpillWriterPool(object):
             # how long the write sat behind the pool's backlog
             _trace.complete("spill_queue", "queued", t_enq, bytes=nbytes)
             tmp = final + ".tmp"
+
+            def write_once():
+                # tmp -> fsync -> rename is idempotent, so a transient
+                # failure (an injected ``spill_write`` fault among them)
+                # retries in place; the site sits inside the retried body
+                _faults.check("spill_write")
+                try:
+                    with _trace.span("spill", "spill-write", bytes=nbytes,
+                                     records=len(block)):
+                        with open(tmp, "wb") as f:
+                            frames.write_block_frames(
+                                block, f, codec, self.window,
+                                at_least_one=True)
+                            f.flush()
+                            os.fsync(f.fileno())
+                        os.replace(tmp, final)
+                except BaseException:
+                    try:
+                        os.unlink(tmp)
+                    except OSError:
+                        pass
+                    raise
+
             try:
                 t0 = time.perf_counter()
-                with _trace.span("spill", "spill-write", bytes=nbytes,
-                                 records=len(block)):
-                    with open(tmp, "wb") as f:
-                        frames.write_block_frames(block, f, codec,
-                                                  self.window,
-                                                  at_least_one=True)
-                        f.flush()
-                        os.fsync(f.fileno())
-                    os.replace(tmp, final)
+                _faults.retry_io(write_once, "spill_write")
                 secs = time.perf_counter() - t0
                 self.store.publish_spill(ref, final,
-                                         os.path.getsize(final), secs)
+                                         os.path.getsize(final), secs,
+                                         clear_block=clear_block)
             except BaseException as e:  # disk full, codec bug: fail the run
-                try:
-                    os.unlink(tmp)
-                except OSError:
-                    pass
                 with self._cv:
                     if self._error is None:
                         self._error = e

@@ -25,6 +25,8 @@ import sys
 import threading
 import time
 
+from .. import faults as _faults
+
 log = logging.getLogger("dampr_tpu_torch.obs.progress")
 
 #: Refresh cadence of the progress line (ms).
@@ -155,6 +157,7 @@ class ProgressReporter(object):
     def _loop(self):
         while not self._stop.wait(self.interval):
             try:
+                _faults.check("progress_tick")  # slow-stop tests
                 self._tick()
             except Exception:
                 pass

@@ -17,10 +17,11 @@ monotonic non-decreasing by construction, which the export relies on
 (Chrome counter events must not go backwards) and tests pin.
 """
 
+import logging
 import threading
 import time
 
-import logging
+from .. import faults as _faults
 
 log = logging.getLogger("dampr_tpu_torch.obs.sampler")
 
@@ -95,6 +96,7 @@ class Sampler(object):
         next_at = time.perf_counter()
         while not self._stop.is_set():
             try:
+                _faults.check("sampler_tick")  # slow-stop shutdown tests
                 self._sample_once()
             except Exception:
                 # A broken gauge must degrade observability, not the run.

@@ -47,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from .. import faults as _faults
 from .. import settings
 from ..obs import profile as _profile
 from ..obs import trace as _trace
@@ -372,7 +373,10 @@ class DeviceTokenFoldSink(object):
         return mat_t, lens_t, lines_t
 
     def _dispatch(self, buf, starts, lens, lines):
-        """Queue one classic batch: inputs up, the program, results down."""
+        """Queue one classic batch: inputs up, the program, results down.
+        The ``device_dispatch`` fault site: a failure here surfaces through
+        the map job and rides the job retry loop."""
+        _faults.check("device_dispatch")
         t0 = time.perf_counter()
         inputs = self._pad_batch(buf, starts, lens, lines)
         nbytes = sum(t.numel() * t.element_size() for t in inputs)
@@ -419,6 +423,9 @@ class DeviceTokenFoldSink(object):
         otherwise.  A refused table dispatch (the count guard, the budget)
         degrades the job, and the batch goes classic."""
         if self._handoff_live and self._hv.table_mode:
+            # the table program's dispatch site: a fault here fails the
+            # job (and rides the retry loop), it never degrades it
+            _faults.check("device_dispatch")
             t0 = time.perf_counter()
             inputs = self._pad_batch(buf, starts, lens, lines)
             t1 = time.perf_counter()
@@ -551,6 +558,9 @@ class DeviceTokenFoldSink(object):
         does not cover it reverts through the miss bar."""
         from .handoff import CLASSIC_DRAIN_BYTES_PER_SLOT
 
+        # the bootstrap stands in for this window's dispatches, so it
+        # keeps their fault site
+        _faults.check("device_dispatch")
         t0 = time.perf_counter()
         scan = chunk_doc_freq if self.dedup else chunk_token_counts
         with _trace.span("handoff", "bootstrap-host", bytes=len(data)):
@@ -622,23 +632,44 @@ class DeviceTokenFoldSink(object):
 
         # Double-buffered feed: dispatch batch i+1 before draining batch i.
         pending = None
-        for a, b in bounds:
-            if (pending is not None and self._handoff_live
-                    and not self._hv.table_mode and not self._hv.nslots):
-                # The job's first classic batch resolves before the next
-                # dispatch: its drain seeds the vocabulary, so the rest of
-                # the job can take the table program.
-                self._resolve(buf, pending, out)
-                pending = None
-            nxt = self._next_batch(
-                buf, s_starts[a:b], s_lens[a:b],
-                s_lines[a:b] if s_lines is not None else None, out)
+        try:
+            for a, b in bounds:
+                if (pending is not None and self._handoff_live
+                        and not self._hv.table_mode
+                        and not self._hv.nslots):
+                    # The job's first classic batch resolves before the
+                    # next dispatch: its drain seeds the vocabulary, so the
+                    # rest of the job can take the table program.
+                    self._resolve(buf, pending, out)
+                    pending = None
+                nxt = self._next_batch(
+                    buf, s_starts[a:b], s_lens[a:b],
+                    s_lines[a:b] if s_lines is not None else None, out)
+                if pending is not None:
+                    self._resolve(buf, pending, out)
+                pending = nxt
             if pending is not None:
                 self._resolve(buf, pending, out)
-            pending = nxt
-        if pending is not None:
-            self._resolve(buf, pending, out)
+        except BaseException:
+            # a batch still in flight writes into pinned host tensors this
+            # frame holds: it lands before they go
+            self._wait_inflight()
+            raise
         return [blk for blk in out if blk is not None and len(blk)]
+
+    def _wait_inflight(self):
+        """Block until every copy and kernel this sink queued on its stream
+        (classic and table batches, the vocabulary's uploads) is done."""
+        if self._stream is not None:
+            self._stream.synchronize()
+
+    def abort(self):
+        """A failed job attempt's end: wait out the work in flight, then
+        drop the vocabulary and its device accumulator (a retried attempt
+        builds a fresh sink; nothing of this one is ever registered)."""
+        self._wait_inflight()
+        if self._hv is not None:
+            self._hv._reset()
 
     def finish(self):
         return ()

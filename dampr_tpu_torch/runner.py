@@ -98,8 +98,23 @@ the consumer's jobs per finished producer block (:meth:`MTRunner.
 _run_chain`).  Every finalized run appends one record to its name's
 run history (:mod:`.obs.history`); a failed one appends nothing.
 
-Mesh execution across cards, mitigation, faults/resume and quarantine,
-and the cross-run cache are later slices.
+**Faults and resume** (:mod:`.faults`, :mod:`.resume`): every job runs
+inside ``store.attempt()`` under ``settings.job_retries``, so a failed
+attempt's refs (device lanes and HBM charge included) are dropped before
+a classified retry; the batched record path bisects deterministic
+failures into the quarantine sink under ``settings.max_quarantined``;
+the fault sites ``fold``, ``udf``, ``overlap_produce`` and
+``stream_publish`` sit here.  A run with ``resume=True`` persists each
+stage (a manifest with a chained fingerprint) and restores the valid
+prefix on a rerun, skipping every stage no restored output needs; a
+run of any kind holds its scratch root's liveness lock and sweeps blocks
+no manifest references.  An identity checkpoint over a materialized
+partition set aliases it where :meth:`MTRunner._alias_provenance_ok`
+allows.  SIGTERM during a run raises ``SystemExit(143)``, the failed
+run's path.
+
+Mesh execution across cards, mitigation and the cross-run cache are
+later slices.
 """
 
 import collections
@@ -115,6 +130,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from . import base, plan, settings, storage
+from . import faults as _faults
 from .blocks import Block, BlockBuilder, merge_sorted_streams, pylist
 from .dataset import (BlockDataset, CatDataset, Chunker, Dataset, OrderKey,
                       SinkDataset, StreamDataset, merged_read)
@@ -207,7 +223,8 @@ def _record_batches(chunk, B):
     return slices()
 
 
-def _run_record_chain(chain, batches, B, push, prof=None, prog=None):
+def _run_record_chain(chain, batches, B, push, prof=None, prog=None,
+                      qrec=None):
     """Run a record-op chain over ``batches`` through each op's
     ``apply_batch`` and push the survivors as ``B``-record blocks.
 
@@ -225,7 +242,15 @@ def _run_record_chain(chain, batches, B, push, prof=None, prog=None):
     verified per batch inside ``run_batch``); a batch outside its
     contract runs the chain.  The first vectorized batch is also run
     through the chain and compared: a divergence (int64 wrap, a
-    dtype-sensitive UDF) drops the rest of the job back to the chain."""
+    dtype-sensitive UDF) drops the rest of the job back to the chain.
+
+    With a fault plan installed or a quarantine recorder ``qrec`` (the
+    job attempt's :class:`.faults.QuarantineAttempt`), each batch runs
+    through the chain transactionally (the lane program stays off):
+    the ``udf`` site checks it, and under quarantine its output stages
+    locally and lands only on success, so a deterministic failure
+    bisects down to the poison records, which go to ``qrec``; order is
+    kept, so results equal a run whose input lacked them."""
     pk, pv = [], []
     labels = _profile.chain_labels(chain) if prof is not None else None
 
@@ -266,6 +291,38 @@ def _run_record_chain(chain, batches, B, push, prof=None, prog=None):
             if not ks:
                 return
         emit(ks, vs)
+
+    fa = _faults.active()
+    if qrec is not None or fa is not None:
+        def guarded_run(ks, vs):
+            staged = []
+            try:
+                if fa is not None:
+                    _faults.check_records("udf", ks, vs)
+                run(ks, vs, 0, (lambda a, b: staged.append((a, b)))
+                    if qrec is not None else emit)
+            except Exception as e:
+                if qrec is None or _faults.classify(e) != "deterministic":
+                    raise
+                if len(ks) <= 1:
+                    qrec.add(_faults.run_context.get("stage"),
+                             ks[0] if ks else None,
+                             vs[0] if vs else None, e)
+                    return
+                with _trace.span("fault", "quarantine-bisect",
+                                 records=len(ks)):
+                    mid = len(ks) // 2
+                    guarded_run(ks[:mid], vs[:mid])
+                    guarded_run(ks[mid:], vs[mid:])
+                return
+            for sks, svs in staged:
+                emit(sks, svs)
+
+        for ks, vs in batches:
+            guarded_run(ks, vs)
+        if pk:
+            push(Block.from_lists(pk, pv))
+        return
 
     diffed = False
     for ks, vs in batches:
@@ -334,6 +391,9 @@ def _overlap_stream(items, store, size_of=None):
     def produce():
         try:
             for item in items:
+                # a chaos schedule widens the producer/consumer shutdown
+                # race here (``sleep_ms``)
+                _faults.check("overlap_produce")
                 if stop.is_set():
                     return
                 if item is None:
@@ -501,6 +561,7 @@ class _StreamFolder(object):
         """Dispatch-thread side: charge, wait under the bound, enqueue.
         ``mapping`` is the job's ``{pid: [refs]}``; the folder may replace
         it whole in ``self.folded[idx]``."""
+        _faults.check("stream_publish")
         if self._disabled:
             return
         nb = sum(ref.total_bytes for refs in mapping.values()
@@ -915,9 +976,9 @@ class StageStats(object):
     may have produced.  ``records_in``/``bytes_in`` count the stage's
     materialized inputs (a tap's size is unknown until read: 0),
     ``bytes_out`` its output's host and device bytes or its part files'.
-    ``retries``, ``quarantined`` and ``shuffle_target`` hold what a run
-    on one device without faults gives (job retries, quarantine and
-    shuffle routing are later slices)."""
+    ``retries`` and ``quarantined`` count the stage's job re-executions
+    and poison records; ``shuffle_target`` holds what a run on one device
+    gives (shuffle routing across devices is a later slice)."""
 
     __slots__ = ("stage_id", "kind", "op", "target", "shuffle_target",
                  "n_jobs", "records_in", "records_out", "bytes_in",
@@ -968,12 +1029,15 @@ class MTRunner(object):
     """Sequential stage walk with parallel jobs within each stage."""
 
     def __init__(self, name, graph, n_maps=None, n_reducers=None,
-                 n_partitions=None, memory_budget=None):
+                 n_partitions=None, memory_budget=None, resume=False):
         # The device is resolved up front: a run asked to use a card that
         # is absent fails here, before any stage, never on the CPU.
         self.device = settings.resolve_device()
         self.name = name
         self.graph = graph
+        # durable per-stage checkpoints (:mod:`.resume`); "auto" is the
+        # DSL's run-retry loop around a resumable runner
+        self.resume = bool(resume)
         self.n_maps = n_maps or settings.max_processes
         self.n_reducers = n_reducers or settings.max_processes
         self.n_partitions = n_partitions or settings.partitions
@@ -1016,8 +1080,22 @@ class MTRunner(object):
         self.scan_groups = []
         # reduces that took the tiny associative fold
         self.tiny_folds = 0
-        # job re-executions (the port has no job retries yet: always 0)
+        # classified job re-executions and the backoff they slept
         self.retries_total = 0
+        self._retry_lock = threading.Lock()
+        self._backoff_seconds = 0.0
+        # the poison-record sink (settings.max_quarantined > 0): records a
+        # deterministic failure bisects out of the batched record path go
+        # to <scratch>/<run>/quarantine.jsonl and the stage completes
+        self._quarantine = (_faults.Quarantine(name,
+                                               settings.max_quarantined)
+                            if settings.max_quarantined > 0 else None)
+        # the fault counters' epoch: stats()["faults"] reports this run's
+        # share of the process-wide counts
+        self._fault_snapshot = None
+        #: which attempt of a ``run(resume="auto")`` this runner is (the
+        #: failed ones before it are in ``stats()["faults"]``)
+        self.run_attempt = 1
         # the observability plane, run-scoped (_start_obs/_stop_obs)
         self.tracer = None
         self.metrics = None
@@ -1040,7 +1118,13 @@ class MTRunner(object):
         profiler gets each job's thread-seconds, the metrics plane its
         start and end.  ``on_result(idx, result)`` (a streamed edge's
         publish) runs on this thread as each result comes in, in job
-        order; it may wait, while the workers run ahead."""
+        order; it may wait, while the workers run ahead.
+
+        Under ``settings.job_retries`` each job runs inside
+        ``store.attempt()`` (a failed attempt's refs are dropped) and a
+        failure retries as :meth:`_retrying` classifies it."""
+        fn = self._retrying(fn, label or "job")
+
         def charged(j):
             with devtime.charging(self.store):
                 return fn(j)
@@ -1092,6 +1176,42 @@ class MTRunner(object):
         with ThreadPoolExecutor(max_workers=workers,
                                 thread_name_prefix="dampr-job") as pool:
             return collect(pool.map(charged, jobs))
+
+    def _retrying(self, fn, label):
+        """``fn`` under the classified job-retry loop
+        (``settings.job_retries``; ``fn`` itself when 0): every attempt
+        runs in ``store.attempt()``, so its registered refs, device lanes
+        included, are dropped if it raises.  Fatal failures never retry;
+        transient ones back off with full jitter (:func:`.faults.backoff`);
+        deterministic ones retry at once (a stateful UDF may recover)."""
+        retries = settings.job_retries
+        if not retries:
+            return fn
+
+        def run(job):
+            for attempt in range(retries + 1):
+                try:
+                    with self.store.attempt():
+                        return fn(job)
+                except Exception as e:
+                    kind = _faults.classify(e)
+                    if kind == "fatal" or attempt == retries:
+                        raise
+                    delay = (_faults.backoff(attempt)
+                             if kind == "transient" else 0.0)
+                    with self._retry_lock:
+                        self.retries_total += 1
+                        self._backoff_seconds += delay
+                    _trace.instant("retry", label, attempt=attempt + 1,
+                                   kind=kind)
+                    log.warning(
+                        "job failed (%s, attempt %d/%d), retrying%s",
+                        kind, attempt + 1, retries + 1,
+                        " in %.0f ms" % (delay * 1000) if delay else "",
+                        exc_info=True)
+                    if delay:
+                        time.sleep(delay)
+        return run
 
     def _as_chunks(self, entry):
         """Stage input -> list of job datasets."""
@@ -1283,19 +1403,25 @@ class MTRunner(object):
         spans_lock = threading.Lock()
         acct = {"bytes_in": 0, "records_in": 0}
 
+        def traced_c(ds):
+            if _trace.enabled():
+                with _trace.span("job", "chain"):
+                    return mj_c.job(ds)
+            return mj_c.job(ds)
+
+        retried_c = self._retrying(traced_c, "chain")
+
         def job_c(ds):
             t0 = time.perf_counter()
             try:
                 with devtime.charging(self.store):
-                    if _trace.enabled():
-                        with _trace.span("job", "chain"):
-                            return mj_c.job(ds)
-                    return mj_c.job(ds)
+                    return retried_c(ds)
             finally:
                 with spans_lock:
                     spans.append((t0, time.perf_counter()))
 
         def publish(idx, mapping):
+            _faults.check("stream_publish")
             self._pipeline_stats["published"] += 1
             for pid in sorted(mapping):
                 refs = list(mapping[pid])
@@ -1443,6 +1569,11 @@ class MTRunner(object):
                         gen, self.store,
                         size_of=lambda it: it[1].nbytes()):
                     members[mi][1](blk)
+            except BaseException:
+                for (wsink, _push, _end), mj in zip(members, parts):
+                    if mj.dev_lowered:
+                        wsink.abort()
+                raise
             finally:
                 for (wsink, _push, _end), mj in zip(members, parts):
                     if mj.dev_lowered:
@@ -1558,6 +1689,7 @@ class MTRunner(object):
                 if combine_op is None:
                     raw.append(blk)
                     return
+                _faults.check("fold")
                 t0 = time.perf_counter()
                 with _trace.span("fold", "partial-fold", records=len(blk)):
                     partials.append(segment.fold_block(blk, combine_op))
@@ -1633,9 +1765,15 @@ class MTRunner(object):
                 out.setdefault(pid, []).extend(refs)
             return out
 
+        quarantine = self._quarantine
+
         def job(chunk):
             mapper = _clone_op(stage.mapper)
             push, end = new_sink()
+            # this attempt's quarantine recorder: its records land in the
+            # run's sink only if the attempt succeeds, so a retried job
+            # never counts one twice
+            qrec = quarantine.attempt() if quarantine is not None else None
             use_blocks = (not supplementary and hasattr(mapper, "map_blocks")
                           and hasattr(chunk, "read_bytes"))
             ident_blocks = (not supplementary and identity
@@ -1657,6 +1795,11 @@ class MTRunner(object):
                             _drive_windows(mapper, chunk, sink=sink),
                             self.store):
                         push(blk)
+                except BaseException:
+                    # nothing of this attempt may still run on the card
+                    # when a retry starts, and its vocabulary is dropped
+                    sink.abort()
+                    raise
                 finally:
                     self._note_device_sink(sink)
             elif use_blocks:
@@ -1672,7 +1815,7 @@ class MTRunner(object):
                     push(blk)
             elif chain is not None:
                 _run_record_chain(chain, _record_batches(chunk, B), B, push,
-                                  prof, lane_program)
+                                  prof, lane_program, qrec)
             elif prof is not None and combine_op is None:
                 # a generator chain does not decompose per op: the whole
                 # stream under one label keeps the stage's coverage
@@ -1690,7 +1833,10 @@ class MTRunner(object):
                 for k, v in mapper.map(chunk, *supplementary):
                     push(builder.add(k, v))
                 push(builder.flush())
-            return finish(sink, push, end)
+            out = finish(sink, push, end)
+            if qrec is not None:
+                qrec.commit()
+            return out
 
         return _MapJob(job, new_sink, window_sink, finish, combine_op, pin,
                        feeds_reduce, sorted_run_mode, dev_lowered,
@@ -1704,7 +1850,12 @@ class MTRunner(object):
         too many blocks compact."""
         all_sorted = bool(mj.sorted_runs)
         sorted_runs = mj.sorted_runs
-        pset = storage.PartitionSet(self.n_partitions)
+        # provenance: hash-routed unless the jobs ran as sorted runs, and
+        # hash-sorted runs where a combine folded or a reduce reads them
+        pset = storage.PartitionSet(
+            self.n_partitions, hash_routed=not sorted_runs,
+            hash_sorted=not sorted_runs and (mj.combine_op is not None
+                                             or mj.feeds_reduce))
         for mapping in mappings:
             if sorted_runs and not mapping.pop("_sorted", False):
                 all_sorted = False
@@ -1862,7 +2013,8 @@ class MTRunner(object):
         P = self.n_partitions
         merged = Block.concat([r.get() for r in refs])
         if not len(merged):
-            return storage.PartitionSet(P), 0, 1
+            return storage.PartitionSet(P, hash_routed=True,
+                                        hash_sorted=True), 0, 1
         folded = segment.fold_sorted(segment.sort_and_group(merged),
                                      stage.reducer.op)
         h1, h2 = folded.hashes()
@@ -2073,7 +2225,9 @@ class MTRunner(object):
             if win:
                 flush(win)
             if not partials:
-                return storage.PartitionSet(self.n_partitions), 0, 1
+                return storage.PartitionSet(self.n_partitions,
+                                            hash_routed=True,
+                                            hash_sorted=True), 0, 1
             if len(partials) > 1:
                 compact()
         except _HostPath:
@@ -2115,7 +2269,9 @@ class MTRunner(object):
         vcol = np.empty(len(kl), dtype=object)
         for i in range(len(kl)):
             vcol[i] = (kl[i], vl[i])
-        pset = storage.PartitionSet(P)
+        # hash-routed by the split; the fold's order within a partition is
+        # not an (h1, h2)-sorted run
+        pset = storage.PartitionSet(P, hash_routed=True)
         nrec = 0
         for pid, sub in Block(keys, vcol, h1, h2).split_by_partition(
                 P).items():
@@ -2480,16 +2636,57 @@ class MTRunner(object):
     # -- the walk ----------------------------------------------------------
     def run(self, outputs):
         """Execute the graph; returns one dataset per requested output.
-        Intermediate stage outputs are deleted once the walk ends.  A
-        failed run discards its queued spill writes (their refs keep
-        their RAM blocks, no temp file stays), releases its device lanes
-        and then flushes the flight recorder to ``crashdump.json``.  The
-        summary (``run_summary``, ``em.stats()``) is built either way,
-        and a traced run persists it with its trace."""
-        if settings.profile_dir:
-            with self._torch_profile():
-                return self._run_observed(outputs)
-        return self._run_observed(outputs)
+        Intermediate stage outputs are deleted once the walk ends (a
+        resumable run releases their residency and keeps their
+        checkpoints).  A failed run discards its queued spill writes
+        (their refs keep their RAM blocks, no temp file stays), releases
+        its device lanes and then flushes the flight recorder to
+        ``crashdump.json``; SIGTERM takes the same path.  The summary
+        (``run_summary``, ``em.stats()``) is built either way, and a
+        traced run persists it with its trace."""
+        # a fresh fault schedule per run (chaos runs replay exactly); the
+        # counter epoch scopes stats()["faults"] to this run
+        _faults.configure_for_run()
+        self._fault_snapshot = _faults.counters_snapshot()
+        _faults.set_context(run=self.name)
+        restore_sigterm = self._install_sigterm()
+        try:
+            if settings.profile_dir:
+                with self._torch_profile():
+                    return self._run_observed(outputs)
+            return self._run_observed(outputs)
+        finally:
+            if restore_sigterm is not None:
+                try:
+                    restore_sigterm()
+                except (ValueError, OSError):
+                    pass
+            _faults.set_context(run=None, stage=None)
+
+    def _install_sigterm(self):
+        """While a run is in flight, SIGTERM raises ``SystemExit(143)`` on
+        the main thread, so an external kill takes the failed run's path
+        (writes aborted, device lanes released, crashdump flushed).  Only
+        from the main thread and only where no handler is installed;
+        returns the restore function or None."""
+        import signal
+
+        if threading.current_thread() is not threading.main_thread():
+            return None
+        try:
+            prev = signal.getsignal(signal.SIGTERM)
+            if prev is not signal.SIG_DFL:
+                # the application owns SIGTERM (a handler, SIG_IGN, or one
+                # installed outside Python): never clobber it
+                return None
+
+            def _on_term(signum, frame):
+                raise SystemExit(143)  # 128 + SIGTERM
+
+            signal.signal(signal.SIGTERM, _on_term)
+        except (ValueError, OSError):
+            return None
+        return lambda: signal.signal(signal.SIGTERM, prev)
 
     def _run_observed(self, outputs):
         wall_start = time.time()
@@ -2531,7 +2728,17 @@ class MTRunner(object):
                     self.logstream = None
 
     def _run_guarded(self, outputs):
+        from . import resume as _resume
+
+        # Every run holds its scratch root's liveness lock (a named root is
+        # shared across runs, resumable or not): the sweep of blocks no
+        # manifest references runs only when the exclusive probe proves no
+        # other live run is mid-flight under this name.
+        guard = _resume.RunGuard(self.store.root)
         try:
+            if guard.exclusive:
+                _resume.gc_unreferenced(self.store.root)
+            guard.share()
             return self._run(outputs)
         except BaseException:
             try:
@@ -2546,6 +2753,7 @@ class MTRunner(object):
                 log.warning("device release failed", exc_info=True)
             raise
         finally:
+            guard.close()
             self.store.stop_writes()
 
     def _entry_io(self, entry):
@@ -2568,6 +2776,15 @@ class MTRunner(object):
             return None, nbytes
         return None, None
 
+    def _pressure_snap(self):
+        """Store and retry counters at a stage boundary: their deltas are
+        the stage's pressure fields."""
+        sto = self.store
+        q = self._quarantine
+        return (sto.spill_count, sto.spilled_bytes, sto.merge_gens,
+                sto.merge_gen_bytes, self.retries_total,
+                q.count if q is not None else 0)
+
     def _fill_stage_io(self, st, stage, env, result, snap):
         for src in stage.inputs:
             r, b = self._entry_io(env.get(src))
@@ -2583,8 +2800,48 @@ class MTRunner(object):
         st.spill_bytes = sto.spilled_bytes - snap[1]
         st.merge_gens = sto.merge_gens - snap[2]
         st.merge_gen_bytes = sto.merge_gen_bytes - snap[3]
+        st.retries = self.retries_total - snap[4]
+        q = self._quarantine
+        st.quarantined = (q.count - snap[5]) if q is not None else 0
+
+    def _alias_provenance_ok(self, stage, src):
+        """May an identity checkpoint alias ``src`` instead of running its
+        copy stage?  The copy would hash-route every record and register
+        hash-sorted runs, invariants a consuming reduce depends on
+        (partition-local grouping, the over-budget streaming merge).  So
+        the alias stands only when no reduce consumes the output (directly
+        or through further identity checkpoints), or the input already
+        carries both invariants (a map stage's output).  A reduce's output
+        is registered under its job's pid whatever keys the reducer
+        emitted: ``X.partition_reduce(f).checkpoint().partition_reduce(g)``
+        aliasing f's output would leave g grouping each key only within
+        f's partitions, silently wrong."""
+        if not self._reduce_consumes(stage.output):
+            return True
+        return src.hash_routed and src.hash_sorted
+
+    def _needed_stages(self, outputs, restorable):
+        """The stage ids a resumable run must execute: a stage runs only
+        if its output feeds one that runs (or is requested, or is a sink)
+        and it was not restored, so a rerun whose intermediates were
+        cleaned up does not recompute the chain below a surviving
+        checkpoint."""
+        required = set()
+        needed = set(outputs)
+        for sid in range(len(self.graph.stages) - 1, -1, -1):
+            stage = self.graph.stages[sid]
+            if isinstance(stage, GInput):
+                continue
+            if stage.output not in needed and not isinstance(stage, GSink):
+                continue
+            required.add(sid)
+            if sid not in restorable:
+                needed.update(stage.inputs)
+        return required
 
     def _run(self, outputs):
+        from . import resume as _resume
+
         self.graph, self.plan_report = plan.prepare(self.graph, outputs,
                                                     runner=self)
         rep = self.plan_report
@@ -2598,6 +2855,19 @@ class MTRunner(object):
         to_delete = []
         fused = {}  # scan-shared members' results, by stage id
         n_stages = len(self.graph.stages)
+        restorable, stage_fps = {}, {}
+        volatile_sources = set()
+        required = None  # None: every stage runs
+        if self.resume:
+            # the partition count shapes every stage's output layout, so
+            # it salts the fingerprints
+            stage_fps = _resume.stage_fingerprints(
+                self.graph, salt="p{}".format(self.n_partitions))
+            restorable = _resume.load_plan(sto.root, stage_fps)
+            if restorable:
+                log.info("resume: %d stage(s) restorable from %s",
+                         len(restorable), sto.root)
+            required = self._needed_stages(outputs, restorable)
         for sid, stage in enumerate(self.graph.stages):
             if isinstance(stage, GInput):
                 env[stage.output] = stage.tap
@@ -2605,8 +2875,9 @@ class MTRunner(object):
             t0 = time.perf_counter()
             t0_span = _trace.now()
             sto.set_stage(sid)
-            snap = (sto.spill_count, sto.spilled_bytes, sto.merge_gens,
-                    sto.merge_gen_bytes)
+            # the stage the quarantine sink tags its records with
+            _faults.set_context(run=self.name, stage=sid)
+            snap = self._pressure_snap()
             stage_launches0 = {k: kern.launches
                                for k, kern in KERNELS.items()}
             kind = ("map" if isinstance(stage, GMap) else
@@ -2623,7 +2894,44 @@ class MTRunner(object):
                     "stage_t0": time.time(), "jobs_total": 0,
                     "jobs_done": 0})
                 _metrics.gauge_set("run.stage", sid)
+            if required is not None and sid not in required:
+                log.info("stage %d skipped: every consumer was restored "
+                         "from its checkpoint", sid)
+                continue
+            if sid in restorable:
+                result, nrec = _resume.restore_stage(sto.root,
+                                                     restorable[sid])
+                env[stage.output] = result
+                if not isinstance(stage, GSink):
+                    to_delete.append(stage.output)
+                self._stage_done(sid, stage, "resumed-" + kind, env, result,
+                                 nrec, 0, t0, t0_span, snap, stage_launches0)
+                continue
             if isinstance(stage, GMap):
+                src = env.get(stage.inputs[0])
+                if (sid not in fused and sid not in self._chain_results
+                        and len(stage.inputs) == 1
+                        and type(stage.mapper) is base.Map
+                        and stage.mapper.mapper is base._identity
+                        and stage.combiner is None
+                        and "binop" not in stage.options
+                        and not stage.options.get("memory")
+                        and not self.resume
+                        and stage.inputs[0] not in outputs
+                        and isinstance(src, storage.PartitionSet)
+                        and src.n_partitions == self.n_partitions
+                        and self._alias_provenance_ok(stage, src)):
+                    # an identity checkpoint over a materialized partition
+                    # set: alias it instead of copying every byte through
+                    # a copy stage; the alias takes over its deletion
+                    if stage.inputs[0] in to_delete:
+                        to_delete.remove(stage.inputs[0])
+                    env[stage.output] = src
+                    to_delete.append(stage.output)
+                    self._stage_done(sid, stage, "map-alias", env, src,
+                                     src.total_records(), 0, t0, t0_span,
+                                     snap, stage_launches0)
+                    continue
                 hint = self._pipeline_edges.get(sid)
                 chained = None
                 if (sid not in self._chain_results and sid not in fused
@@ -2640,7 +2948,10 @@ class MTRunner(object):
                 elif sid in fused:
                     result, nrec, njobs = fused.pop(sid)
                 else:
-                    group = self._scan_share_group(sid, stage, env)
+                    group = [g for g in self._scan_share_group(
+                        sid, stage, env)
+                        if g[0] not in restorable
+                        and (required is None or g[0] in required)]
                     if group:
                         members = [(sid, stage)] + group
                         outs = self.run_map_group(
@@ -2651,33 +2962,25 @@ class MTRunner(object):
                         result, nrec, njobs = outs[0]
                     else:
                         result, nrec, njobs = self.run_map(sid, stage, env)
-                op = stage.mapper
                 to_delete.append(stage.output)
             elif isinstance(stage, GReduce):
                 result, nrec, njobs = self.run_reduce(sid, stage, env)
-                op = stage.reducer
                 to_delete.append(stage.output)
             elif isinstance(stage, GSink):
                 result, nrec, njobs = self.run_sink(sid, stage, env)
-                op = stage.sinker
             else:
                 raise TypeError("unknown stage type {!r}".format(stage))
             env[stage.output] = result
             # the stage-boundary write barrier: every spill this stage
-            # queued has landed (and a failed write raises here)
+            # queued has landed (and a failed write raises here), so the
+            # checkpoint below sees settled refs
             sto.drain_writes()
-            st = StageStats(sid, kind, plan.ir.chain_name(op),
-                            stage.options.get("exec_target", "host"))
-            st.n_jobs = njobs
-            st.records_out = nrec
-            st.seconds = time.perf_counter() - t0
-            self._fill_stage_io(st, stage, env, result, snap)
-            st.launches = {k: kern.launches - stage_launches0[k]
-                           for k, kern in KERNELS.items()}
-            self.stats.append(st)
-            _trace.complete("stage", "s{}:{}".format(sid, kind), t0_span,
-                            lane="stages", records=nrec, jobs=njobs)
-            log.info("stage %d done: %s", sid, st.as_dict())
+            if self.resume:
+                _resume.persist_stage(sto, sid, stage_fps[sid], result, nrec)
+                if _resume.is_volatile(stage_fps[sid]):
+                    volatile_sources.add(stage.output)
+            self._stage_done(sid, stage, kind, env, result, nrec, njobs, t0,
+                             t0_span, snap, stage_launches0)
 
         ret = []
         for source in outputs:
@@ -2690,12 +2993,68 @@ class MTRunner(object):
                 ret.append(CatDataset(list(entry.chunks())))
         keep = set(outputs)
         for source in to_delete:
-            # a chained producer's placeholder holds nothing to delete
-            if source not in keep and isinstance(env[source],
-                                                 storage.PartitionSet):
-                env[source].delete(sto)
+            entry = env.get(source)
+            # a chained producer's placeholder holds nothing to delete; an
+            # alias of a kept output shares its partition set
+            if (source in keep
+                    or not isinstance(entry, storage.PartitionSet)
+                    or any(env.get(k) is entry for k in keep)):
+                continue
+            if self.resume and source not in volatile_sources:
+                # a durable run keeps its checkpoints (a changed rerun
+                # resumes from the longest valid prefix) and frees their
+                # residency now
+                entry.release(sto)
+            else:
+                entry.delete(sto)
         sto.drain_writes()
         return ret
+
+    def _stage_done(self, sid, stage, kind, env, result, nrec, njobs, t0,
+                    t0_span, snap, launches0):
+        """One finished (or restored, or aliased) stage's stats, span and
+        log line."""
+        op = (stage.mapper if isinstance(stage, GMap) else
+              stage.reducer if isinstance(stage, GReduce) else stage.sinker)
+        st = StageStats(sid, kind, plan.ir.chain_name(op),
+                        stage.options.get("exec_target", "host"))
+        st.n_jobs = njobs
+        st.records_out = nrec
+        st.seconds = time.perf_counter() - t0
+        self._fill_stage_io(st, stage, env, result, snap)
+        st.launches = {k: kern.launches - launches0[k]
+                       for k, kern in KERNELS.items()}
+        self.stats.append(st)
+        _trace.complete("stage", "s{}:{}".format(sid, kind), t0_span,
+                        lane="stages", records=nrec, jobs=njobs)
+        log.info("stage %d done: %s", sid, st.as_dict())
+
+    def _faults_section(self):
+        """``stats()["faults"]``: this run's share of the process-wide
+        retry and injection counters, its quarantine and backoff."""
+        injected, io_retries, io_backoff = _faults.counters_delta(
+            self._fault_snapshot)
+        q = self._quarantine
+        fplan = _faults.active()
+        section = {
+            "enabled": fplan is not None,
+            "job_retries": self.retries_total,
+            "io_retries": dict(io_retries),
+            "retries": self.retries_total + sum(io_retries.values()),
+            "backoff_seconds": round(self._backoff_seconds + io_backoff, 4),
+            "quarantined": q.count if q is not None else 0,
+            "max_quarantined": settings.max_quarantined,
+        }
+        if q is not None and q.count:
+            section["quarantine_file"] = q.path
+        if self.run_attempt > 1:
+            # an auto-resumed run: the attempts that failed before it
+            section["run_attempt"] = self.run_attempt
+            section["failed_attempts"] = self.run_attempt - 1
+        if fplan is not None:
+            section["plan"] = fplan.spec
+            section["injected"] = dict(injected)
+        return section
 
     def _finalize_obs(self, wall_start, wall, dev, launches0):
         """Build the run summary (``em.stats()``, the stats.json payload)
@@ -2824,6 +3183,10 @@ class MTRunner(object):
             "streamed_assoc_folds": self.streamed_assoc_folds,
             "pipeline": self._pipeline_section(),
             "retries": self.retries_total,
+            # retries at every layer (job re-executions and the I/O
+            # layer's in-place ones), quarantine, and the injections of
+            # an active fault plan
+            "faults": self._faults_section(),
             "plan": self.plan_report or plan.empty_report(self.graph),
             "trace_file": None,
             "stats_file": None,

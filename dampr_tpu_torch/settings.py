@@ -316,3 +316,39 @@ def effective_log_level():
     if trace:
         return "info"
     return ""
+
+
+# -- faults, retries and resume (:mod:`.faults`, :mod:`.resume`) -----------
+
+#: Per-job retry budget: a failing map, reduce or sink job re-executes up
+#: to this many times before the run fails with the original error.
+#: Retries are classified (:func:`.faults.classify`): transient failures
+#: (flaky I/O) back off exponentially with jitter, deterministic ones
+#: retry at once, fatal ones (``MemoryError``, kills) never.  0 = fail
+#: fast.
+job_retries = 0
+
+#: In-place retry budget for transient spill I/O (frame writes and reads,
+#: checkpoint persistence), absorbed inside the I/O layer.
+io_retries = 2
+
+#: Base and cap (ms) of the full-jitter exponential backoff: each delay is
+#: uniform over [0, min(cap, base * 2^attempt)].
+retry_backoff_ms = 50
+retry_backoff_max_ms = 5000
+
+#: Poison-record quarantine budget: > 0 bisects a deterministically
+#: failing batch on the batched record path and lands up to this many
+#: offending records in ``<scratch_root>/<run>/quarantine.jsonl`` instead
+#: of failing the run.  0 = fail fast.
+max_quarantined = 0
+
+#: Whole-run retry budget of ``run(resume="auto")``: a failed run
+#: re-executes from its last durable checkpoint up to this many times.
+run_retries = 1
+
+#: The fault-injection plan (:mod:`.faults`): a seeded schedule of fault
+#: sites and firing rules, e.g. ``"spill_write:p=0.01;fold:nth=3;seed=7"``
+#: (``DAMPR_TPU_TORCH_FAULTS``, the chaos harness's interface).  None =
+#: injection off: every site is one ``None`` check.
+faults = os.environ.get("DAMPR_TPU_TORCH_FAULTS") or None

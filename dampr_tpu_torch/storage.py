@@ -1,11 +1,12 @@
 """Out-of-core storage: block refs, the memory budget, the spill tier.
 
-Port of ``dampr_tpu/storage.py`` but its gzip ``cached()`` tier.  Every
-stage output lives behind a :class:`BlockRef`; the run's
-:class:`RunStore` keeps the RAM-resident refs under
-``settings.max_memory_per_stage`` by spilling the oldest unpinned ones to
-the run's scratch directory.  A pinned ref (a ``cached()`` stage's output)
-stays in RAM, whole.
+Port of ``dampr_tpu/storage.py``.  Every stage output lives behind a
+:class:`BlockRef`; the run's :class:`RunStore` keeps the RAM-resident refs
+under ``settings.max_memory_per_stage`` by spilling the oldest unpinned
+ones to the run's scratch directory.  A pinned ref (a ``cached()``
+stage's output) stays in RAM gzip-compressed (:func:`pack_block`), charged
+at its compressed size, and never spills; pinned blocks that alone exceed
+the budget raise ``MemoryError``.
 
 The tier order is device, RAM, disk.  A map output that a device fold
 reads keeps its integer value lane and hash lanes on the device (the HBM
@@ -20,11 +21,21 @@ footer; the JAX package's format, byte for byte) through a background
 writer pool whose bytes in flight count against the budget, and reads
 back window by window through a prefetching frame reader.  A merge
 generation of sorted runs streams file to file (:meth:`RunStore.
-register_stream`).  Every file the port reads is a frame file: anything
-else raises :class:`~.io.frames.FrameFormatError`.
+register_stream`).  Readers sniff the magic: the pre-frame formats (a
+pickle-window stream, gzip'd or plain: a persisted ``cached()`` block, a
+checkpoint an older engine wrote) still load.
+
+Every ref a thread registers inside :meth:`RunStore.attempt` is dropped
+if the attempt raises, so a retried job never orphans blocks, device
+lanes or HBM charge; :meth:`RunStore.release_ref` keeps a checkpointed
+ref's file and frees its RAM and device residency.
 """
 
+import contextlib
+import gzip
+import io as _io
 import os
+import pickle
 import shutil
 import threading
 import time
@@ -32,6 +43,7 @@ import uuid
 
 import numpy as np
 
+from . import faults as _faults
 from . import settings
 from .io import codecs as _codecs
 from .io import frames as _frames
@@ -61,13 +73,14 @@ class BlockRef(object):
     the fold's overflow accounting needs, taken where the values were last
     on the host (or summed on the device at the handoff's finalize)."""
 
-    __slots__ = ("_block", "path", "nbytes", "nrecords", "value_dtype",
-                 "key_dtype", "store", "pin", "_dead", "_dev", "_kmeta",
-                 "dev_bytes", "lane_abs", "lane_min", "_h2d_pending",
-                 "_ready")
+    __slots__ = ("_block", "_packed", "path", "nbytes", "nrecords",
+                 "value_dtype", "key_dtype", "store", "pin", "_dead", "_dev",
+                 "_kmeta", "dev_bytes", "lane_abs", "lane_min",
+                 "_h2d_pending", "_ready")
 
     def __init__(self, block, store=None, pin=False, device_prep=None):
         self._dead = False
+        self._packed = None
         self.path = None
         self.nrecords = len(block)
         self.value_dtype = block.values.dtype
@@ -81,7 +94,13 @@ class BlockRef(object):
         self.lane_min = None
         self._h2d_pending = 0
         self._ready = None
-        if device_prep is not None:
+        if pin:
+            # cached(): compressed in RAM, charged at its compressed size,
+            # never spilled, inflated per read
+            self._block = None
+            self._packed = pack_block(block)
+            self.nbytes = len(self._packed)
+        elif device_prep is not None:
             self._put_device(block, device_prep)
         else:
             self._block = block
@@ -146,6 +165,7 @@ class BlockRef(object):
         recorded after the lanes were made on their stream."""
         ref = cls.__new__(cls)
         ref._dead = False
+        ref._packed = None
         ref.path = None
         ref.nrecords = len(keys)
         ref.value_dtype = (np.dtype(value_dtype) if value_dtype is not None
@@ -219,6 +239,7 @@ class BlockRef(object):
         ``path``."""
         ref = cls.__new__(cls)
         ref._block = None
+        ref._packed = None
         ref._dead = False
         ref.path = path
         ref.nrecords = nrecords
@@ -269,6 +290,8 @@ class BlockRef(object):
         blk = self._block  # an offload may have just published it
         if blk is not None:
             return blk
+        if self._packed is not None:
+            return unpack_block(self._packed)
         # A publish lands ``path`` before it clears ``_block``, so a ref
         # without its block has its file.  Not re-cached: reduce jobs
         # stream partitions one at a time.
@@ -278,6 +301,8 @@ class BlockRef(object):
         """The block in bounded windows, never materialized whole (a
         resident block yields array-view slices)."""
         blk = self._block
+        if blk is None and self._packed is not None:
+            blk = unpack_block(self._packed)
         if blk is None:
             if self._dev is not None or self.path is None:
                 # device-resident, or an offload racing this read (the
@@ -298,13 +323,23 @@ class BlockRef(object):
             os.makedirs(directory, exist_ok=True)
             path = os.path.join(directory, uuid.uuid4().hex + ".blk")
             t0 = time.perf_counter()
-            save_block(self._block, path)
+            blk = self._block
+
+            def write_once():
+                # the writer pool's fault site and transient retry ("wb"
+                # truncates, so a retried partial write is idempotent)
+                _faults.check("spill_write")
+                save_block(blk, path)
+
+            _faults.retry_io(write_once, "spill_write")
             secs = time.perf_counter() - t0
             self.path = path
             # the same bandwidth counters as the writer pool, so the two
             # paths' MB/s compare
             if self.store is not None:
                 self.store.count_spill_write(_file_size(path), secs)
+        # else: already on disk (a checkpoint persisted it): dropping the
+        # RAM copy is the whole spill
         freed = self.nbytes
         self._block = None
         return freed
@@ -324,6 +359,7 @@ class BlockRef(object):
     def _delete_inner(self):
         self._dead = True
         self._block = None
+        self._packed = None
         self._dev = None
         self._kmeta = None
         self._ready = None
@@ -381,12 +417,47 @@ def save_block(block, path, codec=None):
                                    at_least_one=True)
 
 
+def _iter_legacy_windows(path, magic):
+    """The pre-frame formats: a pickle-window stream, whole-file gzip'd
+    for object-lane blocks (sniffed).  A persisted ``cached()`` block is
+    one such gzip'd window (:func:`pack_block`'s bytes)."""
+    from .blocks import Block
+
+    with open(path, "rb") as raw:
+        f = gzip.GzipFile(fileobj=raw) if magic[:2] == b"\x1f\x8b" else raw
+        while True:
+            try:
+                window = pickle.load(f)
+            except EOFError:
+                return
+            except (OSError, pickle.UnpicklingError, ValueError,
+                    TypeError, AttributeError, ImportError) as e:
+                raise _frames.FrameFormatError(
+                    "{}: not a frame file, nor a pre-frame window stream "
+                    "({})".format(path, e))
+            if not (isinstance(window, tuple) and len(window) == 4
+                    and isinstance(window[0], np.ndarray)
+                    and isinstance(window[1], np.ndarray)):
+                raise _frames.FrameFormatError(
+                    "{}: not a frame file, nor a pre-frame window "
+                    "stream".format(path))
+            yield Block(*window)
+
+
 def iter_block_windows(path, store=None, prefetch=SPILL_READ_PREFETCH):
     """A spilled block streamed back window by window, with ``prefetch``
     frames in flight on the shared read executor (0 = serial reads).
     ``store`` (when given) accrues the read bandwidth and the read-side
-    ``io_wait``."""
+    ``io_wait``.  A file without the frame magic reads through the
+    legacy pickle-stream reader, serially."""
     from .blocks import Block
+
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if not _frames.is_frame_file(magic):
+        for w in _iter_legacy_windows(path, magic):
+            yield w
+        return
 
     on_read = on_wait = None
     if store is not None:
@@ -417,6 +488,26 @@ def load_block(path, store=None):
     return Block.concat(list(iter_block_windows(path, store)))
 
 
+def pack_block(block):
+    """A block compressed into RAM bytes (the ``cached()`` tier): one
+    gzip'd pickle window, the legacy spill format, so a persisted pinned
+    ref reads back through :func:`iter_block_windows`."""
+    buf = _io.BytesIO()
+    with gzip.GzipFile(fileobj=buf, mode="wb",
+                       compresslevel=COMPRESS_LEVEL) as f:
+        pickle.dump((block.keys, block.values, block.h1, block.h2), f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    return buf.getvalue()
+
+
+def unpack_block(data):
+    from .blocks import Block
+
+    with gzip.GzipFile(fileobj=_io.BytesIO(data), mode="rb") as f:
+        keys, values, h1, h2 = pickle.load(f)
+    return Block(keys, values, h1, h2)
+
+
 class RunStore(object):
     """Per-run block registry under a byte budget, plus the run's spill
     I/O and host<->device byte counters.  Thread-safe: jobs register
@@ -431,6 +522,8 @@ class RunStore(object):
         safe = "".join(c if c.isalnum() or c in "-_." else "_" for c in name)
         self.root = os.path.join(settings.scratch_root, safe)
         self._lock = threading.Lock()
+        # per-thread stacks of the refs each open attempt() registered
+        self._attempts = threading.local()
         self._resident = []  # RAM refs in registration order (spill order)
         self._resident_bytes = 0
         self._dev_resident = []  # device refs in registration order
@@ -551,18 +644,20 @@ class RunStore(object):
                         self.inflight_cap, SPILL_WINDOW)
         return self._writer
 
-    def publish_spill(self, ref, path, disk_bytes, secs):
+    def publish_spill(self, ref, path, disk_bytes, secs, clear_block=True):
         """A background write landed (fsync and rename done): publish
         ``path``, then free the RAM copy, in that order, so a reader past
         the residency check never loses both tiers.  The spill itself was
-        counted when it was decided (:meth:`_spill_victims`)."""
+        counted when it was decided (:meth:`_spill_victims`).
+        ``clear_block=False`` (a checkpoint persist) keeps the block."""
         unlink = False
         with self._lock:
             if ref._dead:
                 unlink = True
             else:
                 ref.path = path
-                ref._block = None
+                if clear_block:
+                    ref._block = None
         self.count_spill_write(disk_bytes, secs)
         if unlink:
             try:
@@ -616,6 +711,36 @@ class RunStore(object):
                                   max(self._closed_peaks[1], w.queue_peak))
 
     # -- registration ------------------------------------------------------------
+    @contextlib.contextmanager
+    def attempt(self):
+        """Track every ref this thread registers inside the block; on an
+        exception they are dropped (their files unlinked, their device
+        lanes freed and the HBM charge released), so a retried job's
+        failed attempt orphans nothing.  Attempts nest: a committed inner
+        attempt hands its refs to the enclosing one, whose rollback then
+        covers them too."""
+        stack = getattr(self._attempts, "stack", None)
+        if stack is None:
+            stack = self._attempts.stack = []
+        refs = []
+        stack.append(refs)
+        try:
+            yield refs
+        except BaseException:
+            stack.pop()
+            for ref in refs:
+                self.drop_ref(ref)
+            raise
+        else:
+            stack.pop()
+            if stack:
+                stack[-1].extend(refs)
+
+    def _note_attempt(self, ref):
+        stack = getattr(self._attempts, "stack", None)
+        if stack:
+            stack[-1].append(ref)
+
     def set_stage(self, stage_name):
         self._stage = "stage_{}".format(stage_name)
 
@@ -657,6 +782,7 @@ class RunStore(object):
             _metrics.counter_add("store.records", len(ref))
             _metrics.counter_add("store.bytes", ref.nbytes + ref.dev_bytes)
             _metrics.counter_add("store.blocks", 1)
+        self._note_attempt(ref)
         dev_victims = []
         with self._lock:
             if ref.is_device:
@@ -686,7 +812,8 @@ class RunStore(object):
     def release_device(self):
         """Drop every device-resident ref and return the device budget to
         0: the failed run's path.  Its lanes will never be read, so they
-        go outright (no offload copy)."""
+        go outright (no offload copy).  A ref a checkpoint persisted keeps
+        its file (the manifest a resumed run restores from names it)."""
         with self._lock:
             victims = list(self._dev_resident)
             self._dev_resident = []
@@ -696,7 +823,11 @@ class RunStore(object):
                     self._resident.remove(ref)
                     self._resident_bytes -= ref.nbytes
         for ref in victims:
-            ref.delete()
+            if ref.path is not None:
+                ref._dev = ref._kmeta = ref._ready = None
+                ref.dev_bytes = 0
+            else:
+                ref.delete()
 
     def _select_dev_victims_locked(self):
         """The oldest device refs past the HBM budget, to offload to the
@@ -787,6 +918,7 @@ class RunStore(object):
                                  total_records, total_bytes,
                                  key_dtype, value_dtype)
         ref.store = self
+        self._note_attempt(ref)
         if fw is None:
             ref._block = Block.empty()  # empty stream: nothing on disk
         else:
@@ -807,11 +939,12 @@ class RunStore(object):
         bytes come off at once, so other threads see the budget relieved.
         Bytes queued in the writer pool (their RAM is still held) shrink
         the target, and so do the overlap executor's blocks in flight.
-        Pinned refs stay whatever they weigh: the port holds ``cached()``
-        blocks whole in RAM.  Returns ``(victims, evicted_dev)``: a device
-        ref's host metadata cannot spill in place, so under host pressure
-        it is evicted whole (offload, then disk) and leaves both
-        accountings here."""
+        Pinned refs stay (compressed, :func:`pack_block`); when they alone
+        exceed the budget this raises ``MemoryError`` rather than grow
+        without bound.  Returns ``(victims, evicted_dev)``: a device ref's
+        host metadata cannot spill in place, so under host pressure it is
+        evicted whole (offload, then disk) and leaves both accountings
+        here."""
         inflight = 0 if self._writer is None else self._writer.inflight_bytes
         target = max(0, self.budget - self._overlap_bytes - inflight)
         if self._resident_bytes <= target:
@@ -834,6 +967,13 @@ class RunStore(object):
             else:
                 keep.append(ref)
         self._resident = keep
+        if self._resident_bytes > self.budget:
+            # what remains is cached() data, already compressed
+            raise MemoryError(
+                "cached() blocks exceed the memory budget even compressed "
+                "({} > {} bytes); raise the budget or drop a cached()/"
+                "memory=True stage".format(
+                    self._resident_bytes, self.budget))
         return victims, evicted_dev
 
     def _spill_victims(self, victims, evicted_dev=()):
@@ -900,6 +1040,26 @@ class RunStore(object):
                 self._dev_bytes -= ref.dev_bytes
         ref.delete()
 
+    def release_ref(self, ref):
+        """Free a checkpointed ref's residency but keep its file: the
+        budgets no longer charge it and reads stream from disk.  A ref
+        with no file keeps its RAM block (nothing else holds the data);
+        one with a file also gives its device lanes back (the durable copy
+        is on disk)."""
+        with self._lock:
+            if ref in self._resident:
+                self._resident.remove(ref)
+                self._resident_bytes -= ref.nbytes
+            if ref.path is not None and ref in self._dev_resident:
+                self._dev_resident.remove(ref)
+                self._dev_bytes -= ref.dev_bytes
+        if ref.path is not None:
+            ref._block = None
+            ref._dev = None
+            ref._kmeta = None
+            ref._ready = None
+            ref.dev_bytes = 0
+
     def cleanup(self):
         """Stop the writer pool and remove the run's scratch tree."""
         self.stop_writes()
@@ -910,6 +1070,15 @@ class RunStore(object):
 class PartitionSet(object):
     """A stage output: per-partition lists of BlockRefs.
 
+    Provenance flags, what downstream fast paths may assume (the
+    identity-checkpoint alias and resume read them):
+
+    ``hash_routed``: every record lives in partition ``h1 % P`` (map
+    outputs routed through ``split_by_partition``; a reduce's output is
+    registered under its job's pid whatever keys the reducer emitted, so
+    it is not).
+    ``hash_sorted``: every ref is an (h1, h2)-sorted run, the invariant
+    the over-budget streaming merge relies on.
     ``key_sorted_runs``: every ref is a KEY-sorted run of numeric keys
     registered without partition fan-out (sorted-run mode); the final read
     streams a k-way merge over the runs instead of re-sorting.
@@ -918,9 +1087,12 @@ class PartitionSet(object):
     back).
     """
 
-    def __init__(self, n_partitions, key_sorted_runs=False):
+    def __init__(self, n_partitions, hash_routed=False, hash_sorted=False,
+                 key_sorted_runs=False):
         self.n_partitions = n_partitions
         self.parts = {}
+        self.hash_routed = hash_routed
+        self.hash_sorted = hash_sorted
         self.key_sorted_runs = key_sorted_runs
         self.pipeline_fold_delta = {}
 
@@ -945,3 +1117,8 @@ class PartitionSet(object):
             else:
                 ref.delete()
         self.parts = {}
+
+    def release(self, store):
+        """Free residency, keep the files (checkpoint retention)."""
+        for ref in list(self.all_refs()):
+            store.release_ref(ref)

@@ -64,6 +64,11 @@ def knobs():
      ref_settings.lower, port_settings.lower) = old
 
 
+def _lint_json(argv, capsys):
+    lint.main(argv)
+    return capsys.readouterr().out
+
+
 def _codes(diags):
     return [d.code for d in diags]
 
@@ -629,10 +634,20 @@ class TestValidator:
         assert attempts
 
     def test_resume_check_is_not_ported(self):
-        pipe = dampr_tpu_torch.Dampr.memory(list(range(5))).map(
-            lambda x: x + 1)
-        with pytest.raises(NotImplementedError, match="DTA402"):
-            pipe.validate(resume=True)
+        """The resume check (DTA402) is ported: ``validate(resume=True)``
+        gives the JAX package's rows on every pipeline of the corpus."""
+        for name in _PIPES:
+            port, kw = _pipelines(dampr_tpu_torch, port_base)[name]
+            ref, _ = _pipelines(dampr_tpu, ref_base)[name]
+            kw = dict(kw, resume=True)
+            assert _rows(port.validate(**kw)) == _rows(ref.validate(**kw)), \
+                name
+
+    def test_resume_flags_volatile_fingerprint(self):
+        pipe = _pipelines(dampr_tpu_torch, port_base)["lock"][0]
+        assert "DTA402" in _codes(pipe.validate(resume=True))
+        ref = _pipelines(dampr_tpu, ref_base)["lock"][0]
+        assert "DTA402" in _codes(ref.validate(resume=True))
 
     def test_preflight_dispatch_check_names_everything(self):
         pipe = _pipelines(dampr_tpu_torch, port_base)["lock"][0]
@@ -845,6 +860,39 @@ class TestLint:
         assert lint.main(["--json", clean]) == 0
         report = json.loads(capsys.readouterr().out)
         assert report["schema"] == lint.SCHEMA == "dampr-tpu-lint/1"
+        vl, schema = _validate_lint()
+        assert vl.validate(report, schema) == []
+
+    def test_resume_flag_reports_dta402_as_the_reference(self, tmp_path,
+                                                         capsys):
+        """``--resume`` adds DTA402 on a fingerprint-unstable capture, as
+        the JAX linter's does; without it the stage is not flagged."""
+        body = """
+            import threading
+            from dampr_tpu_torch import Dampr
+
+            LOCK = threading.Lock()
+
+            def lint_pipelines():
+                lock = threading.Lock()
+                return [("locked", Dampr.memory(list(range(10))).map(
+                    lambda x: (x, lock is not None)))]
+        """
+        mod = self._write_module(tmp_path, body)
+        ref_mod = self._write_module(
+            tmp_path, textwrap.dedent(body).replace("dampr_tpu_torch",
+                                                    "dampr_tpu"),
+            "ref_resume.py")
+        from dampr_tpu.analyze import lint as ref_lint
+
+        _rec, plain = lint.lint_target(mod)
+        assert "DTA402" not in [d["code"] for d in plain]
+        _rec, diags = lint.lint_target(mod, resume=True)
+        _ref_rec, ref_diags = ref_lint.lint_target(ref_mod, resume=True)
+        assert "DTA402" in [d["code"] for d in diags]
+        assert diags == ref_diags
+        report = json.loads(_lint_json(["--json", "--resume", mod], capsys))
+        assert "DTA402" in [d["code"] for d in report["diagnostics"]]
         vl, schema = _validate_lint()
         assert vl.validate(report, schema) == []
 

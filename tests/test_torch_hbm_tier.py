@@ -1,7 +1,7 @@
 """The HBM tier of dampr_tpu_torch against dampr_tpu's.
 
-The port versions of ``tests/test_hbm_tier.py`` (less
-``test_resume_persists_device_refs``: resume is a later slice).  Integer
+The port versions of ``tests/test_hbm_tier.py`` (its
+``test_resume_persists_device_refs`` is in ``test_torch_resume.py``).  Integer
 value lanes of map outputs a device fold reads stay on the device between
 map and reduce; device -> host offload is the first spill step, disk the
 second.  The port's device is the CPU here (the tier's mechanics, its

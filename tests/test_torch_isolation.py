@@ -33,8 +33,9 @@ def test_port_imports_without_jax_or_the_jax_package(tmp_path):
     joins) and the out-of-core paths (spill frames through the writer
     pool, a streaming fold and join, sorted runs), the static analyzer
     (a certified chain's lane program, ``validate()``) and the adaptive
-    plan (a named run sized from its history, ``explain()``), on the
-    CPU."""
+    plan (a named run sized from its history, ``explain()``) and faults
+    and resume (a retried job, a restored rerun, ``validate(resume=True)``),
+    on the CPU."""
     code = r"""
 import importlib, json, math, operator, pkgutil, sys
 sys.modules["jax"] = None
@@ -73,6 +74,16 @@ settings.scratch_root = sys.argv[2]
 adapt = [words.count().run(name="iso").stats()["plan"]["adaptive"]["applied"]
          for _ in range(2)]
 records["adapt"] = adapt + [bool(words.count().explain(name="iso"))]
+from dampr_tpu_torch import faults
+settings.job_retries = 1
+faults.install(faults.FaultPlan("fold:nth=1"))
+r1 = words.count().run(name="iso-resume", resume=True)
+faults.clear()
+r2 = words.count().run(name="iso-resume", resume=True)
+records["resume"] = [r1.read(), r1.stats()["faults"]["job_retries"],
+                     [s["kind"] for s in r2.stats], r2.read(),
+                     [d.code for d in chain.validate(resume=True)]]
+settings.job_retries = 0
 settings.streaming_reduce_threshold = 1
 ooc = {"fold": words.count().run(memory_budget=1).read(),
        "join": left.join(right).reduce(lambda l, r: (list(l), list(r)))
@@ -106,7 +117,8 @@ print(json.dumps({"modules": names, "reference": loaded,
                  "analyze", "analyze.assoc", "analyze.lint",
                  "analyze.pickleprobe", "analyze.props", "analyze.torchtrace",
                  "analyze.validate", "obs.history", "plan.cost",
-                 "plan.model", "plan.pipeline", "plan.explain"):
+                 "plan.model", "plan.pipeline", "plan.explain", "faults",
+                 "resume"):
         assert "dampr_tpu_torch." + name in report["modules"]
     assert report["idf"] == [["a", 2, 4], ["b", 2, 4], ["c", 1, 4]]
     assert report["len"] == [4]
@@ -123,6 +135,8 @@ print(json.dumps({"modules": names, "reference": loaded,
         "chain": sum(v for v in (x * 3 + 1 for x in range(5000))
                      if v % 2 == 0),
         "validate": ["DTA501", "DTA501"],
+        "resume": [[["a", 2], ["b", 2], ["c", 1]], 1, ["resumed-reduce"],
+                   [["a", 2], ["b", 2], ["c", 1]], ["DTA501", "DTA501"]],
         "adapt": [False, True, True]}
     assert report["ooc"] == {"fold": [["a", 2], ["b", 2], ["c", 1]],
                              "join": pair, "sort": [1, 2, 3]}

@@ -2,9 +2,10 @@
 port version of ``tests/test_observability.py``, and the traced
 TF-IDF-shaped run through both packages.
 
-Left out, with their queue items (ROADMAP): ``test_mesh_fold_emits_
+Left out, with its queue item (ROADMAP): ``test_mesh_fold_emits_
 collective_spans`` (the fleet plane on NCCL, A5: one device folds no
-collective) and ``test_checkpoint_spans_on_resume`` (resume, A4).
+collective).  ``test_checkpoint_spans_on_resume`` is in
+``test_torch_resume.py``.
 
 The TF-IDF run goes through the JAX package with ``settings.lower = "1"``
 (its CPU jit leg, as ``tests/test_profile.py`` runs it) and through the
@@ -43,10 +44,8 @@ with open(os.path.join(ROOT, "docs", "trace_schema.json")) as _f:
     TRACE_SCHEMA = json.load(_f)
 
 #: Top-level sections of the JAX summary that belong to later slices of
-#: the port: pipeline and reuse (A3), faults (A4), mitigation and fleet
-#: (A5), endpoint (A6).
-LATER_SLICES = {"pipeline", "faults", "reuse", "mitigation", "fleet",
-                "endpoint"}
+#: the port: reuse (A4b), mitigation and fleet (A5), endpoint (A6).
+LATER_SLICES = {"reuse", "mitigation", "fleet", "endpoint"}
 
 
 @pytest.fixture(autouse=True)

@@ -186,12 +186,16 @@ def test_pinned_blocks_never_spill(tmp_path):
     port_settings_root = port_settings.scratch_root
     port_settings.scratch_root = str(tmp_path)
     try:
-        store = storage.RunStore("pin-test", budget=1)
         blk = Block.from_lists(list(range(100)), list(range(100)))
+        # pinned blocks stay in RAM compressed, charged at their packed
+        # size: a budget holding the three of them and no loose block
+        packed = len(storage.pack_block(blk))
+        assert packed < blk.nbytes()
+        store = storage.RunStore("pin-test", budget=3 * packed + 1)
         pinned = [store.register(blk, pin=True) for _ in range(3)]
         loose = [store.register(blk) for _ in range(3)]
         store.drain_writes()  # spills land in the background writer pool
-        assert all(r.resident for r in pinned)
+        assert all(r._packed is not None and r.path is None for r in pinned)
         assert not any(r.resident for r in loose)
         assert store.spill_count == 3
         assert [r.get().to_lists() for r in loose + pinned] == [
@@ -211,8 +215,20 @@ def test_cached_stage_stays_in_ram_over_budget():
 
     want = build(dampr_tpu, "cached").read()
     spills, barrier_spills = {}, {}
+    # a budget between the cached stage's compressed bytes and the same
+    # blocks raw (one partition: three blocks): the pinned blocks fit,
+    # nothing more does; pinned blocks alone over the budget raise
+    # MemoryError, as in the JAX package
+    sizes = {}
     for barrier in ("cached", "checkpoint"):
-        em = build(dampr_tpu_torch, barrier).run(memory_budget=1)
+        em = build(dampr_tpu_torch, barrier).run(memory_budget=1 << 30,
+                                                 n_partitions=1)
+        sizes[barrier] = em.stats[0]["bytes_out"]
+    assert sizes["cached"] < sizes["checkpoint"]
+    budget = (sizes["cached"] + sizes["checkpoint"]) // 2
+    for barrier in ("cached", "checkpoint"):
+        em = build(dampr_tpu_torch, barrier).run(memory_budget=budget,
+                                                 n_partitions=1)
         assert em.read() == want
         spills[barrier] = em.stats()["spill"]["count"]
         # the barrier stage's own registrations: spills are charged to the

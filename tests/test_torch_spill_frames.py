@@ -4,9 +4,10 @@ truncation, prefetched against serial reads, random access, and files
 written by either package read back in the other.
 
 The cases are ``tests/test_spill_frames.py``'s, on blocks made from a
-seed with numpy; every comparison is exact.  The legacy (pre-frame)
-formats are not ported: the port never wrote them, so a non-frame file
-raises ``FrameFormatError``.
+seed with numpy; every comparison is exact.  A file that is neither a
+frame file nor a pre-frame pickle-window stream raises
+``FrameFormatError`` (the pre-frame formats themselves load:
+``test_torch_resume.py``, ``test_torch_cached_tier.py``).
 """
 
 import os

@@ -1,10 +1,10 @@
 """Streamed stage edges of dampr_tpu_torch against dampr_tpu's.
 
 The port versions of ``tests/test_pipeline.py``'s ``TestPlanDecisions``,
-``TestPipelinedExecution`` (less ``test_publish_fault_fails_clean``: fault
-injection is a later slice) and ``TestPipelinedProperty``; the exchange
-codec and frame-read timing classes stay with the slices that port those
-modules.  ``test_mesh_possible_bars_streaming`` becomes
+``TestPipelinedExecution`` (its ``test_publish_fault_fails_clean`` and the
+frame-read timing class are in ``test_torch_faults.py``) and
+``TestPipelinedProperty``; the exchange codec class stays with the slice
+that ports the exchange.  ``test_mesh_possible_bars_streaming`` becomes
 ``test_decisions_equal_the_jax_packages``: the port runs on one card with
 no mesh fold or exchange, so nothing a mesh would bar exists, and the
 JAX side runs its single-device branches (``mesh_fold`` and

@@ -6,8 +6,8 @@ counters, and the run summary's ``io`` section.
 
 The cases are ``tests/test_writer_pool.py``'s ``TestInflightBound``,
 ``TestKillDrain``, ``TestPublishOrder``, ``TestSyncPathParity`` and
-``TestStatsSurface``, on blocks made from a seed with numpy.  Resume is
-not ported, so its cases are not here.
+``TestStatsSurface``, on blocks made from a seed with numpy.  Its
+``TestResumeConsistency`` is in ``test_torch_resume.py``.
 """
 
 import glob
