@@ -1,6 +1,6 @@
 """The fluent DSL: lazy, value-semantic pipeline construction.
 
-Port of ``dampr_tpu/dampr.py`` without the ``submit`` surface: the
+Port of ``dampr_tpu/dampr.py``: the
 sources (``Dampr.text``/``json``/
 ``memory``/``urls``/``read_input``/``from_dataset``),
 the per-record ops (``map``, ``map_values``, ``map_keys``, ``prefix``,
@@ -11,8 +11,10 @@ associative folds (``fold_by``, ``a_group_by`` -> ``reduce``/``sum``/
 (:class:`PJoin`) and map-side crosses, ``checkpoint``/``cached``, the
 sinks, single- and multi-output runs with ``run(name=..., resume=True |
 "auto")`` (durable per-stage checkpoints, :mod:`.resume`, and crash
-auto-resume), ``explain()`` (the plan as text, :mod:`.plan.explain`) and
-``validate()`` (the static analyzer's diagnostics, :mod:`.analyze`).
+auto-resume), ``explain()`` (the plan as text, :mod:`.plan.explain`),
+``validate()`` (the static analyzer's diagnostics, :mod:`.analyze`) and
+``submit(url, tenant=...)`` (the plan shipped to a serve daemon,
+:mod:`.serve`).
 
 Every chained call is its own stage node; the plan (:mod:`.plan`) fuses
 chains of per-record stages into one executed map stage at ``run()``
@@ -220,6 +222,18 @@ class PBase(object):
     def read(self, k=None, **kwargs):
         """Shorthand for run() + read()."""
         return self.run(**kwargs).read(k)
+
+    def submit(self, url, tenant="default", **kwargs):
+        """Ship this pipeline to a serve daemon
+        (``python -m dampr_tpu_torch.serve.daemon``) instead of running it
+        in this process; returns a :class:`.serve.RemoteJob`
+        (``.wait()``/``.result()``/``.read()``/``.cancel()``).  The plan
+        travels validated and fingerprinted: an unpicklable capture fails
+        here with the coded ``DTA401`` diagnostic, and identical in-flight
+        submissions coalesce onto one run in the daemon."""
+        from .serve.client import ServeClient
+
+        return ServeClient(url).submit(self, tenant=tenant, **kwargs)
 
 
 class _TopKBlocks(Mapper):
@@ -666,7 +680,9 @@ class Dampr(object):
         """Wrap a Dataset or Chunker (a custom subclass, or raw stage
         outputs) as an input."""
         if not isinstance(dataset, Chunker):
-            raise TypeError("from_dataset takes a Chunker")
+            # the JAX package's type (its ``assert``), kept under -O too
+            raise AssertionError("from_dataset takes a Chunker, got "
+                                 "{!r}".format(type(dataset).__name__))
         return cls.read_input(dataset)
 
     @classmethod

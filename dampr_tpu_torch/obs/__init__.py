@@ -61,6 +61,11 @@ spans, samples and WARN+ log records, flushed on the failure path to
 **The structured log** (:mod:`.log`, ``settings.log_level``): coded
 events in ``<run>/trace/events.jsonl``.
 
+**The live endpoint** (:mod:`.serve`, ``settings.metrics_port``):
+``/metrics`` (:mod:`.promtext`) and ``/healthz`` while a run is in
+flight; the bound port lands in ``stats()["endpoint"]``.
+:mod:`.timeseries` keeps one compact point per served job for trending.
+
 **The diagnosis layer**: the per-operator profiler (:mod:`.profile`,
 ``settings.profile``) attributes fused-stage time to the user's ops and
 a lowered stage's device work to build/h2d/compute/d2h; the

@@ -237,6 +237,33 @@ def format_summary(summary):
             ov.get("windows", 0), ov.get("stall_fraction", 0.0)))
     if summary.get("retries"):
         add("job retries: {}".format(summary["retries"]))
+    ru = summary.get("reuse")
+    if ru:
+        add("reuse: {} hit(s) / {} miss(es) · {} stage(s) skipped · "
+            "mounted {} · published {}".format(
+                ru.get("hits", 0), ru.get("misses", 0),
+                ru.get("stages_skipped", 0),
+                _mb(ru.get("bytes_mounted", 0)),
+                _mb(ru.get("bytes_published", 0))))
+        extras = []
+        if ru.get("incremental_merges"):
+            extras.append("{} incremental merge(s)".format(
+                ru["incremental_merges"]))
+        if ru.get("recompute_fallbacks"):
+            extras.append("{} recompute fallback(s)".format(
+                ru["recompute_fallbacks"]))
+        if ru.get("evictions"):
+            extras.append("{} eviction(s)".format(ru["evictions"]))
+        if extras:
+            add("  " + " · ".join(extras))
+        interesting = [d for d in ru.get("decisions") or ()
+                       if d.get("decision") not in ("miss",)]
+        if interesting:
+            add("  decisions: " + ", ".join(
+                "s{}={}".format(d.get("stage"), d.get("decision"))
+                for d in interesting))
+        if ru.get("cache_dir"):
+            add("  cache: {}".format(ru["cache_dir"]))
     spans = summary.get("spans")
     if spans:
         add("")

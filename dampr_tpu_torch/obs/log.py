@@ -71,6 +71,23 @@ EVENT_CODES = {
                         "for the stage (originals kept)",
     "codec-fallback": "a configured compression codec is unavailable; "
                       "encoding fell down the zstd->lz4->zlib ladder",
+    # -- metrics endpoint ----------------------------------------------------
+    "metrics-port-fallback": "the per-rank /metrics port was taken; the "
+                             "endpoint bound the next free port",
+    "metrics-bind-failed": "no /metrics port could be bound; the endpoint "
+                           "is disabled for this run",
+    # -- serve daemon (dampr_tpu_torch.serve) --------------------------------
+    "serve-submit": "the serve daemon received a submission from a tenant",
+    "serve-admit": "a submission passed the admission gate and reserved "
+                   "its byte cost against the tenant budget",
+    "serve-reject": "a submission was refused at the door (wire error, "
+                    "validation failure, budget, queue depth, or drain)",
+    "serve-coalesce": "an identical in-flight fingerprint: the submission "
+                      "attached as a follower of the running primary",
+    "serve-evict": "retired job records past the retention bound were "
+                   "evicted from the daemon's job table",
+    "serve-drain": "the daemon began draining: finishing admitted jobs, "
+                   "rejecting new submissions",
 }
 
 

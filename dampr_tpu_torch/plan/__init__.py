@@ -13,12 +13,14 @@ Port of ``dampr_tpu/plan``:
 - :mod:`.pipeline` marks the stage edges the runner may stream;
 - the static analyzer (:mod:`..analyze`, ``settings.analyze``) reports on
   the stages that will execute;
-- :mod:`.explain` renders all of it (``PBase.explain()``).
+- :mod:`.explain` renders all of it (``PBase.explain()``);
+- :mod:`.reuse`, the cross-run cache, decides per stage at run start
+  whether a published output mounts, re-runs over appended files only, or
+  recomputes (``stats()["reuse"]``).
 
 The report records the executed plan's stage shapes, so the next run
 under the same name can match its plan against this run's measurements.
 Every rewrite is value-semantic: shared stage nodes are never mutated.
-The cross-run cache (``plan/reuse.py``) is a later slice.
 """
 
 import time

@@ -1,13 +1,13 @@
 """Render a pipeline's plan: the stage lists before and after the rewrite
 passes, the fusion decisions, the history the adaptive layer would use,
 the cost model's trace, the targets and handoff edges, the shuffle
-routes, the streamed edges and the analyzer's verdicts.
+routes, the streamed edges, the analyzer's verdicts and the cross-run
+cache's preview.
 
 Port of ``dampr_tpu/plan/explain.py``, surfaced as ``PBase.explain()``.
 Pure rendering: ``explain()`` never executes the pipeline and never
 mutates the handle's graph.  The port runs on one card, so its shuffle
-lines route every redistribution over the host shuffle, and it has no
-cross-run cache yet (its reuse line says so).
+lines route every redistribution over the host shuffle.
 """
 
 from .. import settings
@@ -79,7 +79,7 @@ def explain_text(graph, outputs, name=None):
     lines.extend(_shuffle_lines(optimized, name, outputs))
     lines.extend(_pipeline_lines(optimized, outputs))
     lines.extend(_analysis_lines(optimized))
-    lines.extend(_reuse_lines())
+    lines.extend(_reuse_lines(optimized))
     return "\n".join(lines)
 
 
@@ -138,11 +138,43 @@ def _analysis_lines(graph):
     return lines
 
 
-def _reuse_lines():
-    """The cross-run materialization cache: not in the port yet, so every
-    run recomputes."""
-    return ["reuse: off (no cross-run cache) — every run recomputes from "
-            "its inputs"]
+def _reuse_lines(graph):
+    """The cross-run cache's preview (:mod:`.reuse`): a read-only consult
+    of the shared cache with the runner's key derivation, so which stages
+    would mount and which would miss.  The preview keys with the static
+    ``settings.partitions`` salt (a run that sizes its partitions keys
+    otherwise), and a cache error becomes a one-line note, never an
+    exception."""
+    if not settings.reuse_enabled():
+        return ["reuse: off (settings.reuse / DAMPR_TPU_TORCH_REUSE) — "
+                "every run recomputes from its inputs"]
+    from ..graph import GSink
+    from . import reuse as _reuse
+
+    try:
+        keys, _structs, _sigs = _reuse.reuse_keys(
+            graph, "p{}".format(settings.partitions))
+        cache = _reuse.CacheStore()
+        lines = ["reuse: cache {} ({:.1f} MB used, budget {:.1f} MB)"
+                 .format(cache.root, cache.total_bytes() / 1e6,
+                         cache.budget / 1e6)]
+        for sid, stage in enumerate(graph.stages):
+            if isinstance(stage, (GInput, GSink)):
+                continue
+            if _reuse._resume.is_volatile(keys[sid]):
+                lines.append("  s{}: volatile (never cached)".format(sid))
+                continue
+            try:
+                hit = cache.lookup(keys[sid]) is not None
+            except _reuse.CacheEntryError:
+                lines.append("  s{}: corrupt entry (would recompute)"
+                             .format(sid))
+                continue
+            lines.append("  s{}: {}".format(
+                sid, "cached (would mount)" if hit else "miss"))
+        return lines
+    except Exception as exc:  # a preview never breaks explain()
+        return ["reuse: preview unavailable ({})".format(exc)]
 
 
 def _cost_lines(graph, name):

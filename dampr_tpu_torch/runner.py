@@ -58,6 +58,13 @@ order-insensitive reducer reads a :class:`~.base.StreamingGroupedView`
 (:func:`~.base.streaming_merge_join`).  Spills go through the store's
 writer pool, drained at every stage boundary and aborted on a failed run.
 
+With the **cross-run cache** on (``settings.reuse``, :mod:`.plan.reuse`)
+the walk's decisions are made before its first stage: a stage whose
+output was published mounts its frames and skips its prefix, one whose
+input only gained whole files re-runs over the new files and unions the
+cached partials, and every executed stage's output publishes at the
+stage boundary, beside resume's checkpoint (``stats()["reuse"]``).
+
 ``stats()`` (the emitter's ``stats()``) is the JAX package's run summary
 (``dampr-tpu-stats/1``, :mod:`.obs`), built by :meth:`MTRunner.
 _finalize_obs` on success and failure: the plan (rules fired, stages
@@ -1108,6 +1115,15 @@ class MTRunner(object):
         self._run_failed = False
         #: the torch.profiler Chrome trace of a ``settings.profile_dir`` run
         self.profile_trace_file = None
+        # the live metrics endpoint (settings.metrics_port): one HTTP
+        # thread while the run is in flight; _endpoint_info outlives it so
+        # the summary records the port it bound
+        self._metrics_server = None
+        self._endpoint_info = None
+        # the cross-run cache (plan/reuse.py, settings.reuse): the live
+        # counters that land as stats()["reuse"]; None while the cache is
+        # off keeps the section out of the summary
+        self._reuse_summary = None
 
     # -- helpers -----------------------------------------------------------
     def _pool_map(self, fn, jobs, n_workers, label=None, on_result=None):
@@ -2562,6 +2578,13 @@ class MTRunner(object):
                     self.metrics, lambda: dict(self._status),
                     _progress.INTERVAL_MS)
                 self._progress.start()
+            if settings.metrics_port > 0:
+                # /metrics and /healthz while the run is in flight; a busy
+                # port degrades the endpoint, never the run
+                from .obs import serve as _serve
+
+                self._metrics_server = _serve.start_server(
+                    settings.metrics_port, run_name=self.name)
         return rec
 
     def _stop_obs(self):
@@ -2581,6 +2604,17 @@ class MTRunner(object):
             _profile.stop(self.profiler)
         if self.flightrec is not None:
             _flightrec.stop(self.flightrec)
+        srv, self._metrics_server = self._metrics_server, None
+        if srv is not None:
+            if srv.port is not None:
+                # the port it really served on (a taken port shifts it)
+                self._endpoint_info = {
+                    "port": srv.port,
+                    "requested": (srv.base_port + srv.rank
+                                  if srv.base_port > 0 else srv.base_port),
+                    "fallback": srv.fallback,
+                }
+            srv.stop()
 
     def _torch_profile(self):
         """``settings.profile_dir``: the run under ``torch.profiler``
@@ -2820,12 +2854,13 @@ class MTRunner(object):
             return True
         return src.hash_routed and src.hash_sorted
 
-    def _needed_stages(self, outputs, restorable):
-        """The stage ids a resumable run must execute: a stage runs only
-        if its output feeds one that runs (or is requested, or is a sink)
-        and it was not restored, so a rerun whose intermediates were
-        cleaned up does not recompute the chain below a surviving
-        checkpoint."""
+    def _needed_stages(self, outputs, restorable, reuse_ctl=None):
+        """The stage ids a resumable run, or one the cross-run cache
+        serves, must execute: a stage runs only if its output feeds one
+        that runs (or is requested, or is a sink) and it was neither
+        restored nor mounted, so a rerun whose intermediates were cleaned
+        up does not recompute the chain below a surviving checkpoint or a
+        cache hit.  An incremental stage re-runs over its tap alone."""
         required = set()
         needed = set(outputs)
         for sid in range(len(self.graph.stages) - 1, -1, -1):
@@ -2835,9 +2870,46 @@ class MTRunner(object):
             if stage.output not in needed and not isinstance(stage, GSink):
                 continue
             required.add(sid)
-            if sid not in restorable:
-                needed.update(stage.inputs)
+            if sid in restorable:
+                continue
+            if reuse_ctl is not None and reuse_ctl.handles(sid):
+                continue
+            needed.update(stage.inputs)
         return required
+
+    def _plan_reuse(self, outputs, restorable):
+        """The cross-run cache's decisions for this run, made before the
+        walk (a corrupt entry then degrades to a recompute while its
+        prefix is still scheduled), or None when the cache is off or
+        failed to plan (the run proceeds cold).  A handoff edge whose
+        producer the cache serves says so in the plan's lowering
+        section."""
+        if not settings.reuse_enabled():
+            return None
+        from .plan import reuse as _reuse
+
+        try:
+            ctl = _reuse.RunReuse(self, outputs)
+            ctl.plan(outputs, satisfied=restorable)
+        except Exception:
+            log.warning("reuse cache disabled for this run", exc_info=True)
+            return None
+        self._reuse_summary = ctl.summary
+        lowering = (self.plan_report or {}).get("lowering") or {}
+        for edge in lowering.get("handoff") or ():
+            if edge.get("handoff") != "device":
+                continue
+            if edge["src"] in ctl.mounted:
+                edge["kind"] = "mounted"
+                edge["reason"] = ("producer mounted from the reuse cache: "
+                                  "its host frames take the fold's host "
+                                  "path")
+            elif edge["src"] in ctl.incremental:
+                edge["kind"] = "incremental"
+                edge["reason"] = ("cached partials (host frames) union "
+                                  "the new files' partials (device "
+                                  "refs) into the device fold")
+        return ctl
 
     def _run(self, outputs):
         from . import resume as _resume
@@ -2867,7 +2939,10 @@ class MTRunner(object):
             if restorable:
                 log.info("resume: %d stage(s) restorable from %s",
                          len(restorable), sto.root)
-            required = self._needed_stages(outputs, restorable)
+        reuse_ctl = self._plan_reuse(outputs, restorable)
+        if self.resume or (reuse_ctl is not None and (
+                reuse_ctl.mounted or reuse_ctl.incremental)):
+            required = self._needed_stages(outputs, restorable, reuse_ctl)
         for sid, stage in enumerate(self.graph.stages):
             if isinstance(stage, GInput):
                 env[stage.output] = stage.tap
@@ -2907,6 +2982,31 @@ class MTRunner(object):
                 self._stage_done(sid, stage, "resumed-" + kind, env, result,
                                  nrec, 0, t0, t0_span, snap, stage_launches0)
                 continue
+            if reuse_ctl is not None and reuse_ctl.handles(sid):
+                out = None
+                try:
+                    out = reuse_ctl.apply(sid, stage, env)
+                except Exception:
+                    # an entry failing mid-apply degrades to a recompute,
+                    # never to a wrong result: the need-set kept an
+                    # incremental stage's tap live, and full mounts were
+                    # validated at plan time
+                    log.warning("reuse: stage %d falls back to recompute",
+                                sid, exc_info=True)
+                    reuse_ctl.note_fallback(sid)
+                if out is not None:
+                    result, nrec, rkind = out
+                    env[stage.output] = result
+                    if not isinstance(stage, GSink):
+                        to_delete.append(stage.output)
+                    # mounted frames persist no resume manifest: their
+                    # scratch hardlinks are deleted, not released
+                    volatile_sources.add(stage.output)
+                    sto.drain_writes()
+                    self._stage_done(sid, stage, rkind + "-" + kind, env,
+                                     result, nrec, 0, t0, t0_span, snap,
+                                     stage_launches0)
+                    continue
             if isinstance(stage, GMap):
                 src = env.get(stage.inputs[0])
                 if (sid not in fused and sid not in self._chain_results
@@ -2951,7 +3051,9 @@ class MTRunner(object):
                     group = [g for g in self._scan_share_group(
                         sid, stage, env)
                         if g[0] not in restorable
-                        and (required is None or g[0] in required)]
+                        and (required is None or g[0] in required)
+                        and (reuse_ctl is None
+                             or not reuse_ctl.handles(g[0]))]
                     if group:
                         members = [(sid, stage)] + group
                         outs = self.run_map_group(
@@ -2979,6 +3081,11 @@ class MTRunner(object):
                 _resume.persist_stage(sto, sid, stage_fps[sid], result, nrec)
                 if _resume.is_volatile(stage_fps[sid]):
                     volatile_sources.add(stage.output)
+            if reuse_ctl is not None:
+                # the cross-run publish rides the same settled-refs barrier
+                # as checkpoints; it never fails the run, and a chaos or
+                # quarantined run is gated off inside
+                reuse_ctl.maybe_publish(sid, stage, result, nrec)
             self._stage_done(sid, stage, kind, env, result, nrec, njobs, t0,
                              t0_span, snap, stage_launches0)
 
@@ -3204,6 +3311,12 @@ class MTRunner(object):
                                         self.scan_groups]},
             "tiny_folds": self.tiny_folds,
         }
+        if self._reuse_summary is not None:
+            # the cross-run cache: hits, bytes mounted and published,
+            # incremental merges, recompute fallbacks, the decisions
+            summary["reuse"] = self._reuse_summary
+        if self._endpoint_info is not None:
+            summary["endpoint"] = self._endpoint_info
         if self.profile_trace_file:
             summary["profile_trace_file"] = self.profile_trace_file
         if self.metrics is not None:

@@ -300,10 +300,11 @@ log_level = os.environ.get("DAMPR_TPU_TORCH_LOG", "").strip().lower()
 def effective_metrics_interval_ms():
     """The sampling cadence in force: the explicit setting, else 100 ms
     for a traced or progress run (a traced run's crashdump carries recent
-    samples), else 0 (no registry, no sampler thread)."""
+    samples) or one with a live endpoint (:data:`metrics_port`: a scraper
+    must see moving gauges), else 0 (no registry, no sampler thread)."""
     if metrics_interval_ms > 0:
         return metrics_interval_ms
-    if trace or progress:
+    if trace or progress or metrics_port > 0:
         return 100
     return 0
 
@@ -352,3 +353,104 @@ run_retries = 1
 #: (``DAMPR_TPU_TORCH_FAULTS``, the chaos harness's interface).  None =
 #: injection off: every site is one ``None`` check.
 faults = os.environ.get("DAMPR_TPU_TORCH_FAULTS") or None
+
+
+# -- the cross-run cache (:mod:`.plan.reuse`) -------------------------------
+
+#: The shared, content-addressed stage cache: a stage output whose whole
+#: producing prefix (stage structure chained with the inputs' content
+#: signatures) was published before mounts the cached partition frames
+#: instead of recomputing, and append-only input growth re-runs only the
+#: new files.  "auto" resolves OFF in ordinary processes and ON inside a
+#: serve-daemon worker (:data:`serve_active`); "0"/"off" keeps the cache
+#: out of the path, in the daemon too.  Results are equal either way.
+reuse = os.environ.get("DAMPR_TPU_TORCH_REUSE", "auto")
+
+
+def reuse_enabled():
+    v = str(reuse).lower()
+    if v in ("on", "1", "true", "yes"):
+        return True
+    if v in ("off", "0", "false", "no"):
+        return False
+    return bool(serve_active)  # "auto": ON inside serve-daemon workers
+
+
+#: Byte budget of the shared cache directory: a publish past it evicts
+#: the least recently consumed whole entries under the store's flock.
+#: Mounted runs are immune (they hardlink the frames into their own
+#: scratch before reading).
+reuse_budget_bytes = int(os.environ.get("DAMPR_TPU_TORCH_REUSE_BUDGET",
+                                        str(2 * 1024 ** 3)))
+
+#: The shared cache directory; empty resolves to
+#: ``<scratch_root>/reuse-cache`` at use time.
+reuse_dir = os.environ.get("DAMPR_TPU_TORCH_REUSE_DIR", "")
+
+#: Content-signature window (bytes): input files are hashed in windows of
+#: this size, so append-only growth shows as a signature whose files
+#: extend a cached one's.
+reuse_chunk_bytes = int(os.environ.get("DAMPR_TPU_TORCH_REUSE_CHUNK",
+                                       str(16 * 1024 ** 2)))
+
+
+# -- the live metrics endpoint (:mod:`.obs.serve`) ----------------------------
+
+#: When > 0, every run serves ``/metrics`` (Prometheus text of the live
+#: registry, rank-labelled) and ``/healthz`` on this port (plus the rank)
+#: while it is in flight, and samples its gauges every 100 ms.  0 serves
+#: nothing.
+metrics_port = int(os.environ.get("DAMPR_TPU_TORCH_METRICS_PORT", "0"))
+
+
+# -- the serve daemon (:mod:`.serve`) -----------------------------------------
+
+#: Daemon HTTP port; a busy port probes upward, 0 asks the OS for one.
+serve_port = int(os.environ.get("DAMPR_TPU_TORCH_SERVE_PORT", "9400"))
+
+#: Daemon bind address.  Loopback by default: the wire is pickle, so the
+#: protocol trusts its clients.
+serve_host = os.environ.get("DAMPR_TPU_TORCH_SERVE_HOST", "127.0.0.1")
+
+#: Concurrent job slots: worker subprocesses the daemon runs at once.
+serve_workers = int(os.environ.get("DAMPR_TPU_TORCH_SERVE_WORKERS", "2"))
+
+#: Per-tenant admission budget: estimated input bytes a tenant's queued
+#: and running jobs may reserve; past it a submission is rejected
+#: (``budget``).  A finished or cancelled job releases its reservation.
+serve_tenant_budget = int(os.environ.get("DAMPR_TPU_TORCH_SERVE_BUDGET",
+                                         str(2 * 1024 ** 3)))
+
+#: Deficit-round-robin quantum (bytes a tenant earns per round).
+serve_quantum = int(os.environ.get("DAMPR_TPU_TORCH_SERVE_QUANTUM",
+                                   str(64 * 1024 ** 2)))
+
+#: Per-tenant queue depth; past it a submission is rejected
+#: (``queue-full``).
+serve_queue_depth = int(os.environ.get("DAMPR_TPU_TORCH_SERVE_QUEUE_DEPTH",
+                                       "16"))
+
+#: Per-job wall-clock timeout (ms): past it the daemon SIGTERMs the job's
+#: worker (its crashdump path), then SIGKILLs it.  0 = none.
+serve_job_timeout_ms = int(os.environ.get(
+    "DAMPR_TPU_TORCH_SERVE_JOB_TIMEOUT_MS", "600000"))
+
+#: Graceful-drain deadline (ms) on SIGTERM or ``POST /drain``.
+serve_drain_ms = int(os.environ.get("DAMPR_TPU_TORCH_SERVE_DRAIN_MS",
+                                    "30000"))
+
+#: Whether workers run traced, so a killed or failed job leaves a
+#: schema-valid ``crashdump.json`` under its job directory.
+serve_trace = _env_flag("DAMPR_TPU_TORCH_SERVE_TRACE", "1")
+
+#: Terminal job records (and their directories) the daemon keeps.
+serve_jobs_keep = int(os.environ.get("DAMPR_TPU_TORCH_SERVE_JOBS_KEEP",
+                                     "256"))
+
+#: Daemon state directory; empty resolves to ``<scratch_root>/serve``.
+serve_dir = os.environ.get("DAMPR_TPU_TORCH_SERVE_DIR", "")
+
+#: Set by the daemon in every worker's environment: how
+#: :func:`reuse_enabled` resolves "auto" ON inside served jobs only.  Not
+#: an operator knob.
+serve_active = _env_flag("DAMPR_TPU_TORCH_SERVE_ACTIVE")

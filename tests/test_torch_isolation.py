@@ -33,9 +33,10 @@ def test_port_imports_without_jax_or_the_jax_package(tmp_path):
     joins) and the out-of-core paths (spill frames through the writer
     pool, a streaming fold and join, sorted runs), the static analyzer
     (a certified chain's lane program, ``validate()``) and the adaptive
-    plan (a named run sized from its history, ``explain()``) and faults
-    and resume (a retried job, a restored rerun, ``validate(resume=True)``),
-    on the CPU."""
+    plan (a named run sized from its history, ``explain()``), faults
+    and resume (a retried job, a restored rerun, ``validate(resume=True)``)
+    and the cross-run cache (a published run, then a mounted one), on the
+    CPU."""
     code = r"""
 import importlib, json, math, operator, pkgutil, sys
 sys.modules["jax"] = None
@@ -84,6 +85,11 @@ records["resume"] = [r1.read(), r1.stats()["faults"]["job_retries"],
                      [s["kind"] for s in r2.stats], r2.read(),
                      [d.code for d in chain.validate(resume=True)]]
 settings.job_retries = 0
+settings.reuse = "on"
+cached = [words.count().run(name="iso-reuse-%d" % i) for i in range(2)]
+records["reuse"] = [[c.read() for c in cached],
+                    [c.stats()["reuse"]["hits"] for c in cached]]
+settings.reuse = "off"
 settings.streaming_reduce_threshold = 1
 ooc = {"fold": words.count().run(memory_budget=1).read(),
        "join": left.join(right).reduce(lambda l, r: (list(l), list(r)))
@@ -118,7 +124,9 @@ print(json.dumps({"modules": names, "reference": loaded,
                  "analyze.pickleprobe", "analyze.props", "analyze.torchtrace",
                  "analyze.validate", "obs.history", "plan.cost",
                  "plan.model", "plan.pipeline", "plan.explain", "faults",
-                 "resume"):
+                 "resume", "plan.reuse", "obs.promtext", "obs.serve",
+                 "obs.timeseries", "serve", "serve.wire", "serve.scheduler",
+                 "serve.worker", "serve.daemon", "serve.client"):
         assert "dampr_tpu_torch." + name in report["modules"]
     assert report["idf"] == [["a", 2, 4], ["b", 2, 4], ["c", 1, 4]]
     assert report["len"] == [4]
@@ -137,7 +145,8 @@ print(json.dumps({"modules": names, "reference": loaded,
         "validate": ["DTA501", "DTA501"],
         "resume": [[["a", 2], ["b", 2], ["c", 1]], 1, ["resumed-reduce"],
                    [["a", 2], ["b", 2], ["c", 1]], ["DTA501", "DTA501"]],
-        "adapt": [False, True, True]}
+        "adapt": [False, True, True],
+        "reuse": [[[["a", 2], ["b", 2], ["c", 1]]] * 2, [0, 1]]}
     assert report["ooc"] == {"fold": [["a", 2], ["b", 2], ["c", 1]],
                              "join": pair, "sort": [1, 2, 3]}
 

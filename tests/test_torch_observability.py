@@ -44,8 +44,8 @@ with open(os.path.join(ROOT, "docs", "trace_schema.json")) as _f:
     TRACE_SCHEMA = json.load(_f)
 
 #: Top-level sections of the JAX summary that belong to later slices of
-#: the port: reuse (A4b), mitigation and fleet (A5), endpoint (A6).
-LATER_SLICES = {"reuse", "mitigation", "fleet", "endpoint"}
+#: the port: mitigation and fleet (A5).
+LATER_SLICES = {"mitigation", "fleet"}
 
 
 @pytest.fixture(autouse=True)

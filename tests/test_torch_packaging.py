@@ -48,6 +48,7 @@ def _source_files():
 def test_the_tree_has_what_the_checks_read():
     pkgs = _package_dirs()
     assert "dampr_tpu_torch.analyze" in pkgs
+    assert "dampr_tpu_torch.serve" in pkgs
     srcs = _source_files()
     assert os.path.join("dampr_tpu_torch", "native", "tokenizer.cpp") in srcs
     assert any(s.endswith(".cu") for s in srcs)
