@@ -1535,13 +1535,16 @@ HANDOFF_VARIANTS = ((False, 0), (True, 16), (True, 0))
 
 
 def handoff_table(np, hashing, vrows, vlens, cap, Lcap, dup_h1=False,
-                  collide=False):
+                  collide=False, run=0):
     """A vocabulary table as the handoff lays it out: ``(tab_h1 uint32,
     tab_slot, tab_mat, tab_lens)`` numpy lanes for token rows ``vrows``
     (uint8 [V, >= max(vlens)], zero past each length).  ``dup_h1`` puts
     every 97th slot under its neighbour's h1 (the leftmost must win, the
     other one's tokens miss); ``collide`` flips a byte of every 89th slot's
-    row, so its tokens meet their h1 with other bytes and miss."""
+    row, so its tokens meet their h1 with other bytes and miss; ``run``
+    puts that many slots from slot 3 on under slot 3's h1, a run of equal
+    lanes across several samples of the kernel's index (slot 3, leftmost,
+    must win; the others' tokens miss)."""
     V = len(vlens)
     h1 = hashing._fnv_numpy(vrows, vlens)[0]
     slot_h1 = h1.copy()
@@ -1552,6 +1555,8 @@ def handoff_table(np, hashing, vrows, vlens, cap, Lcap, dup_h1=False,
         slot_h1[1::97] = h1[0::97][:len(slot_h1[1::97])]
     if collide:
         rows[2::89, 0] ^= 1
+    if run:
+        slot_h1[3:3 + run] = h1[3]
     order = np.argsort(slot_h1, kind="stable")
     tab_h1 = np.full(cap, 0xFFFFFFFF, dtype=np.uint32)
     tab_h1[:V] = slot_h1[order]
@@ -1564,18 +1569,22 @@ def handoff_table(np, hashing, vrows, vlens, cap, Lcap, dup_h1=False,
     return tab_h1, tab_slot, tab_mat, tab_lens
 
 
-def handoff_batch(np, rng, vrows, vlens, n, L, fresh=0.1, max_line=6):
+def handoff_batch(np, rng, vrows, vlens, n, L, fresh=0.1, max_line=6,
+                  hot=0.0, pad=True):
     """A padded batch (``mat``, ``lens``, ``lines``) of ``n`` rows: 7/8 of
-    them tokens, Zipf over the vocabulary rows (each at most L bytes) or,
-    a ``fresh`` share, digit strings no vocabulary holds; lines of 1 to
-    ``max_line`` tokens; the rest pad rows."""
-    n_tok = n - n // 8
+    them (all with ``pad`` False) tokens, Zipf over the vocabulary rows
+    (each at most L bytes) or, a ``fresh`` share, digit strings no
+    vocabulary holds; a ``hot`` share of the tokens then the vocabulary's
+    first token; lines of 1 to ``max_line`` tokens; the rest pad rows."""
+    n_tok = n - n // 8 if pad else n
     V = len(vlens)
     mat = np.zeros((n, L), dtype=np.uint8)
     lens = np.zeros(n, dtype=np.int32)
     if V:
         probs = 1.0 / np.arange(1, V + 1) ** 1.1
         ids = rng.choice(V, size=n_tok, p=probs / probs.sum())
+        if hot:
+            ids[rng.rand(n_tok) < hot] = 0
         w = min(L, vrows.shape[1])
         mat[:n_tok, :w] = vrows[ids, :w]
         lens[:n_tok] = vlens[ids]
@@ -1600,8 +1609,14 @@ def random_vocab(np, rng, V, width):
 
 
 def corpus_vocab(np, df):
-    """The corpus's own vocabulary as token rows (its words are ASCII)."""
-    words = sorted(df)
+    """The corpus's own vocabulary as token rows (its words are ASCII), in
+    sorted-word order."""
+    return vocab_rows(np, sorted(df))
+
+
+def vocab_rows(np, words):
+    """Words as token rows: (uint8 [V, >= 8] zero past each word, their
+    lengths)."""
     width = max(8, max(len(w) for w in words))
     vrows = np.zeros((len(words), width), dtype=np.uint8)
     vlens = np.zeros(len(words), dtype=np.int32)
@@ -1622,35 +1637,54 @@ def table_args(torch, np, dev, table, cap):
             torch.zeros(cap + 1, dtype=torch.int64, device=dev)]
 
 
-def check_handoff(torch, np, handoff, hashing, dev, rng, corpus_inputs, df):
+#: The table program's cases beside the corpus batch: (name, L, Lcap,
+#: vocabulary size, rows, the batch's options, the table's options).
+HANDOFF_CASES = (
+    ("random L=8", 8, 8, 20000, 1 << 18, {}, {}),
+    ("random L=16", 16, 16, 20000, 1 << 18, {}, {}),
+    ("random L=256", 256, 256, 4000, 1 << 18, {}, {}),
+    ("duplicate h1 lanes", 8, 8, 20000, 1 << 18, {}, {"dup_h1": True}),
+    ("h1 collisions, other bytes", 8, 8, 20000, 1 << 18, {},
+     {"collide": True}),
+    ("Lcap > L", 8, 32, 20000, 1 << 18, {}, {}),
+    ("Lcap < L", 16, 8, 20000, 1 << 18, {}, {}),
+    ("empty table", 8, 8, 0, 1 << 18, {}, {}),
+    ("all miss", 8, 8, 20000, 1 << 18, {"fresh": 1.0}, {}),
+    ("one token in 60% of the rows", 8, 8, 20000, 1 << 18,
+     {"hot": 0.6, "fresh": 0.0, "pad": False}, {}),
+    ("every row one token", 8, 8, 20000, 1 << 18,
+     {"hot": 1.0, "fresh": 0.0, "pad": False}, {}),
+    ("cap 2^21", 8, 8, (1 << 20) + 4321, 1 << 18, {}, {}),
+    ("40 equal h1 lanes", 8, 8, 20000, 1 << 18, {}, {"run": 40}),
+    ("n not a multiple of the tile", 8, 8, 20000, (1 << 18) - 777, {}, {}),
+    ("n < k", 8, 8, 20000, 10, {"pad": False}, {}),
+    ("n = 1", 8, 8, 20000, 1, {"pad": False}, {}))
+
+
+def check_handoff(torch, np, handoff, hashing, dev, rng, corpus_inputs,
+                  vocabs):
     """The table program against its plain version, bit for bit (``acc``,
-    ``miss``, ``n_miss``), every case in all three variants, each
-    HANDOFF_REPEATS times.  Returns the max abs error seen."""
+    ``miss``, ``n_miss``): the corpus batch against each slot order of its
+    vocabulary (``vocabs``: order -> token rows), then HANDOFF_CASES,
+    every case in all three variants, each HANDOFF_REPEATS times.
+    Returns ``(max abs error, cases)``."""
     worst = 0.0
-    n = 1 << 18
-    cvrows, cvlens = corpus_vocab(np, df)
-    ccap = max(4096, 1 << (len(cvlens) - 1).bit_length())
-    cases = [("corpus batch, corpus vocabulary", corpus_inputs,
-              handoff_table(np, hashing, cvrows, cvlens, ccap, 8), ccap)]
-    for name, L, Lcap, V, opts in (
-            ("random L=8", 8, 8, 20000, {}),
-            ("random L=16", 16, 16, 20000, {}),
-            ("random L=256", 256, 256, 4000, {}),
-            ("duplicate h1 lanes", 8, 8, 20000, {"dup_h1": True}),
-            ("h1 collisions, other bytes", 8, 8, 20000, {"collide": True}),
-            ("Lcap > L", 8, 32, 20000, {}),
-            ("Lcap < L", 16, 8, 20000, {}),
-            ("empty table", 8, 8, 0, {}),
-            ("all miss", 8, 8, 20000, {"fresh": 1.0})):
+    cases = []
+    for order, (cvrows, cvlens) in vocabs.items():
+        ccap = max(4096, 1 << (len(cvlens) - 1).bit_length())
+        cases.append(("corpus batch, {} vocabulary".format(order),
+                      corpus_inputs,
+                      handoff_table(np, hashing, cvrows, cvlens, ccap, 8),
+                      ccap))
+    for name, L, Lcap, V, n, bopts, topts in HANDOFF_CASES:
         vrows, vlens = random_vocab(np, rng, V, min(L, Lcap))
         cap = max(4096, 1 << max(0, (V - 1).bit_length()))
-        fresh = opts.pop("fresh", 0.1)
         mat, lens, lines = handoff_batch(np, rng, vrows, vlens, n, L,
-                                         fresh=fresh)
+                                         **bopts)
         inputs = [torch.from_numpy(x).to(dev) for x in (mat, lens, lines)]
         cases.append((name, inputs,
                       handoff_table(np, hashing, vrows, vlens, cap, Lcap,
-                                    **opts), cap))
+                                    **topts), cap))
     for name, inputs, table, cap in cases:
         for dedup, k in HANDOFF_VARIANTS:
             tabs = table_args(torch, np, dev, table, cap)
@@ -1664,6 +1698,9 @@ def check_handoff(torch, np, handoff, hashing, dev, rng, corpus_inputs, df):
                 # only a word behind another's equal h1 may miss
                 check(int(want[1]) * 100 < int((inputs[1] > 0).sum()),
                       "the corpus batch missed its own vocabulary")
+            if name == "40 equal h1 lanes":
+                check(int(want_acc[3]) > 0 and not want_acc[4:43].any(),
+                      "the equal-h1 run: not its leftmost slot alone hit")
             for _ in range(HANDOFF_REPEATS):
                 acc = tabs[4].clone()
                 got = handoff.table_probe(*inputs, *tabs[:4], acc, dedup, k)
@@ -1676,21 +1713,33 @@ def check_handoff(torch, np, handoff, hashing, dev, rng, corpus_inputs, df):
                               "{} in {} (dedup={}, k={})".format(
                                   what, name, dedup, k))
     torch.cuda.synchronize()
-    return worst
+    return worst, len(cases)
 
 
-def time_handoff(torch, np, handoff, hashing, dev, corpus_inputs, df, reps):
-    """The table program at the main path's batch (the corpus's first,
-    DocFreq's variant: the 16-token window) against the corpus's
-    vocabulary, beside its plain version and its byte bound."""
+#: The table program's variants as the kernels line names them: (name,
+#: dedup, dedup_k).
+HANDOFF_TIMED = (("window", True, 16), ("count", False, 0),
+                 ("sort", True, 0))
+
+
+def time_handoff(torch, np, ablate, handoff, hashing, dev, corpus_inputs,
+                 vocabs, reps):
+    """The table program at the main path's batch (the corpus's first)
+    against the corpus's vocabulary: DocFreq's variant (the 16-token
+    window) under the sorted-word slot order beside its plain version and
+    its byte bound, then every variant under each slot order in
+    ``vocabs`` (``variants``), then the first design's ablations
+    (``ablations``; ``ablate``: its built kernel)."""
     mat, lens, lines = corpus_inputs
     N, L = mat.shape
-    cvrows, cvlens = corpus_vocab(np, df)
-    cap = max(4096, 1 << (len(cvlens) - 1).bit_length())
     Lcap = 8
-    tabs = table_args(torch, np, dev,
-                      handoff_table(np, hashing, cvrows, cvlens, cap, Lcap),
-                      cap)
+    tables = {}
+    for order, (vrows, vlens) in vocabs.items():
+        cap = max(4096, 1 << (len(vlens) - 1).bit_length())
+        tables[order] = (table_args(
+            torch, np, dev,
+            handoff_table(np, hashing, vrows, vlens, cap, Lcap), cap), cap)
+    tabs, cap = tables["sorted"]
     k = handoff._DEDUP_WINDOW
     t = timing(torch, lambda: handoff.table_probe(mat, lens, lines, *tabs,
                                                   True, k),
@@ -1705,8 +1754,96 @@ def time_handoff(torch, np, handoff, hashing, dev, corpus_inputs, df, reps):
     nops = 4 * live + 3 * N * cap.bit_length()
     t["bound"] = bound_ms(nbytes, nops)
     t["shape"] = [N, L]
-    t["table"] = {"cap": cap, "Lcap": Lcap, "slots": len(cvlens)}
+    t["table"] = {"cap": cap, "Lcap": Lcap, "slots": len(vocabs["sorted"][1])}
+    t["variants"] = {}
+    for name, dedup, dk in HANDOFF_TIMED:
+        # COUNT reads no lines; the sort's keys are its own scratch
+        vb = bound_ms(nbytes - (0 if dedup else 4 * N), nops)[0]
+        t["variants"][name] = {}
+        for order, (vtabs, _cap) in tables.items():
+            vt = timing(torch, lambda: handoff.table_probe(
+                mat, lens, lines, *vtabs, dedup, dk), reps,
+                launches=2 if dk or not dedup else 20)
+            t["variants"][name][order] = {
+                "device_ms": vt["device_ms"], "ms": vt["ms"],
+                "host_ms": vt["host_ms"], "bound_ms": vb}
+    t["ablations"] = time_handoff_ablations(torch, ablate, handoff,
+                                            corpus_inputs, tables, reps)
     return t
+
+
+def first_seen_vocab(np, path, df):
+    """The corpus's vocabulary as token rows in the order the handoff
+    assigns slots: first seen in the corpus's text first (so the Zipf head
+    takes the low slots), the words its first 8 MB never show after."""
+    rx = re.compile(r"[^\w]+")
+    seen = {}
+    with open(path) as f:
+        for line in f.read(8 * 1024 ** 2).splitlines():
+            for t in rx.split(line.lower()):
+                if t and t in df:
+                    seen.setdefault(t, None)
+    return vocab_rows(np, list(seen) + sorted(set(df) - set(seen)))
+
+
+#: The ablations of the first design (tools/handoff_ablate.cu): flags bit 1
+#: drops the atomics, 2 replaces the binary search by a position computed
+#: beforehand, 4 drops the WINDOW halo's second probe.
+HANDOFF_ABLATIONS = (("as is", 0), ("no atomics", 1),
+                     ("no binary search", 2), ("no halo probe", 4),
+                     ("none of the three", 7))
+
+
+def ablate_kernel(build):
+    """The first design of the table program with its ablation switches
+    (tools/handoff_ablate.cu), built like the port's kernels."""
+    import ctypes
+
+    return build.Kernel(
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                     "handoff_ablate.cu"), "dampr_handoff_ablate",
+        [ctypes.c_void_p] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+        + [ctypes.c_void_p] * 2)
+
+
+def time_handoff_ablations(torch, kern, handoff, corpus_inputs, tables,
+                           reps):
+    """The first design's ``device_ms`` at the corpus batch with each of
+    its suspected costs taken away in turn, for WINDOW (k = 16) and
+    COUNT, under each slot order in ``tables`` (name -> ``(table_args,
+    cap)``).  Returns ``{order: {mode: {ablation: device_ms}}}``."""
+    from dampr_tpu_torch.ops import fnv
+
+    mat, lens, lines = corpus_inputs
+    N, L = mat.shape
+    miss = torch.empty(N, dtype=torch.bool, device=mat.device)
+    n_miss = torch.empty((), dtype=torch.int32, device=mat.device)
+    out = {}
+    for order, (tabs, cap) in tables.items():
+        tab_h1, tab_slot, tab_mat, tab_lens, acc = tabs
+        Lcap = tab_mat.shape[1]
+        h = fnv.fnv_reference(mat, lens)[0].to(torch.int64) & 0xFFFFFFFF
+        pos = torch.searchsorted(tab_h1.to(torch.int64) & 0xFFFFFFFF,
+                                 h).to(torch.int32)
+        out[order] = {}
+        for mode, k in (("WINDOW", handoff._DEDUP_WINDOW), ("COUNT", 0)):
+            code = handoff._WINDOW if k else handoff._COUNT
+            row = {}
+            for name, flags in HANDOFF_ABLATIONS:
+                if flags & 4 and not k:
+                    continue
+
+                def call():
+                    kern.launch(mat.device, mat.data_ptr(), lens.data_ptr(),
+                                lines.data_ptr(), tab_h1.data_ptr(),
+                                tab_slot.data_ptr(), tab_mat.data_ptr(),
+                                tab_lens.data_ptr(), acc.data_ptr(),
+                                miss.data_ptr(), n_miss.data_ptr(), None, N,
+                                L, cap, Lcap, code, k, flags, pos.data_ptr())
+                row[name] = time_split(torch, call, max(2, 5 * reps))[0]
+            out[order][mode] = row
+    torch.cuda.synchronize()
+    return out
 
 
 def handoff_line(mode, stats, secs, nbytes, launches, sink_lines):
@@ -3746,9 +3883,10 @@ def main(argv=None):
             nbytes, time.perf_counter() - t0))
 
         t0 = time.perf_counter()
-        build.build_all(list(KERNELS.values()))
-        log("phase build: {} kernels in {:.3f} s".format(
-            len(KERNELS), time.perf_counter() - t0))
+        ablate = ablate_kernel(build)
+        build.build_all(list(KERNELS.values()) + [ablate])
+        log("phase build: {} kernels and the first table program in {:.3f} "
+            "s".format(len(KERNELS), time.perf_counter() - t0))
 
         rng = np.random.RandomState(args.seed)
         t0 = time.perf_counter()
@@ -3853,17 +3991,23 @@ def main(argv=None):
 
         # -- the handoff's table program (B4) -------------------------------
         t0 = time.perf_counter()
-        err["handoff"] = check_handoff(torch, np, handoff, hashing, dev, rng,
-                                       batches[True][:3], df)
+        vocabs = {"sorted": corpus_vocab(np, df),
+                  "first-seen": first_seen_vocab(np, corpus, df)}
+        err["handoff"], n_cases = check_handoff(
+            torch, np, handoff, hashing, dev, rng, batches[True][:3], vocabs)
         log("phase handoff kernel: the table program equals its plain "
             "version, {} cases x 3 variants x {} runs, in {:.3f} s".format(
-                10, HANDOFF_REPEATS, time.perf_counter() - t0))
+                n_cases, HANDOFF_REPEATS, time.perf_counter() - t0))
         t0 = time.perf_counter()
         times["handoff"] = {"main": time_handoff(
-            torch, np, handoff, hashing, dev, batches[True][:3], df,
-            args.reps)}
-        log("handoff at {}: {}".format(times["handoff"]["main"]["shape"],
-                                       json.dumps(times["handoff"]["main"])))
+            torch, np, ablate, handoff, hashing, dev, batches[True][:3],
+            vocabs, args.reps)}
+        ht = times["handoff"]["main"]
+        ablations = ht.pop("ablations")
+        log("handoff-ablations " + json.dumps(ablations))
+        # the first design, timed in this run beside the redesign
+        ht["previous_device_ms"] = ablations["sorted"]["WINDOW"]["as is"]
+        log("handoff at {}: {}".format(ht["shape"], json.dumps(ht)))
         log("phase handoff timings: {:.3f} s".format(
             time.perf_counter() - t0))
         chunk = os.path.getsize(corpus) // 8 + 1
@@ -4121,7 +4265,9 @@ def main(argv=None):
         "plain_device_ms": ht["plain"]["device_ms"],
         "plain_host_ms": ht["plain"]["host_ms"],
         "bound_ms": ht["bound"][0], "bound_by": ht["bound"][1],
-        "library_ms": None})
+        "library_ms": None, "variants": ht["variants"],
+        "previous_device_ms": ht["previous_device_ms"],
+        "previous_source": "tools/handoff_ablate.cu"})
     lanes = times["fnv"]["wc"]
     kernels[0]["at_wc_batch"] = {
         "entry": "fnv(mat, lens)", "shape": lanes["shape"],

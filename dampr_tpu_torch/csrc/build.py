@@ -56,8 +56,9 @@ def _headers():
 
 
 class Kernel(object):
-    """One ``csrc`` source: its build, its loaded entry point, and the
-    count of its launches (the main path's proof that it ran)."""
+    """One ``csrc`` source (a name in ``csrc/``, or an absolute path):
+    its build, its loaded entry point, and the count of its launches (the
+    main path's proof that it ran)."""
 
     def __init__(self, source, symbol, argtypes):
         self.source = source
@@ -74,7 +75,7 @@ class Kernel(object):
             with open(path, "rb") as f:
                 digest.update(f.read())
         digest.update(" ".join(NVCC_FLAGS).encode())
-        stem = os.path.splitext(self.source)[0]
+        stem = os.path.splitext(os.path.basename(self.source))[0]
         lib = os.path.join(BUILD_DIR, "lib{}-{}.so".format(
             stem, digest.hexdigest()[:16]))
         return src, lib

@@ -672,13 +672,17 @@ def _fnv1(rows, lens):
 
 
 def _table_case(rng, n, L, cap, Lcap, vocab_n, dup_h1=True, collide=True,
-                empty=False, all_miss=False, max_line=6):
+                empty=False, all_miss=False, max_line=6, hot=0.0, run=0):
     """A table state and a padded batch, both packages' inputs as numpy:
     vocabulary tokens of random bytes (lengths up to min(L, Lcap)), rows
     padded with zeros; the batch mostly vocabulary tokens, with new ones,
     pad rows and lines of up to ``max_line`` tokens.  ``dup_h1`` gives two
     slots the same h1 (the second one's tokens must miss); ``collide``
-    puts a slot under another token's h1 with different bytes."""
+    puts a slot under another token's h1 with different bytes; ``hot``
+    makes that share of the tokens one vocabulary token; ``run`` puts that
+    many lanes, centred on lane 2048 of the sorted table, under the h1 of
+    their smallest slot (a run of equal lanes across a power-of-two
+    boundary: that slot, leftmost, must win; the others miss)."""
     W = min(L, Lcap)
     vocab_n = 0 if empty else vocab_n
     vlens = rng.randint(1, W + 1, size=vocab_n).astype(np.int32)
@@ -694,6 +698,10 @@ def _table_case(rng, n, L, cap, Lcap, vocab_n, dup_h1=True, collide=True,
         vlens[5] = vlens[6]
         vrows[5, vlens[5]:] = 0
         vrows[5, :vlens[5]] = vrows[6, :vlens[5]] ^ 1
+    if run:
+        sorted_slots = np.argsort(slot_h1, kind="stable")
+        group = sorted_slots[2048 - run // 2:2048 + run - run // 2]
+        slot_h1[group] = slot_h1[group.min()]  # stays where it sorts
     order = np.argsort(slot_h1, kind="stable")
     tab_h1 = np.full(cap, 0xFFFFFFFF, dtype=np.uint32)
     tab_h1[:vocab_n] = slot_h1[order]
@@ -709,6 +717,8 @@ def _table_case(rng, n, L, cap, Lcap, vocab_n, dup_h1=True, collide=True,
     mat = np.zeros((n, L), dtype=np.uint8)
     lens = np.zeros(n, dtype=np.int32)
     pick = rng.randint(0, max(vocab_n, 1), size=n_tok)
+    if hot:
+        pick[rng.rand(n_tok) < hot] = 7
     fresh = (rng.rand(n_tok) < 0.1) | (vocab_n == 0) | all_miss
     for i in range(n_tok):
         if fresh[i]:
@@ -739,6 +749,16 @@ TABLE_CASES = {
     "empty-table": (1024, 8, 4096, 8, 0, {"empty": True}),
     "all-miss": (1024, 8, 4096, 8, 300, {"all_miss": True}),
     "long-lines": (2048, 8, 4096, 8, 200, {"max_line": 40}),
+    # the redesigned kernel's edges: one slot in 60% of the tokens (its
+    # block-aggregated count), an equal-h1 run across lane 2048 (its
+    # sampled index), a table of 2^16 slots (16 lanes a sample), batches
+    # that fill no whole tile, fewer rows than the window and one row
+    "hot-slot": (4096, 8, 4096, 8, 900, {"hot": 0.6}),
+    "run-across-2048": (4096, 8, 4096, 8, 3000, {"run": 40}),
+    "cap-2^16": (4096, 8, 1 << 16, 8, 5000, {}),
+    "n-off-tile": (4096 - 777, 8, 4096, 8, 900, {}),
+    "n-below-k": (10, 8, 4096, 8, 900, {}),
+    "n-one": (1, 8, 4096, 8, 900, {}),
 }
 
 
@@ -774,6 +794,41 @@ def test_table_program_matches_reference(case, dedup, dedup_k):
         # slot 3 (behind slot 2's h1) never hits; slot 5 (slot 6's hash,
         # other bytes) never hits
         assert p_acc[3] == acc[3] and p_acc[5] == acc[5]
+    if case == "run-across-2048":
+        assert tab_h1[2048 - 20] == tab_h1[2048 + 19]
+    if case == "hot-slot" and not dedup:
+        assert int(p_acc[7]) - int(acc[7]) > (n - n // 8) // 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dedup,dedup_k", [
+    (case, dedup, dedup_k)
+    for case in ("hot-slot", "run-across-2048", "cap-2^16", "n-off-tile",
+                 "n-below-k", "n-one")
+    for dedup, dedup_k in ((False, 0), (True, 16), (True, 0))])
+def test_table_kernel_matches_plain_version_on_card(case, dedup, dedup_k):
+    """On a CUDA card: the kernel (csrc/handoff.cu) against its plain
+    version on the same card tensors, bit for bit, on the cases the
+    redesign could break (chip_smoke.py runs these and more on the H100)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    n, L, cap, Lcap, vocab, opts = TABLE_CASES[case]
+    rng = np.random.RandomState(zlib.crc32(case.encode()))
+    mat, lens, lines, tab_h1, tab_slot, tab_mat, tab_lens, acc = \
+        _table_case(rng, n, L, cap, Lcap, vocab, **opts)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    args = [torch.from_numpy(x).to(dev) for x in (
+        mat, lens, lines, tab_h1.view(np.int32), tab_slot, tab_mat,
+        tab_lens)]
+    want_acc = torch.from_numpy(acc.astype(np.int64)).to(dev)
+    got_acc = want_acc.clone()
+    want = port_handoff.table_probe_reference(*args, want_acc, dedup,
+                                              dedup_k)
+    got = port_handoff.table_probe(*args, got_acc, dedup, dedup_k)
+    torch.cuda.synchronize()
+    assert torch.equal(got_acc, want_acc)
+    assert torch.equal(got[0], want[0])
+    assert int(got[1]) == int(want[1])
 
 
 def test_reference_vocabulary_probes_equal_through_interop(tmp_path):
