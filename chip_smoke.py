@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of dampr_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--mb 128] [--seed 1234] [--reps 20] [--ooc-mb 256]
+    python3 chip_smoke.py [--mb 128] [--seed 1234] [--reps 20] [--ooc-mb 128]
 
 Run from the repository root on a machine with an NVIDIA card (Hopper:
 the kernels build for sm_90a).  Phases, each of which must pass:
@@ -198,7 +198,18 @@ the kernels build for sm_90a).  Phases, each of which must pass:
     (exit 143, a valid crashdump, the worker's context gone),
     ``serve-metrics`` and ``serve-overhead`` (the worker's start-up);
     the daemon's pid never holds a CUDA context
-    (``nvidia-smi --query-compute-apps``, polled through the phase).
+    (``nvidia-smi --query-compute-apps``, polled through the phase);
+18. ``tooling``, the port's tools (:func:`phase_tooling`): ``python -m
+    dampr_tpu_torch.cli bench`` in its own process on the card, traced,
+    with autotune on and 3 trials, over the ``--mb`` corpus: its exact
+    check against the single-core baseline, a lowered stage and a handoff
+    edge, every trial byte-identical, ``tools/check_bench.py`` accepting
+    the line, K1, K2 and B4 launched in the winning run; then ``stats
+    --series --prom --log``, ``doctor --json`` (schema-valid) and
+    ``history`` over those runs, each exit 0, ``sentry --strict`` exiting
+    with its verdict (0, or 2 exactly when ``detect`` finds a
+    regression); and ``top --once --json`` against a live TF-IDF run's
+    metrics endpoint.
 
 K1's lanes entry is also checked and timed at the ``wc`` batch shape (the
 corpus's first 65,536 words, padded as the combine pads them).  Every
@@ -208,7 +219,8 @@ on, on the card) in every phase but ``ooc-tfidf`` and the ``handoff``
 phase's "off" run.  Prints a
 ``{"kernels": [...]}`` JSON line second to last (``launches_faults``: the
 retried TF-IDF run's; ``launches_serve``: the served cold run's, read
-from the worker's ``stats.json``) and
+from the worker's ``stats.json``; ``launches_tooling``: the bench's
+winning autotune trial's, from its ``stats.json``) and
 ``{"ok": true, "device": {...}}`` last; exits non-zero, printing no
 result, if there is no card or any phase fails.
 """
@@ -3826,6 +3838,237 @@ def phase_serve(Dampr, DocFreq, TokenCounts, settings, workdir, corpus,
     return cold_launches
 
 
+TOOLING_TRIALS = 3
+
+
+def tool_env(settings, scratch, **extra):
+    """The environment of a ``python -m dampr_tpu_torch.cli`` process:
+    this checkout on the path, this process's device, the given scratch
+    root."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (os.path.dirname(os.path.abspath(__file__))
+                         + os.pathsep + env.get("PYTHONPATH", ""))
+    env.update({"DAMPR_TPU_TORCH_SCRATCH": scratch,
+                "DAMPR_TPU_TORCH_DEVICE": str(settings.device)})
+    env.update(extra)
+    return env
+
+
+def run_tools(env, calls, timeout):
+    """``python -m dampr_tpu_torch.cli`` calls, all started at once (each
+    pays ``import torch``): ``{name: (exit code, stdout, stderr,
+    seconds)}`` for ``calls``, a ``{name: argv}`` map."""
+    t0 = time.perf_counter()
+    procs = {what: subprocess.Popen(
+        [sys.executable, "-m", "dampr_tpu_torch.cli"] + list(argv),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for what, argv in calls.items()}
+    out = {}
+    try:
+        for what, p in procs.items():
+            stdout, stderr = p.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            out[what] = (p.returncode, stdout, stderr,
+                         time.perf_counter() - t0)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def sentry_verdict(settings, scratch):
+    """The exit code ``sentry bench-tfidf --strict`` must give: 2 when
+    the sentry's ``detect`` finds a regression in the newest point of the
+    bench's telemetry series under ``scratch``, else 0."""
+    from dampr_tpu_torch.obs import sentry, timeseries
+
+    old = settings.scratch_root
+    settings.scratch_root = scratch
+    try:
+        points = timeseries.load("bench-tfidf")
+    finally:
+        settings.scratch_root = old
+    check(len(points) == 1 + TOOLING_TRIALS, "tooling: {} telemetry points "
+          "for the bench, wanted {}".format(len(points), 1 + TOOLING_TRIALS))
+    series = timeseries.series(points, fingerprint=points[-1]["fingerprint"])
+    return 2 if sentry.detect(series) else 0
+
+
+def top_of_a_live_run(Dampr, DocFreq, settings, corpus, chunk, workdir):
+    """``cli top --once --json`` (in this process) against the metrics
+    endpoint of a TF-IDF run in flight on the card: the run's rank row,
+    alive, naming the run."""
+    import contextlib
+    import io
+    import socket
+    import threading
+
+    from dampr_tpu_torch import cli
+    from dampr_tpu_torch.obs import top
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    old = settings.metrics_port
+    settings.metrics_port = port
+    errors = []
+
+    def run():
+        try:
+            tfidf_pipeline(Dampr, DocFreq, corpus, chunk, os.path.join(
+                workdir, "idf-top")).run(name="chip-top")
+        except Exception as e:  # reported after the join
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    try:
+        # until the endpoint answers with a sampled stage gauge
+        live = False
+        deadline = time.time() + 120
+        while t.is_alive() and time.time() < deadline and not live:
+            snap = top.scrape(port, timeout=0.5)
+            live = "dampr_tpu_run_stage" in snap["metrics"]
+            if not live:
+                time.sleep(0.02)
+        check(live, "tooling: the TF-IDF run never served its gauges")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["top", "--ports", str(port), "--once", "--json"])
+    finally:
+        t.join(600)
+        settings.metrics_port = old
+    check(not t.is_alive() and not errors,
+          "tooling: the top run failed: {!r}".format(errors))
+    doc = json.loads(buf.getvalue())
+    row = doc["ranks"][0]
+    check(rc == 0 and row["alive"] and row["run"] == "chip-top"
+          and row.get("stage") is not None,
+          "tooling: top --once --json read no live rank: {}".format(doc))
+    return row
+
+
+def phase_tooling(Dampr, DocFreq, settings, workdir, corpus, mb, chunk):
+    """The port's tools on the card (:mod:`dampr_tpu_torch.cli`):
+
+    (a) ``python -m dampr_tpu_torch.cli bench`` in its own process on the
+        card, traced, with autotune on and :data:`TOOLING_TRIALS` trials,
+        over this script's corpus (made by the bench's generator and
+        seed, linked where the bench looks for it): its own exact check
+        against the single-core baseline passes, the line has a lowered
+        stage and a handoff edge, every trial is byte-identical,
+        ``tools/check_bench.py`` accepts the line, and the winning run's
+        ``stats.json`` shows K1, K2 and B4 launched;
+    (b) over those runs: ``stats --series --prom --log``, ``doctor --json``
+        (valid against ``docs/doctor_schema.json``) and ``history``, each
+        exit 0 with output, and ``sentry --strict``, whose exit must be
+        its verdict: 2 exactly when ``sentry.detect`` finds a regression
+        in the bench's four points (a three-point baseline can have a
+        MAD near 0, so a trial's noise can be a finding), else 0;
+    (c) ``top --once --json`` against the metrics endpoint of a TF-IDF run
+        in flight on the card.
+
+    Prints one ``tooling`` JSON line and returns the winning run's
+    launches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    bench_dir = os.path.join(workdir, "bench")
+    os.makedirs(bench_dir)
+    os.link(corpus, os.path.join(bench_dir, "corpus_{}mb.txt".format(mb)))
+    scratch = os.path.join(workdir, "tool-scratch")
+    env = tool_env(settings, scratch, DAMPR_BENCH_DIR=bench_dir,
+                   DAMPR_BENCH_MB=str(mb), DAMPR_TPU_TORCH_TRACE="1",
+                   DAMPR_TPU_TORCH_AUTOTUNE="on",
+                   DAMPR_TPU_TORCH_AUTOTUNE_TRIALS=str(TOOLING_TRIALS))
+    rc, out, err, bench_s = run_tools(env, {"bench": ["bench"]},
+                                      900)["bench"]
+    check(rc == 0, "tooling: the bench exited {}: {}".format(rc, err[-3000:]))
+    check("match baseline exactly" in err,
+          "tooling: the bench's exact check did not run")
+    rec = json.loads(out.strip().splitlines()[-1])
+    check(rec["device_stages"] >= 1 and rec["handoff_edges"] >= 1,
+          "tooling: the bench ran no lowered stage or no handoff edge: "
+          "{}".format(rec))
+    tune = rec["autotune"]
+    check(tune["byte_identical"] and len(tune["trials"]) == TOOLING_TRIALS,
+          "tooling: autotune trials not all byte-identical: {}".format(tune))
+    line_path = os.path.join(workdir, "bench-line.json")
+    with open(line_path, "w") as f:
+        json.dump(rec, f)
+    cb = subprocess.run([sys.executable, os.path.join(root, "tools",
+                                                      "check_bench.py"),
+                         line_path, "--strict"], capture_output=True,
+                        text=True, timeout=120)
+    check(cb.returncode == 0, "tooling: check_bench refused the line: "
+          "{}".format(cb.stdout + cb.stderr))
+    with open(rec["stats_file"]) as f:
+        winner = json.load(f)
+    launches = dict(winner["device"]["kernels"])
+    for name in ("fnv", "segfold", "handoff"):
+        check(launches.get(name, 0) > 0, "tooling: kernel {} not launched "
+              "in the winning run".format(name))
+
+    stats_file = rec["stats_file"]
+    calls = {"stats": ["stats", stats_file, "--series", "--prom", "--log"],
+             "doctor": ["doctor", stats_file, "--json"],
+             "history": ["history"],
+             "history-run": ["history", "bench-tfidf"],
+             "sentry": ["sentry", "bench-tfidf", "--strict"]}
+    tools = {}
+    for what, (rc, out, err, secs) in run_tools(env, calls, 300).items():
+        argv = calls[what]
+        # the sentry's strict exit is its verdict on the bench's points:
+        # 2 exactly when this process's detect() finds a regression there
+        want = sentry_verdict(settings, scratch) if what == "sentry" else 0
+        check(rc == want and out.strip(), "tooling: {} exited {} (wanted "
+              "{}; {} bytes out): {}".format(" ".join(argv), rc, want,
+                                             len(out), err[-2000:]))
+        tools[what] = {"seconds": secs, "stdout_bytes": len(out),
+                       "exit": rc}
+        if what == "doctor":
+            report = json.loads(out)
+            report_path = os.path.join(workdir, "doctor.json")
+            with open(report_path, "w") as f:
+                f.write(out)
+            vd = subprocess.run(
+                [sys.executable, os.path.join(root, "tools",
+                                              "validate_doctor.py"),
+                 report_path, "--no-settings"], capture_output=True,
+                text=True, timeout=120)
+            check(vd.returncode == 0, "tooling: the doctor's report is "
+                  "not valid: {}".format(vd.stdout + vd.stderr))
+            top_finding = (report["findings"] or [{}])[0]
+        if what == "stats":
+            check("# TYPE dampr_tpu_" in out and "series" in out,
+                  "tooling: stats printed no exposition or series")
+        if what == "sentry":
+            sentry_out = out.strip().splitlines()
+    row = top_of_a_live_run(Dampr, DocFreq, settings, corpus, chunk,
+                            workdir)
+    log("tooling " + json.dumps({
+        "bench_seconds": bench_s, "value_mb_per_s": rec["value"],
+        "vs_baseline": rec["vs_baseline"],
+        "device_fraction": rec["device_fraction"],
+        "handoff_edges": rec["handoff_edges"],
+        "n_partitions": rec["n_partitions"],
+        "autotune": {"winner": tune["winner"],
+                     "improvement": tune["improvement"],
+                     "trials": [{k: t.get(k) for k in (
+                         "trial", "knobs", "wall_seconds", "mbps",
+                         "byte_identical")} for t in tune["trials"]]},
+        "winner_launches": launches,
+        "doctor": {"bottleneck": report["bottleneck"],
+                   "top_finding": {k: top_finding.get(k) for k in (
+                       "stage", "bottleneck", "severity",
+                       "impact_seconds", "evidence")}},
+        "sentry": sentry_out, "tools": tools,
+        "top": {k: row.get(k) for k in ("run", "alive", "stage",
+                                        "jobs_done", "store_bytes")}}))
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mb", type=int, default=128,
@@ -3834,7 +4077,8 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ws-mb", type=int, default=32,
                     help="corpus size for the word_stats phase")
-    ap.add_argument("--ooc-mb", type=int, default=256,
+    # 128 (cut from 256 when the tooling phase came: the script's time)
+    ap.add_argument("--ooc-mb", type=int, default=128,
                     help="record file size (MiB) of the ooc phase's external "
                          "sort; its budgets, chunks and the fold and join "
                          "inputs scale with it")
@@ -4201,6 +4445,14 @@ def main(argv=None):
             "incremental runs exact; a cancelled worker's context gone; "
             "the daemon never on the card; in {:.3f} s".format(
                 time.perf_counter() - t0))
+
+        # -- the tools: bench, stats, doctor, history, sentry, top --------
+        t0 = time.perf_counter()
+        tooling_launches = phase_tooling(Dampr, DocFreq, settings, workdir,
+                                         corpus, args.mb, chunk)
+        log("phase tooling: the bench exact on the card with autotune, "
+            "its runs read by stats, doctor, history and sentry; top read "
+            "a live run; in {:.3f} s".format(time.perf_counter() - t0))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4226,6 +4478,7 @@ def main(argv=None):
             "launches_adapt": adapt_launches[name],
             "launches_faults": faults_launches[name],
             "launches_serve": serve_launches.get(name, 0),
+            "launches_tooling": tooling_launches[name],
             "max_abs_err": err[name], "ms": main_t["ms"],
             "device_ms": main_t["device_ms"], "host_ms": main_t["host_ms"],
             "profiler_ms": main_t["profiler_ms"],
@@ -4259,6 +4512,7 @@ def main(argv=None):
         "launches_adapt": adapt_launches["handoff"],
         "launches_faults": faults_launches["handoff"],
         "launches_serve": serve_launches.get("handoff", 0),
+        "launches_tooling": tooling_launches["handoff"],
         "max_abs_err": err["handoff"], "ms": ht["ms"],
         "device_ms": ht["device_ms"], "host_ms": ht["host_ms"],
         "profiler_ms": ht["profiler_ms"], "plain_ms": ht["plain"]["ms"],

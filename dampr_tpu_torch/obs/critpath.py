@@ -42,6 +42,8 @@ runs).  One device: the ``mesh`` and ``skew`` verdicts of the JAX
 package's fleet never occur.
 """
 
+import json
+import os
 import re
 
 from ..ops.devtime import union_seconds
@@ -265,3 +267,30 @@ def from_summary_only(summary):
                 "attributed_fraction": attributed,
                 "seconds": round(wall, 4)},
     }
+
+
+def from_run(run):
+    """A run name, run directory or stats path resolved to (critpath
+    section, summary): the summary's own section, else one recomputed
+    from the persisted trace.json beside it.  (None, None) when no stats
+    exist."""
+    from . import export
+
+    summary, path = export.load_stats(run)
+    if summary is None:
+        return None, None
+    section = summary.get("critpath")
+    if section:
+        return section, summary
+    events = ()
+    tf = summary.get("trace_file")
+    if not tf or not os.path.isfile(tf):
+        cand = os.path.join(os.path.dirname(path), "trace.json")
+        tf = cand if os.path.isfile(cand) else None
+    if tf:
+        try:
+            with open(tf) as f:
+                events = json.load(f).get("traceEvents") or ()
+        except (OSError, ValueError):
+            events = ()
+    return analyze(summary, events), summary

@@ -148,6 +148,101 @@ def load_stats(run):
         return json.load(f), path
 
 
+def load_series(trace_path):
+    """The counter events (``"ph":"C"``) of a persisted trace.json or
+    crashdump.json, read back as ``{series: [(ts_seconds, value)]}``,
+    each series in time order: the inverse of :func:`counter_events`,
+    for the stats CLI's ``--series``."""
+    with open(trace_path) as f:
+        doc = json.load(f)
+    series = {}
+    for ev in doc.get("traceEvents", ()):
+        if ev.get("ph") != "C":
+            continue
+        v = (ev.get("args") or {}).get("value")
+        if not isinstance(v, (int, float)) or isinstance(v, bool):
+            continue
+        series.setdefault(ev.get("name", "?"), []).append(
+            (float(ev.get("ts", 0)) / 1e6, v))
+    for s in series.values():
+        s.sort(key=lambda tv: tv[0])
+    return series
+
+
+_SPARK = "\u2581\u2582\u2583\u2584\u2585\u2586\u2587\u2588"
+
+
+def _sparkline(values, width=24):
+    if not values:
+        return ""
+    if len(values) > width:
+        # strided downsample keeping the first and the last
+        idx = [i * (len(values) - 1) // (width - 1) for i in range(width)]
+        values = [values[i] for i in idx]
+    lo, hi = min(values), max(values)
+    if hi <= lo:
+        return _SPARK[0] * len(values)
+    return "".join(_SPARK[int((v - lo) / (hi - lo) * (len(_SPARK) - 1))]
+                   for v in values)
+
+
+def format_series(series):
+    """The ``--series`` table: per series its sample count, min, mean,
+    max and last value, and a sparkline of its history."""
+    if not series:
+        return ("no counter samples in this trace (metrics plane off — "
+                "enable with settings.metrics_interval_ms / "
+                "DAMPR_TPU_TORCH_METRICS_MS)")
+    lines = []
+    name_w = max(len(n) for n in series)
+    lines.append("{:<{w}} {:>7} {:>12} {:>12} {:>12} {:>12}  {}".format(
+        "series", "samples", "min", "mean", "max", "last", "history",
+        w=name_w))
+    for name in sorted(series):
+        vals = [v for _t, v in series[name]]
+        lines.append(
+            "{:<{w}} {:>7} {:>12.6g} {:>12.6g} {:>12.6g} {:>12.6g}  {}"
+            .format(name, len(vals), min(vals), sum(vals) / len(vals),
+                    max(vals), vals[-1], _sparkline(vals), w=name_w))
+    return "\n".join(lines)
+
+
+def format_pipeline_series(summary):
+    """The streamed-edge view of ``--series``: per stage the queue depth
+    over time (``stats()["pipeline"]["queue_depth_series"]``), the
+    pipeline's overlap and stall line, and the overlap executor's
+    windows.  "" when the run streamed nothing."""
+    pipe = summary.get("pipeline") or {}
+    series = pipe.get("queue_depth_series") or []
+    lines = []
+    if series:
+        by_sid = {}
+        for sid, _t, nbytes in series:
+            by_sid.setdefault(sid, []).append(nbytes)
+        lines.append("streamed-edge queue depth (bytes):")
+        for sid in sorted(by_sid):
+            vals = by_sid[sid]
+            lines.append(
+                "  stage {:<3} {:>9} peak {:>9} last  {}".format(
+                    sid, _mb(max(vals)), _mb(vals[-1]),
+                    _sparkline(vals)))
+    if pipe.get("executed") or pipe.get("degraded"):
+        lines.append(
+            "pipeline: executed={} degraded={} overlap={:.2f}s "
+            "({:.0%} of fold) stall={:.2f}s queue_peak={}".format(
+                pipe.get("executed", 0), pipe.get("degraded", 0),
+                pipe.get("overlap_seconds", 0.0),
+                pipe.get("overlap_fraction", 0.0),
+                pipe.get("stall_seconds", 0.0),
+                _mb(pipe.get("queue_peak_bytes", 0))))
+    ov = summary.get("overlap") or {}
+    if ov.get("windows"):
+        lines.append(
+            "overlap: windows={} stall_fraction={:.3f}".format(
+                ov.get("windows", 0), ov.get("stall_fraction", 0.0)))
+    return "\n".join(lines)
+
+
 def _mb(n):
     return "{:.1f} MB".format(n / 1e6)
 

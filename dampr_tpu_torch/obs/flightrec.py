@@ -233,12 +233,16 @@ def clear_stale(run_name):
 
 def locate_crashdump(run_or_dir):
     """Resolve a run name / run directory / file path to an existing
-    crashdump, or None."""
+    crashdump, or None.  A file path is a dump itself, or an artifact
+    (``stats.json``) whose directory may hold one."""
     from . import export as _export
 
     cands = []
     if os.path.isfile(run_or_dir):
-        cands.append(run_or_dir)
+        if os.path.basename(run_or_dir).startswith("crashdump"):
+            cands.append(run_or_dir)
+        cands.append(os.path.join(os.path.dirname(os.path.abspath(
+            run_or_dir)), CRASHDUMP_FILE))
     if os.path.isdir(run_or_dir):
         cands.append(os.path.join(run_or_dir, CRASHDUMP_FILE))
         cands.append(os.path.join(run_or_dir, "trace", CRASHDUMP_FILE))

@@ -2,9 +2,9 @@
 
 Port of ``dampr_tpu/obs/history.py`` (the record schema, the append and
 compaction discipline, the tolerant reader, shape matching, the median
-synthesis and ``vacuum``; the ``dampr-tpu-history`` CLI waits for the
-port's ``cli``).  Every finalized, named run appends one line to a
-bounded JSONL index beside its scratch outputs::
+synthesis, ``vacuum`` and the corpus CLI, ``python -m
+dampr_tpu_torch.cli history``).  Every finalized, named run appends one
+line to a bounded JSONL index beside its scratch outputs::
 
     <settings.scratch_root>/<run>/history.jsonl    # history_entries cap
 
@@ -71,16 +71,25 @@ _CONSTANT_KNOBS = {
 }
 
 
-def knob_value(knob):
-    """This process's value of a performance knob: the setting, or the
-    module constant the port keeps it as, or None when the port has no
-    such knob."""
+def knob_home(knob):
+    """(object, attribute) holding a performance knob in this process:
+    the settings module, or the module the port keeps it in as a
+    constant; None when the port has no such knob."""
     where = _CONSTANT_KNOBS.get(knob)
     if where is not None:
         mod = importlib.import_module(
             "{}.{}".format(__package__.rsplit(".", 1)[0], where[0]))
-        return getattr(mod, where[1])
-    return getattr(settings, knob, None)
+        return mod, where[1]
+    if hasattr(settings, knob):
+        return settings, knob
+    return None
+
+
+def knob_value(knob):
+    """This process's value of a performance knob, or None when the port
+    has no such knob."""
+    home = knob_home(knob)
+    return getattr(*home) if home is not None else None
 
 
 def schema_version(rec):
@@ -387,3 +396,129 @@ def vacuum(path, cap=None):
                 f.write("\n")
         os.replace(tmp, path)
     return (len(recs), len(lines) - len(recs))
+
+
+# -- the corpus CLI (``python -m dampr_tpu_torch.cli history``) -------------
+
+def _iter_corpora():
+    """Every (run name, corpus path) under the scratch root."""
+    root = settings.scratch_root
+    try:
+        names = sorted(os.listdir(root))
+    except OSError:
+        return
+    for name in names:
+        path = os.path.join(root, name, FILE)
+        if os.path.isfile(path):
+            yield name, path
+
+
+def _fmt_record(rec):
+    tp = rec.get("throughput") or {}
+    return "  {ts:<20} v{v} fp={fp} wall={wall} mbps={mbps}{rank}".format(
+        ts=str(rec.get("ts", "?"))[:20], v=rec.get("v", "?"),
+        fp=rec.get("fingerprint", "?"),
+        wall=("{:.2f}s".format(rec["wall_seconds"])
+              if isinstance(rec.get("wall_seconds"), (int, float))
+              else "?"),
+        mbps=tp.get("mbps", "?"),
+        rank=(" rank={}".format(rec["rank"]) if rec.get("rank") else ""))
+
+
+def main(argv=None):
+    """Inspect and maintain run-history corpora.
+
+    With no run name, lists every corpus under the scratch root; with
+    one, lists its records (newest last), ``--fingerprint`` keeping one
+    plan shape.  ``--gc`` compacts to the retention cap; ``--vacuum``
+    also drops invalid lines and rewrites old-schema records at the
+    current version.  Exit 1 when the named run has no corpus.
+    """
+    import argparse
+
+    p = argparse.ArgumentParser(
+        prog="dampr_tpu_torch.cli history",
+        description="inspect / maintain dampr_tpu_torch run-history "
+                    "corpora")
+    p.add_argument("run", nargs="?", help="run name (default: list all)")
+    p.add_argument("--list", action="store_true",
+                   help="list corpora under the scratch root")
+    p.add_argument("--fingerprint", metavar="F",
+                   help="only records with this plan fingerprint")
+    p.add_argument("--gc", action="store_true",
+                   help="compact to the newest history_entries records")
+    p.add_argument("--vacuum", action="store_true",
+                   help="gc + drop invalid lines + upgrade old records "
+                        "on disk")
+    p.add_argument("--json", action="store_true", help="machine output")
+    args = p.parse_args(argv)
+
+    if args.run:
+        targets = [(args.run, corpus_path(args.run))]
+        if not os.path.isfile(targets[0][1]):
+            print("no history corpus for run {!r} under {}".format(
+                args.run, settings.scratch_root))
+            return 1
+    else:
+        targets = list(_iter_corpora())
+
+    if args.vacuum or args.gc:
+        report = []
+        for name, path in targets:
+            if args.vacuum:
+                kept, dropped = vacuum(path)
+            else:
+                with _append_lock:
+                    _compact_if_over(path)
+                with open(path, encoding="utf-8", errors="replace") as f:
+                    kept = sum(1 for ln in f if _valid_line(ln) is not None)
+                dropped = 0
+            report.append({"run": name, "path": path,
+                           "kept": kept, "dropped": dropped})
+        if args.json:
+            print(json.dumps(report, indent=2, sort_keys=True))
+        else:
+            for r in report:
+                print("{run}: kept {kept} record(s), dropped {dropped} "
+                      "({path})".format(**r))
+        return 0
+
+    if args.run:
+        recs = load(args.run)
+        if args.fingerprint:
+            recs = [r for r in recs
+                    if r.get("fingerprint") == args.fingerprint]
+        if args.json:
+            print(json.dumps(recs, indent=2, sort_keys=True, default=str))
+        else:
+            print("{} — {} record(s)".format(args.run, len(recs)))
+            for rec in recs:
+                print(_fmt_record(rec))
+        return 0
+
+    rows = []
+    for name, path in targets:
+        recs = load(name)
+        fps = sorted({r.get("fingerprint") for r in recs
+                      if r.get("fingerprint")})
+        rows.append({"run": name, "records": len(recs),
+                     "fingerprints": fps,
+                     "newest": recs[-1].get("ts") if recs else None,
+                     "path": path})
+    if args.json:
+        print(json.dumps(rows, indent=2, sort_keys=True, default=str))
+    else:
+        if not rows:
+            print("no history corpora under {}".format(
+                settings.scratch_root))
+        for r in rows:
+            print("{run:<24} {records:>4} record(s)  {nfp} plan shape(s)"
+                  "  newest={newest}".format(
+                      nfp=len(r["fingerprints"]), **r))
+    return 0
+
+
+if __name__ == "__main__":
+    import sys as _sys
+
+    _sys.exit(main())

@@ -76,6 +76,9 @@ EVENT_CODES = {
                              "endpoint bound the next free port",
     "metrics-bind-failed": "no /metrics port could be bound; the endpoint "
                            "is disabled for this run",
+    # -- telemetry plane -----------------------------------------------------
+    "sentry-regression": "the regression sentry flagged a metric against "
+                         "its per-fingerprint baseline window",
     # -- serve daemon (dampr_tpu_torch.serve) --------------------------------
     "serve-submit": "the serve daemon received a submission from a tenant",
     "serve-admit": "a submission passed the admission gate and reserved "

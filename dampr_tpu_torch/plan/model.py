@@ -59,19 +59,19 @@ KNOB_BOUNDS = {
     "shuffle_target": ("host", "mesh"),
 }
 
-#: The JAX package's env var per knob, kept so a choice names the same
-#: variable there and here (the vector an autotune loop exports to its
-#: trials; the port's settings read none of them yet).
+#: The environment variable the port reads each knob from at import (the
+#: vector an autotune session exports to its subprocess trials; a
+#: choice's ``env`` names it).  The exchange knobs wait for a mesh.
 ENV_OF = {
     "n_partitions": None,
     "batch_size": None,
-    "merge_fanin": "DAMPR_TPU_MERGE_FANIN",
-    "overlap_windows": "DAMPR_TPU_OVERLAP_WINDOWS",
-    "spill_write_threads": "DAMPR_TPU_SPILL_WRITERS",
-    "spill_read_prefetch": "DAMPR_TPU_SPILL_PREFETCH",
-    "exchange_hbm_budget": "DAMPR_TPU_EXCHANGE_HBM",
-    "exchange_chunk_bytes": "DAMPR_TPU_EXCHANGE_CHUNK",
-    "spill_codec": "DAMPR_TPU_SPILL_CODEC",
+    "merge_fanin": "DAMPR_TPU_TORCH_MERGE_FANIN",
+    "overlap_windows": "DAMPR_TPU_TORCH_OVERLAP_WINDOWS",
+    "spill_write_threads": "DAMPR_TPU_TORCH_SPILL_WRITERS",
+    "spill_read_prefetch": "DAMPR_TPU_TORCH_SPILL_PREFETCH",
+    "exchange_hbm_budget": None,
+    "exchange_chunk_bytes": None,
+    "spill_codec": "DAMPR_TPU_TORCH_SPILL_CODEC",
 }
 
 #: Run-level knobs whose effect the per-stage regressors cannot model:

@@ -176,7 +176,7 @@ SMALL_STAGE_BYTES = 4 * 1024 * 1024
 #: this many blocks ahead of the fold/register loop, every block in
 #: flight charged to the memory budget (``RunStore.reserve_overlap``).
 #: 0 runs both on the job thread.
-OVERLAP_WINDOWS = 2
+OVERLAP_WINDOWS = int(os.environ.get("DAMPR_TPU_TORCH_OVERLAP_WINDOWS", "2"))
 
 #: Seconds the consumer waits for a stopped overlap producer to exit
 #: before the run fails.
@@ -3357,4 +3357,30 @@ class MTRunner(object):
             # would mislead the next run's sizing)
             from .obs import history as _history
 
-            _history.append(summary)
+            hpath = _history.append(summary)
+            if hpath and settings.sentry_window > 0:
+                self._sentry_check(summary)
+
+    def _sentry_check(self, summary):
+        """Fold the finalized run into its telemetry series and ask the
+        sentry whether the newest point regressed against the points
+        before it.  Warn-only: the findings land in ``summary["sentry"]``
+        and as ``sentry-regression`` events, and a run never fails on its
+        own telemetry."""
+        try:
+            from .obs import sentry as _sentry
+            from .obs import timeseries as _timeseries
+
+            _timeseries.append_from_summary(summary)
+            findings = _sentry.check_run(self.name, summary=summary)
+            if findings:
+                summary["sentry"] = findings
+                if self.logstream is not None:
+                    for f in findings:
+                        self.logstream.emit(
+                            "warn", "sentry-regression",
+                            "{metric} regressed: {value:g} vs baseline "
+                            "median {median:g} (z={z:.1f}, window={window})"
+                            .format(**f), data=f)
+        except Exception:
+            log.warning("telemetry sentry failed", exc_info=True)

@@ -46,12 +46,13 @@ streaming_reduce_threshold = None
 #: runs merge in streamed file -> file generations until the count fits.
 #: The planner also clamps it so one window (plus its readahead) per run
 #: fits the memory budget.
-merge_fanin = 512
+merge_fanin = int(os.environ.get("DAMPR_TPU_TORCH_MERGE_FANIN", "512"))
 
 #: Background spill writer threads (:class:`.io.writer.SpillWriterPool`):
 #: spills queue onto them, so a registering job does not wait on the
 #: codec and the disk.  0 = synchronous spills on the registering thread.
-spill_write_threads = 2
+spill_write_threads = int(os.environ.get("DAMPR_TPU_TORCH_SPILL_WRITERS",
+                                         "2"))
 
 #: The torch device of every device stage and kernel launch.
 device = os.environ.get("DAMPR_TPU_TORCH_DEVICE", "cuda")
@@ -131,7 +132,7 @@ def lower_forced():
 #: oldest device refs offload to host (the first spill step, before
 #: disk).  "auto" is 1 GiB when :data:`device` is CUDA and 0 on the CPU;
 #: 0 disables the tier.
-hbm_budget = "auto"
+hbm_budget = os.environ.get("DAMPR_TPU_TORCH_HBM_BUDGET", "auto")
 
 
 def effective_hbm_budget():
@@ -149,7 +150,7 @@ def effective_hbm_budget():
 #: force it; "auto" follows lowering where the HBM tier has a budget or
 #: lowering was forced (on the CPU device memory is host memory), but an
 #: explicit ``hbm_budget = 0`` declines it.
-handoff = "auto"
+handoff = os.environ.get("DAMPR_TPU_TORCH_HANDOFF", "auto")
 
 
 def handoff_forced():
@@ -239,6 +240,25 @@ def cost_model_enabled():
     return str(cost_model).lower() not in ("0", "false", "no", "off")
 
 
+#: Closed-loop autotuning for the bench (:mod:`.obs.autotune`): "on"
+#: turns the bench's warm trials into an in-process session that re-runs
+#: the pipeline under model- and playbook-suggested knob vectors, keeps
+#: the fastest byte-identical one and persists it (``tuned.json`` plus
+#: the winner run's corpus record).  The subprocess form is ``python -m
+#: dampr_tpu_torch.cli doctor RUN --autotune -- CMD ...``.  "off" runs
+#: one configuration.
+autotune = os.environ.get("DAMPR_TPU_TORCH_AUTOTUNE", "off")
+
+
+def autotune_enabled():
+    return str(autotune).lower() in ("on", "1", "true", "yes")
+
+
+#: Measured executions one autotune session may run, trial 0 (the
+#: incoming configuration) included.
+autotune_trials = int(os.environ.get("DAMPR_TPU_TORCH_AUTOTUNE_TRIALS",
+                                     "4"))
+
 #: Measurements an operator class needs before its fit takes part.
 cost_model_min_points = 3
 
@@ -251,7 +271,7 @@ cost_model_margin = 0.02
 #: of map -> keyed sum/min/max, unfused map -> map chains); "off" runs
 #: every stage behind its barrier.  Results are equal either way, and the
 #: decisions are reported in both modes.
-pipeline = "auto"
+pipeline = os.environ.get("DAMPR_TPU_TORCH_PIPELINE", "auto")
 
 
 def pipeline_enabled():
@@ -260,7 +280,8 @@ def pipeline_enabled():
 
 #: Bytes of finished map output an early-fold queue may hold before the
 #: publishing thread waits; 0 = a quarter of the run's memory budget.
-pipeline_queue_bytes = 0
+pipeline_queue_bytes = int(os.environ.get("DAMPR_TPU_TORCH_PIPELINE_QUEUE",
+                                          "0"))
 
 
 #: When set, every run is wrapped in ``torch.profiler.profile`` (CPU
@@ -319,6 +340,22 @@ def effective_log_level():
     return ""
 
 
+#: Regression sentry (:mod:`.obs.sentry`): how many earlier points of the
+#: same plan fingerprint the newest telemetry point is judged against
+#: (at least 3 needed).  0 turns the finalize-time check off (the sentry
+#: CLI still works with an explicit ``--window``).
+sentry_window = int(os.environ.get("DAMPR_TPU_TORCH_SENTRY_WINDOW", "8"))
+
+#: Robust z-score past which the sentry flags a metric: its distance from
+#: the window's median in scaled MADs, in the metric's bad direction.
+sentry_mad_threshold = float(os.environ.get("DAMPR_TPU_TORCH_SENTRY_MAD",
+                                            "3.5"))
+
+#: Refresh interval (ms) of the live dashboard (:mod:`.obs.top`).
+top_refresh_ms = int(os.environ.get("DAMPR_TPU_TORCH_TOP_REFRESH_MS",
+                                    "1000"))
+
+
 # -- faults, retries and resume (:mod:`.faults`, :mod:`.resume`) -----------
 
 #: Per-job retry budget: a failing map, reduce or sink job re-executes up
@@ -327,22 +364,24 @@ def effective_log_level():
 #: (flaky I/O) back off exponentially with jitter, deterministic ones
 #: retry at once, fatal ones (``MemoryError``, kills) never.  0 = fail
 #: fast.
-job_retries = 0
+job_retries = int(os.environ.get("DAMPR_TPU_TORCH_JOB_RETRIES", "0"))
 
 #: In-place retry budget for transient spill I/O (frame writes and reads,
 #: checkpoint persistence), absorbed inside the I/O layer.
-io_retries = 2
+io_retries = int(os.environ.get("DAMPR_TPU_TORCH_IO_RETRIES", "2"))
 
 #: Base and cap (ms) of the full-jitter exponential backoff: each delay is
 #: uniform over [0, min(cap, base * 2^attempt)].
-retry_backoff_ms = 50
+retry_backoff_ms = int(os.environ.get("DAMPR_TPU_TORCH_RETRY_BACKOFF_MS",
+                                      "50"))
 retry_backoff_max_ms = 5000
 
 #: Poison-record quarantine budget: > 0 bisects a deterministically
 #: failing batch on the batched record path and lands up to this many
 #: offending records in ``<scratch_root>/<run>/quarantine.jsonl`` instead
 #: of failing the run.  0 = fail fast.
-max_quarantined = 0
+max_quarantined = int(os.environ.get("DAMPR_TPU_TORCH_MAX_QUARANTINED",
+                                     "0"))
 
 #: Whole-run retry budget of ``run(resume="auto")``: a failed run
 #: re-executes from its last durable checkpoint up to this many times.

@@ -389,11 +389,12 @@ SPILL_WINDOW = 16384
 
 #: Codec of blocks with an object lane: the best one importable here
 #: (zstd, then lz4, then zlib at :data:`COMPRESS_LEVEL`).
-SPILL_CODEC = "auto"
+SPILL_CODEC = os.environ.get("DAMPR_TPU_TORCH_SPILL_CODEC", "auto")
 COMPRESS_LEVEL = 1
 
 #: Frames in flight per spilled-block reader on the shared read executor.
-SPILL_READ_PREFETCH = 2
+SPILL_READ_PREFETCH = int(os.environ.get("DAMPR_TPU_TORCH_SPILL_PREFETCH",
+                                         "2"))
 
 
 def _spill_codec(key_dtype, value_dtype):
