@@ -182,7 +182,19 @@ the kernels build for sm_90a).  Phases, each of which must pass:
     ``faults-resume-again``), ``resume="auto"`` through a transient fault
     (``faults-auto``) and the cost of checkpointing (``faults-cost``),
     every sink line equal to the oracle;
-17. ``serve``, the serve daemon and the cross-run cache
+17. ``mesh``, the mesh in one process (:func:`phase_mesh`) on 4 shards
+    of the card (``settings.mesh_devices = "cuda:0*4"``): TF-IDF with
+    ``mesh_fold = "on"`` (sink lines equal the ``tfidf`` phase's, 4
+    devices in ``stats()["mesh"]``, K2 launched in the fold) and at D = 1
+    (over every card too where more than one is visible); the keyed fold
+    (B7) of the corpus's DocFreq lanes at the default capacity and at
+    1/1000 (the retry runs), exact against the D = 1 fold and the
+    oracle; a non-associative group_by, an inner and a left join and a
+    sort_by over the 16 MB head through the byte exchange (B8), each
+    equal to its mesh-off run, once more under a 256 KiB budget; the
+    rings (B9) and 20 SGD steps (B10) at D = 4 against plain torch and
+    D = 1; one ``mesh-programs`` line (B7-B10 timed, launches, bounds);
+18. ``serve``, the serve daemon and the cross-run cache
     (:func:`phase_serve`): ``python -m dampr_tpu_torch.serve.daemon`` as
     its own process (2 worker slots, its own scratch root and cache
     directory), each job in a worker process on the card, one ``serve``
@@ -199,7 +211,7 @@ the kernels build for sm_90a).  Phases, each of which must pass:
     ``serve-metrics`` and ``serve-overhead`` (the worker's start-up);
     the daemon's pid never holds a CUDA context
     (``nvidia-smi --query-compute-apps``, polled through the phase);
-18. ``tooling``, the port's tools (:func:`phase_tooling`): ``python -m
+19. ``tooling``, the port's tools (:func:`phase_tooling`): ``python -m
     dampr_tpu_torch.cli bench`` in its own process on the card, traced,
     with autotune on and 3 trials, over the ``--mb`` corpus: its exact
     check against the single-core baseline, a lowered stage and a handoff
@@ -388,21 +400,69 @@ def make_corpus(path, mb, seed):
     return written
 
 
-def oracle(path):
-    """Pure-Python token counts, document frequencies (per line), the line
-    count, and the ``split()`` word counts ``examples/wc.py`` computes."""
+def _oracle_range(path, start, stop):
+    """:func:`oracle` over the whole lines of bytes ``[start, stop)``."""
+    import io
+
     rx = re.compile(r"[^\w]+")
     tc = collections.Counter()
     df = collections.Counter()
     wc = collections.Counter()
     n_lines = 0
-    with open(path) as f:
-        for line in f:
-            toks = [t for t in rx.split(line.rstrip("\n").lower()) if t]
-            tc.update(toks)
-            df.update(set(toks))
-            wc.update(line.split())
-            n_lines += 1
+    with open(path, "rb") as f:
+        f.seek(start)
+        data = f.read(stop - start)
+    for line in io.StringIO(data.decode("utf-8"), newline=None):
+        toks = [t for t in rx.split(line.rstrip("\n").lower()) if t]
+        tc.update(toks)
+        df.update(set(toks))
+        wc.update(line.split())
+        n_lines += 1
+    return tc, df, n_lines, wc
+
+
+#: Processes computing one oracle, each over its share of the lines.
+ORACLE_WORKERS = 8
+
+
+def oracle(path):
+    """Pure-Python token counts, document frequencies (per line), the line
+    count, and the ``split()`` word counts ``examples/wc.py`` computes:
+    the lines cut into :data:`ORACLE_WORKERS` ranges at line ends, each
+    counted by a fresh interpreter of its own (all started at once; none
+    inherits this process's CUDA context), the counts summed."""
+    import pickle
+
+    size = os.path.getsize(path)
+    cuts = [0]
+    with open(path, "rb") as f:
+        for i in range(1, ORACLE_WORKERS):
+            f.seek(max(cuts[-1], i * size // ORACLE_WORKERS))
+            f.readline()
+            cuts.append(min(size, f.tell()))
+    cuts.append(size)
+    spans = [(a, b) for a, b in zip(cuts, cuts[1:]) if b > a]
+    if len(spans) < 2 or size < (1 << 20):
+        return _oracle_range(path, 0, size)
+    code = ("import pickle, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; pickle.dump(chip_smoke._oracle_range("
+            "sys.argv[2], int(sys.argv[3]), int(sys.argv[4])), "
+            "sys.stdout.buffer)")
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, here, path, str(a), str(b)],
+        stdout=subprocess.PIPE) for a, b in spans]
+    parts = []
+    for proc in procs:
+        out, _err = proc.communicate()
+        check(proc.returncode == 0, "an oracle worker failed")
+        parts.append(pickle.loads(out))
+    tc, df, n_lines, wc = parts[0]
+    for ptc, pdf, pn, pwc in parts[1:]:
+        tc.update(ptc)
+        df.update(pdf)
+        wc.update(pwc)
+        n_lines += pn
     return tc, df, n_lines, wc
 
 
@@ -3274,6 +3334,382 @@ def phase_faults(torch, Dampr, DocFreq, settings, faults, runner_mod,
 
 
 #: A job's terminal states, as the daemon reports them.
+#: The mesh phase's rig: shards of the one card (settings.mesh_devices).
+MESH_SHARDS = 4
+MESH_DEVICE = "cuda:0"
+#: The mesh phase's exchange pipelines run over the corpus's head.
+MESH_HEAD_MB = 16
+#: A budget small enough that the exchange's schedule takes several steps.
+MESH_SMALL_HBM = 1 << 18
+MESH_RING_N = 1 << 24
+MESH_SGD_ROWS, MESH_SGD_FEATURES, MESH_SGD_STEPS = 1 << 20, 128, 20
+
+
+def docfreq_lanes(np, text, corpus, pieces=8):
+    """The DocFreq map's output lanes over the corpus, as its 8 chunk jobs
+    emit them (the host scanner): ``(h1, h2, v)`` numpy lanes."""
+    with open(corpus, "rb") as f:
+        data = f.read()
+    cuts = [0]
+    for i in range(1, pieces):
+        cuts.append(data.find(b"\n", i * len(data) // pieces) + 1)
+    cuts.append(len(data))
+    h1s, h2s, vs = [], [], []
+    for a, b in zip(cuts, cuts[1:]):
+        blk = text.chunk_doc_freq(data[a:b], "word", True, pair_values=False)
+        h1, h2 = blk.hashes()
+        h1s.append(h1)
+        h2s.append(h2)
+        vs.append(np.asarray(blk.values, dtype=np.int64))
+    return np.concatenate(h1s), np.concatenate(h2s), np.concatenate(vs)
+
+
+def fold_dict(hashing, words, fh1, fh2, fv):
+    """A keyed fold's rows as {word: value} (every row must be a word)."""
+    h1, h2 = hashing.hash_keys(list(words))
+    lookup = {(int(a), int(b)): w for w, a, b in zip(words, h1, h2)}
+    out = {}
+    for a, b, v in zip(fh1.tolist(), fh2.tolist(), fv.tolist()):
+        key = lookup.get((a, b))
+        check(key is not None and key not in out,
+              "mesh fold: a row that is no word, or a word twice")
+        out[key] = v
+    return out
+
+
+def mesh_exchange_pipes(Dampr, head, chunk, head_df):
+    """The mesh phase's exchange pipelines over the corpus's head: a
+    non-associative group_by, an inner and a left join, and a sort_by
+    (numeric keys: its read redistributes by key range)."""
+    import zlib
+
+    lines = Dampr.text(head, chunk)
+    right = Dampr.memory(sorted(head_df.items())[::3]).group_by(
+        lambda wc: wc[0])
+    first = lines.map(lambda l: (l.split(" ", 1)[0], len(l))).group_by(
+        lambda t: t[0])
+    return {
+        "group_by": lines.group_by(lambda l: len(l) % 97).reduce(
+            lambda k, vs: sorted(vs)[:2]),
+        "join": first.join(right).reduce(
+            lambda l, r: (sum(n for _w, n in l), sum(c for _w, c in r))),
+        "left_join": first.join(right).left_reduce(
+            lambda l, r: (len(list(l)), sum(c for _w, c in r))),
+        "sort_by": lines.map(lambda l: zlib.crc32(l.encode())).sort_by(
+            lambda x: x),
+    }
+
+
+def phase_mesh(torch, np, Dampr, DocFreq, settings, kernels, workdir, corpus,
+               chunk, nbytes, df, n_lines, idf_lines, head, head_df, reps):
+    """The mesh inside one process (ROADMAP A5a) on a rig of
+    :data:`MESH_SHARDS` shards of the one card (``settings.mesh_devices =
+    "cuda:0*4"``), each check against the same work at D = 1 or with the
+    mesh off:
+
+    1. TF-IDF with ``mesh_fold = "on"``: sink lines equal the ``tfidf``
+       phase's and the oracle; ``stats()["mesh"]`` has 4 devices and a
+       fold; K2 launched in the fold's stages; the same pipeline at D = 1
+       (the wall of each, launches, handoff edges); over the real cards too
+       where more than one is visible;
+    2. ``mesh_keyed_fold`` of the corpus's DocFreq lanes (its 8 chunk jobs'
+       output) at the default capacity factor and at 1/1000 (the Zipf head
+       overflows: the retry runs), each equal to the D = 1 fold and the
+       oracle;
+    3. with ``mesh_exchange = "on"`` over the :data:`MESH_HEAD_MB` MB head:
+       a non-associative group_by, an inner and a left join and a sort_by,
+       each equal to the same pipeline with the mesh off; exchanges and
+       steps counted, the peak in flight within the budget, the group_by
+       once more under :data:`MESH_SMALL_HBM` (several steps a window);
+    4. ``ring_allreduce`` (sum, max) and ``ring_allgather`` of 2^24 int64,
+       exact against ``torch.stack(...).sum(0)``/``amax``/``cat``;
+    5. ``sgd.train`` on 2^20 x 128 float32 rows, 20 steps, at D = 4
+       against D = 1 (rtol 1e-3, atol 1e-5 on ``w``, 1e-4 on the loss: the
+       JAX tests' tolerances);
+    6. one ``mesh-programs`` line: B7-B10 timed (CUDA events), their
+       launches in items 1-5, the byte bound, and a library call's time
+       where one torch call computes the same function.
+
+    Returns the rows of the programs line.  No cut."""
+    from dampr_tpu_torch.ops import hashing, text
+    from dampr_tpu_torch.parallel import exchange as px
+    from dampr_tpu_torch.parallel import mesh as pmesh
+    from dampr_tpu_torch.parallel import ring, sgd, shuffle
+
+    saved = {k: getattr(settings, k) for k in (
+        "mesh_devices", "mesh_fold", "mesh_exchange", "exchange_hbm_budget")}
+    counts0 = (shuffle.program_runs, px.total_steps, ring.calls, sgd.steps)
+    rig = "{}*{}".format(MESH_DEVICE, MESH_SHARDS)
+    try:
+        # -- 1. TF-IDF over the rig, then at D = 1 -----------------------
+        runs = {}
+        for label, devices, fold in (("mesh", rig, "on"),
+                                     ("one", None, "auto")):
+            settings.mesh_devices = devices
+            settings.mesh_fold = fold
+            out_dir = os.path.join(workdir, "mesh-idf-" + label)
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            em = tfidf_pipeline(Dampr, DocFreq, corpus, chunk, out_dir).run(
+                name="chip-mesh-" + label)
+            secs = time.perf_counter() - t0
+            stats = em.stats()
+            lines = part_lines(out_dir)
+            check(lines == idf_lines,
+                  "mesh TF-IDF ({}): sink lines differ from the tfidf "
+                  "phase's".format(label))
+            fold_k2 = sum(st["launches"]["segfold"] for st in stats["stages"]
+                          if st["kind"] == "reduce")
+            runs[label] = {
+                "run": "mesh-tfidf-" + label, "seconds": secs,
+                "mb_per_s": nbytes / 1e6 / secs, "mesh": stats["mesh"],
+                "launches": {k: kern.launches for k, kern in kernels.items()},
+                "fold_segfold_launches": fold_k2,
+                "handoff_edges": stats["device"]["handoff_edges"],
+                "mesh_folds": stats["device"]["mesh_folds"]}
+            log("mesh " + json.dumps(runs[label]))
+        check(runs["mesh"]["mesh"]["devices"] == MESH_SHARDS
+              and runs["mesh"]["mesh"]["folds"] > 0,
+              "mesh TF-IDF: the fold did not run over {} shards: {}".format(
+                  MESH_SHARDS, runs["mesh"]["mesh"]))
+        check(runs["mesh"]["fold_segfold_launches"] > 0,
+              "mesh TF-IDF: K2 never launched in the mesh fold")
+        check(part_lines(os.path.join(workdir, "mesh-idf-mesh"))
+              == tfidf_oracle_lines(df, n_lines),
+              "mesh TF-IDF: sink lines differ from the oracle")
+        for name, count in runs["mesh"]["launches"].items():
+            check(count > 0, "mesh TF-IDF: kernel {} never launched".format(
+                name))
+        if torch.cuda.device_count() > 1:
+            settings.mesh_devices = None
+            settings.mesh_fold = "on"
+            out_dir = os.path.join(workdir, "mesh-idf-cards")
+            t0 = time.perf_counter()
+            em = tfidf_pipeline(Dampr, DocFreq, corpus, chunk, out_dir).run(
+                name="chip-mesh-cards")
+            secs = time.perf_counter() - t0
+            check(part_lines(out_dir) == idf_lines,
+                  "mesh TF-IDF over the cards: sink lines differ")
+            log("mesh " + json.dumps({"run": "mesh-tfidf-cards",
+                                      "seconds": secs,
+                                      "mesh": em.stats()["mesh"]}))
+
+        # -- 2. the keyed fold of the DocFreq lanes --------------------------
+        settings.mesh_devices = rig
+        mesh = pmesh.data_mesh()
+        one = pmesh.data_mesh([MESH_DEVICE])
+        t0 = time.perf_counter()
+        h1, h2, v = docfreq_lanes(np, text, corpus)
+        lanes_s = time.perf_counter() - t0
+        words = sorted(df)
+        want = fold_dict(hashing, words, *shuffle.mesh_keyed_fold(
+            one, h1, h2, v, "sum"))
+        check(want == df, "the D = 1 fold of the DocFreq lanes differs "
+                          "from the oracle")
+        fold_rows = {}
+        for label, factor in (("default", None), ("overflow", 1e-3)):
+            r0 = shuffle.retries
+            t0 = time.perf_counter()
+            got = fold_dict(hashing, words, *shuffle.mesh_keyed_fold(
+                mesh, h1, h2, v, "sum", capacity_factor=factor))
+            fold_rows[label] = {"seconds": time.perf_counter() - t0,
+                                "retries": shuffle.retries - r0}
+            check(got == df, "mesh fold ({}) of the DocFreq lanes differs "
+                             "from the D = 1 fold and the oracle".format(
+                                 label))
+        check(fold_rows["overflow"]["retries"] > 0,
+              "mesh fold: the small capacity never overflowed")
+        log("mesh " + json.dumps({"run": "mesh-fold", "rows": len(h1),
+                                  "distinct": len(df),
+                                  "lanes_seconds": lanes_s, **fold_rows}))
+
+        # -- 3. the byte exchange ------------------------------------------
+        settings.mesh_fold = "off"
+        head_chunk = os.path.getsize(head) // 8 + 1
+        ex_rows = []
+        for name in ("group_by", "join", "left_join", "sort_by",
+                     "group_by-small"):
+            pipe_name = name.split("-")[0]
+            settings.exchange_hbm_budget = (
+                MESH_SMALL_HBM if name.endswith("small")
+                else saved["exchange_hbm_budget"])
+            got = {}
+            for mode in ("on", "off"):
+                settings.mesh_exchange = mode
+                pipe = mesh_exchange_pipes(Dampr, head, head_chunk,
+                                           head_df)[pipe_name]
+                x0 = (px.total_exchanges, px.total_steps)
+                t0 = time.perf_counter()
+                # the sort's output past a third of its budget: its read
+                # takes the range exchange, not the one in-memory sort
+                em = pipe.run(name="chip-mesh-x-{}-{}".format(name, mode),
+                              memory_budget=(
+                                  max(1 << 16, os.path.getsize(head) // 4)
+                                  if pipe_name == "sort_by" else None))
+                got[mode] = em.read()
+                secs = time.perf_counter() - t0
+                if mode == "on":
+                    ex = em.stats()["mesh"]["exchange"]
+                    row = {"run": "mesh-" + name, "seconds": secs,
+                           "records": len(got[mode]),
+                           "exchanges": px.total_exchanges - x0[0],
+                           "steps": px.total_steps - x0[1],
+                           "run_exchange": ex,
+                           "hbm_budget": settings.exchange_hbm_budget}
+                    check(row["exchanges"] > 0 and row["steps"] >= 1,
+                          "mesh {}: the exchange never engaged".format(name))
+                    check(ex["peak_inflight_bytes"]
+                          <= settings.exchange_hbm_budget,
+                          "mesh {}: peak in flight past the budget".format(
+                              name))
+                    if pipe_name != "sort_by":
+                        check(em.stats()["mesh"]["exchanges"] > 0,
+                              "mesh {}: the run counts no exchange".format(
+                                  name))
+                else:
+                    row["off_seconds"] = secs
+                em.delete()
+            check(got["on"] == got["off"],
+                  "mesh {}: records differ from the mesh-off run".format(
+                      name))
+            ex_rows.append(row)
+            log("mesh " + json.dumps(row))
+        small = ex_rows[-1]
+        check(small["steps"] >= 2 * small["exchanges"],
+              "mesh group_by under {} B: the schedule took one step a "
+              "window".format(MESH_SMALL_HBM))
+        settings.exchange_hbm_budget = saved["exchange_hbm_budget"]
+
+        # -- 4. rings --------------------------------------------------------
+        dev = torch.device(MESH_DEVICE)
+        g = torch.Generator(device=dev).manual_seed(7)
+        x = torch.randint(-(1 << 40), 1 << 40, (MESH_RING_N,),
+                          dtype=torch.int64, device=dev, generator=g)
+        parts = torch.stack(x.chunk(MESH_SHARDS))
+        check(torch.equal(ring.ring_allreduce(mesh, x, "sum"),
+                          parts.sum(0).repeat(MESH_SHARDS)),
+              "ring_allreduce(sum) differs from torch.stack(...).sum(0)")
+        check(torch.equal(ring.ring_allreduce(mesh, x, "max"),
+                          parts.amax(0).repeat(MESH_SHARDS)),
+              "ring_allreduce(max) differs from amax")
+        check(torch.equal(ring.ring_allgather(mesh, x),
+                          torch.cat([x] * MESH_SHARDS)),
+              "ring_allgather differs from cat")
+
+        # -- 5. SGD at D = 4 against D = 1 ---------------------------------
+        X = torch.randn(MESH_SGD_ROWS, MESH_SGD_FEATURES, device=dev,
+                        generator=g)
+        wt = torch.randn(MESH_SGD_FEATURES, device=dev, generator=g)
+        y = (X @ wt > 0).float()
+        t0 = time.perf_counter()
+        p4, l4 = sgd.train(mesh, X, y, n_steps=MESH_SGD_STEPS, lr=0.5)
+        s4 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p1, l1 = sgd.train(one, X, y, n_steps=MESH_SGD_STEPS, lr=0.5)
+        s1 = time.perf_counter() - t0
+        werr = float(np.max(np.abs(p4["w"] - p1["w"])))
+        check(np.allclose(p4["w"], p1["w"], rtol=1e-3, atol=1e-5)
+              and abs(l4 - l1) < 1e-4,
+              "sgd at D = 4 differs from D = 1 (w {}, loss {} vs {})".format(
+                  werr, l4, l1))
+        log("mesh " + json.dumps({"run": "mesh-sgd", "rows": MESH_SGD_ROWS,
+                                  "features": MESH_SGD_FEATURES,
+                                  "steps": MESH_SGD_STEPS, "loss_d4": l4,
+                                  "loss_d1": l1, "w_max_abs_err": werr,
+                                  "seconds_d4": s4, "seconds_d1": s1}))
+        launches = [shuffle.program_runs - counts0[0],
+                    px.total_steps - counts0[1], ring.calls - counts0[2],
+                    sgd.steps - counts0[3]]
+
+        # -- 6. the programs, timed ---------------------------------------
+        part = (torch.from_numpy(h1.view(np.int32)).to(dev),
+                torch.from_numpy(h2.view(np.int32)).to(dev),
+                torch.from_numpy(v).to(dev),
+                torch.ones(len(h1), dtype=torch.int32, device=dev))
+        out = shuffle.mesh_keyed_refold(mesh, [part], "sum", nonneg=True)
+        n_in, n_out = len(h1), int(out[0].shape[0])
+        b7 = time_ms(torch, lambda: shuffle.mesh_keyed_refold(
+            mesh, [part], "sum", nonneg=True), reps)
+        b7_one = time_ms(torch, lambda: shuffle.mesh_keyed_refold(
+            one, [part], "sum", nonneg=True), reps)
+        cap = px.peak_capacity
+        D = MESH_SHARDS
+        bufs = [torch.randint(0, 256, (D, cap), dtype=torch.uint8,
+                              device=dev, generator=g) for _ in range(D)]
+        stacked = torch.stack(bufs)
+        step_np = np.zeros((D * D, cap), dtype=np.uint8)
+        lens_np = np.full(D * D, cap, dtype=np.int32)
+        b8 = timing(torch, lambda: pmesh.all_to_all(mesh, bufs), reps,
+                    launches=D * D)
+        b8_step = time_ms(torch, lambda: px._exchange_step(
+            mesh, step_np, lens_np), reps)
+        b8_lib = time_ms(torch, lambda: stacked.transpose(0, 1).contiguous(),
+                         reps)
+        b9 = timing(torch, lambda: ring.ring_allreduce(mesh, x, "sum"), reps,
+                    launches=4 * D)
+        b9_lib = time_ms(torch, lambda: torch.sum(x.view(D, -1), 0), reps)
+        w0 = torch.zeros(MESH_SGD_FEATURES, device=dev)
+        b0 = torch.zeros((), device=dev)
+        Xs = [X[i * (MESH_SGD_ROWS // D):(i + 1) * (MESH_SGD_ROWS // D)]
+              for i in range(D)]
+        ys = [y[i * (MESH_SGD_ROWS // D):(i + 1) * (MESH_SGD_ROWS // D)]
+              for i in range(D)]
+        b10 = timing(torch, lambda: sgd._step(mesh, w0, b0, Xs, ys, 0.5),
+                     reps, launches=20 * D)
+        rows = [
+            {"name": "keyed_fold", "id": "B7",
+             "source": "dampr_tpu_torch/parallel/shuffle.py",
+             "replaces": "dampr_tpu/parallel/shuffle.py:167",
+             "entry": "mesh_keyed_refold(mesh, [DocFreq lanes], 'sum', "
+                      "nonneg=True)",
+             "shape": [n_in], "out_rows": n_out, "launches": launches[0],
+             "device_ms": b7, "device_ms_d1": b7_one,
+             "timer": "CUDA events around one call (it syncs inside)",
+             "bound_ms": bound_ms(20 * n_in + 20 * n_out, 0)[0],
+             "bound_by": "bytes", "plain_ms": None, "library_ms": None},
+            {"name": "byte_exchange_step", "id": "B8",
+             "source": "dampr_tpu_torch/parallel/exchange.py",
+             "replaces": "dampr_tpu/parallel/exchange.py:88",
+             "entry": "mesh.all_to_all(mesh, [D x [D, C] uint8])",
+             "shape": [D * D, cap], "launches": launches[1],
+             "device_ms": b8["device_ms"], "ms": b8["ms"],
+             "host_ms": b8["host_ms"], "step_ms_with_h2d": b8_step,
+             "bound_ms": bound_ms(2 * D * D * (cap + 4), 0)[0],
+             "bound_by": "bytes", "plain_ms": None, "library_ms": b8_lib,
+             "library_call": "[D, D, C].transpose(0, 1).contiguous()"},
+            {"name": "ring_allreduce", "id": "B9",
+             "source": "dampr_tpu_torch/parallel/ring.py",
+             "replaces": "dampr_tpu/parallel/ring.py:21",
+             "entry": "ring_allreduce(mesh, int64 [2^24], 'sum')",
+             "shape": [MESH_RING_N], "launches": launches[2],
+             "device_ms": b9["device_ms"], "ms": b9["ms"],
+             "host_ms": b9["host_ms"],
+             "bound_ms": bound_ms(2 * 8 * MESH_RING_N, MESH_RING_N)[0],
+             "bound_by": "bytes", "plain_ms": None, "library_ms": b9_lib,
+             "library_call": "torch.sum(x.view(D, -1), 0)"},
+            {"name": "sgd_step", "id": "B10",
+             "source": "dampr_tpu_torch/parallel/sgd.py",
+             "replaces": "dampr_tpu/parallel/sgd.py:35",
+             "entry": "sgd._step(mesh, w, b, X shards, y shards, 0.5)",
+             "shape": [MESH_SGD_ROWS, MESH_SGD_FEATURES],
+             "launches": launches[3], "device_ms": b10["device_ms"],
+             "ms": b10["ms"], "host_ms": b10["host_ms"],
+             "bound_ms": bound_ms(
+                 4 * MESH_SGD_ROWS * (MESH_SGD_FEATURES + 1),
+                 4 * MESH_SGD_ROWS * MESH_SGD_FEATURES)[0],
+             "bound_by": "bytes", "plain_ms": None, "library_ms": None}]
+        log("mesh-programs " + json.dumps({"programs": rows,
+                                           "shards": MESH_SHARDS,
+                                           "max_capacity": cap}))
+        check(all(r["launches"] > 0 for r in rows),
+              "mesh: a program never ran in items 1-5")
+        return rows
+    finally:
+        for k, val in saved.items():
+            setattr(settings, k, val)
+
+
 SERVE_TERMINAL = ("done", "failed", "cancelled", "rejected")
 
 
@@ -4433,6 +4869,17 @@ def main(argv=None):
             "faults, a failed run resumed from DocFreq's checkpoint and "
             "an auto-resumed run, all exact, memory back each time; in "
             "{:.3f} s".format(time.perf_counter() - t0))
+
+        # -- the mesh in one process: B7-B10 over 4 shards of the card ------
+        t0 = time.perf_counter()
+        phase_mesh(torch, np, Dampr, DocFreq, settings, KERNELS, workdir,
+                   corpus, chunk, nbytes, df, n_lines,
+                   part_lines(os.path.join(workdir, "idf")), head, head_df,
+                   args.reps)
+        log("phase mesh: TF-IDF over {} shards equal to D = 1 and the "
+            "oracle, the fold's retry exact, group_by, joins and sort_by "
+            "through the exchange, rings and SGD exact; in {:.3f} s".format(
+                MESH_SHARDS, time.perf_counter() - t0))
 
         # -- the serve daemon and the cross-run cache -----------------------
         t0 = time.perf_counter()

@@ -36,9 +36,10 @@ import sys
 #: The variable that would name a multi-process deployment's coordinator.
 COORDINATOR_ENV = "DAMPR_TPU_TORCH_COORDINATOR"
 
-#: Why a tool refuses to span processes: the port runs on one card.
-MULTI_PROCESS = ("several processes need the multi-device layer (ROADMAP "
-                 "A5), which the port does not have yet")
+#: Why a tool refuses to span processes: the port's mesh runs in one
+#: process.
+MULTI_PROCESS = ("a mesh across processes (ROADMAP A5b) is not in the port "
+                 "yet; its mesh runs in one process")
 
 
 def _join_deployment():

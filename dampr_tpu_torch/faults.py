@@ -44,9 +44,11 @@ retry layers:
 **Fault events** — cross-run memory for failures that kill the process
 before stats can land: one JSONL sidecar per run name
 (``<scratch_root>/<run>/faults.jsonl``, bounded, O_APPEND crash-safe like
-the history corpus).  In the JAX package the exchange watchdog writes it
-and the shuffle planner reads it; the port runs on one card, so nothing
-here writes an ``exchange_timeout`` yet.
+the history corpus).  The exchange's step watchdog
+(:mod:`.parallel.exchange`, ``settings.exchange_timeout_ms``) writes an
+``exchange_timeout`` event, and the shuffle planner
+(:func:`.plan.lower.apply_shuffle`) reads it through
+:func:`stages_with_exchange_timeouts`.
 
 Torch's ``OutOfMemoryError`` is a ``RuntimeError``: it classifies as
 deterministic, as an XLA runtime error does in the JAX package.

@@ -28,7 +28,9 @@ closed set of ``docs/trace_schema.json``:
 - ``device`` — the lowered sink's batch dispatch and drain;
 - ``handoff`` — table-program dispatches, degrades, the registration of
   a job's device refs;
-- ``collective`` — the single-device keyed fold;
+- ``collective`` — the mesh keyed fold, its global sums and the byte
+  exchange's windows;
+- ``exchange`` — the byte exchange's steps (``h2d``, ``step``, ``d2h``);
 - ``hbm`` / ``spill`` / ``spill_queue`` / ``io_wait`` — HBM puts and
   offloads; spill writes (on the writer pool's lanes), a queued write's
   wait, writer backpressure and read waits;

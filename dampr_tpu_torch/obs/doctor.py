@@ -18,9 +18,10 @@ estimated wall-time impact::
     1. [high] stage 1 (map, 1.2s): codec covers 61% of stage wall
        -> settings.lower (DAMPR_TPU_TORCH_LOWER): ...
 
-The playbook keeps every verdict of the JAX package's.  The knobs that
-exist only with several devices (:data:`MESH_KNOBS`) are left out, so the
-``fold``, ``exchange-timeout`` and ``mesh`` verdicts suggest nothing yet.
+The playbook keeps every verdict of the JAX package's.  The knobs the
+port does not have (:data:`MESH_KNOBS`: the straggler mitigation of a
+mesh across processes, and spill and placement knobs the port keeps
+fixed) are left out.
 
 ``--diff A B`` compares two runs; ``--json`` emits the report in the
 JAX package's schema (``dampr-tpu-doctor/1``, ``docs/doctor_schema.json``);
@@ -33,15 +34,12 @@ from .. import settings
 
 SCHEMA = "dampr-tpu-doctor/1"
 
-#: The JAX playbook's knobs the port does not have: they come with
-#: several devices (the mesh fold and exchange, mitigation), or are spill
-#: and placement knobs the port keeps fixed.
-MESH_KNOBS = ("exchange_chunk_bytes", "exchange_coding",
-              "exchange_hbm_budget", "exchange_min_bytes",
-              "exchange_timeout_ms", "lower_min_records", "mesh_exchange",
-              "mesh_fold", "mitigate", "shuffle_capacity_factor",
-              "speculate_after_steps", "speculate_threshold",
-              "spill_inflight_bytes", "spill_read_threads")
+#: The JAX playbook's knobs the port does not have: the straggler
+#: mitigation comes with a mesh across processes (ROADMAP A5b); the rest
+#: are spill and placement knobs the port keeps fixed.
+MESH_KNOBS = ("lower_min_records", "mitigate", "speculate_after_steps",
+              "speculate_threshold", "spill_inflight_bytes",
+              "spill_read_threads")
 
 #: Bottleneck taxonomy -> suggestions: (knob, the variable the port reads
 #: it from or "", proposal from the current value, why).  Every knob is
@@ -87,7 +85,12 @@ _PLAYBOOK = {
          "larger line-aligned scan windows amortize per-window codec "
          "fixed costs (at the cost of window-sized RSS)"),
     ],
-    "fold": [],
+    "fold": [
+        ("mesh_fold", "DAMPR_TPU_TORCH_MESH_FOLD",
+         lambda cur: "on",
+         "map-side folds bound the stage — the mesh collective fold "
+         "path spreads keyed folds across devices"),
+    ],
     "merge": [
         ("merge_fanin", "DAMPR_TPU_TORCH_MERGE_FANIN",
          lambda cur: max(64, int(cur or 0) * 2),
@@ -146,6 +149,12 @@ _PLAYBOOK = {
          "and check worker-thread width"),
     ],
     "skew": [
+        ("exchange_coding", "DAMPR_TPU_TORCH_EXCHANGE_CODING",
+         lambda cur: "camr",
+         "coded aggregation for sum-combinable keyed folds: pre-fold "
+         "each exchange window per destination partition so fewer "
+         "bytes serialize on the slow rank's steps (replicated "
+         "map-side fold work traded for shuffle bytes)"),
         ("spill_read_prefetch", "DAMPR_TPU_TORCH_SPILL_PREFETCH",
          lambda cur: max(4, int(cur or 0) * 2),
          "the straggler rank arrives late at collective steps — deeper "
@@ -156,6 +165,10 @@ _PLAYBOOK = {
          "rebalance partitions: persistent per-rank lateness with a "
          "lopsided exchange send/recv matrix means some ranks carry "
          "more bytes per step than others"),
+        ("exchange_hbm_budget", "DAMPR_TPU_TORCH_EXCHANGE_HBM",
+         lambda cur: max(64 * 1024 ** 2, int(cur or 0) * 2),
+         "fewer, larger collective steps amortize the per-step entry "
+         "spread when skew is jitter rather than a persistent straggler"),
     ],
     "fault-retry": [
         ("job_retries", "DAMPR_TPU_TORCH_JOB_RETRIES",
@@ -185,8 +198,43 @@ _PLAYBOOK = {
          "deterministic record failures are NOT healed by retries — "
          "inspect quarantine.jsonl and fix the records or the UDF"),
     ],
-    "exchange-timeout": [],
-    "mesh": [],
+    "exchange-timeout": [
+        ("exchange_timeout_ms", "DAMPR_TPU_TORCH_EXCHANGE_TIMEOUT_MS",
+         lambda cur: max(60000, int(cur or 0) * 2),
+         "a collective exchange step hit its deadline and the run "
+         "aborted — raise the deadline if the fleet was merely slow; "
+         "the shuffle stays degraded to host until faults.jsonl is "
+         "cleared"),
+        ("exchange_hbm_budget", "DAMPR_TPU_TORCH_EXCHANGE_HBM",
+         lambda cur: max(64 * 1024 ** 2, int(cur or 0) * 2),
+         "fewer, larger collective steps shrink the window in which a "
+         "rank death can strand a step (and amortize per-step cost)"),
+        ("mesh_exchange", "DAMPR_TPU_TORCH_MESH_EXCHANGE",
+         lambda cur: "off",
+         "or pin every redistribution to the host shuffle while the "
+         "fleet is unstable"),
+    ],
+    "mesh": [
+        ("exchange_hbm_budget", "DAMPR_TPU_TORCH_EXCHANGE_HBM",
+         lambda cur: max(64 * 1024 ** 2, int(cur or 0) * 2),
+         "collective exchange steps bound the run — a larger in-flight "
+         "budget lets the replan schedule move the same bytes in fewer, "
+         "bigger chunked collectives (device memory permitting)"),
+        ("exchange_chunk_bytes", "DAMPR_TPU_TORCH_EXCHANGE_CHUNK",
+         lambda cur: None,
+         "or pin the per-piece chunk size explicitly when the device is "
+         "memory-pressured beyond what the in-flight model captures "
+         "(smaller chunks = more steps, lower peak)"),
+        ("exchange_min_bytes", "DAMPR_TPU_TORCH_EXCHANGE_MIN_BYTES",
+         lambda cur: max(4 * 1024 ** 2, int(cur or 0) * 2),
+         "tiny shuffles pay D*D pack/unpack fixed costs — a higher "
+         "floor keeps them on the host path (auto mode; explicit "
+         "DAMPR_TPU_TORCH_MESH_EXCHANGE=off pins every stage host)"),
+        ("shuffle_capacity_factor", "",
+         lambda cur: None,
+         "for the associative collective fold, tune exchange capacity "
+         "or keep the shuffle on host (DAMPR_TPU_TORCH_MESH_EXCHANGE=off)"),
+    ],
     "reuse-thrash": [
         ("reuse_budget_bytes", "DAMPR_TPU_TORCH_REUSE_BUDGET",
          lambda cur: max(2 * 1024 ** 3, int(cur or 0) * 2),

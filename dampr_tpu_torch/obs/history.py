@@ -66,8 +66,6 @@ _CONSTANT_KNOBS = {
     "overlap_windows": ("runner", "OVERLAP_WINDOWS"),
     "spill_read_prefetch": ("storage", "SPILL_READ_PREFETCH"),
     "spill_codec": ("storage", "SPILL_CODEC"),
-    "exchange_min_bytes": ("plan.cost", "EXCHANGE_MIN_BYTES"),
-    "exchange_hbm_budget": ("plan.cost", "EXCHANGE_HBM_BUDGET"),
 }
 
 

@@ -170,6 +170,10 @@ class Profiler(object):
                 try:
                     item = next(it)
                 except StopIteration:
+                    # the iterator's teardown (a last window's flush, a
+                    # producer thread's join) is the op's too
+                    self.op_add(label, time.perf_counter() - t0, records=0,
+                                calls=0, sid=sid)
                     return
                 self.op_add(label, time.perf_counter() - t0,
                             records=count(item), sid=sid)

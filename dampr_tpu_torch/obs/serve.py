@@ -13,7 +13,8 @@ registry while a run is in flight:
 Enabled by ``settings.metrics_port`` (0 = off): the runner starts one
 server per run on ``metrics_port + rank``, and the port implies the
 100 ms sampler so the gauges move.  The port runs as one process, rank 0
-of 1 (:func:`rank_info`), until the multi-card slice.  Request handling
+of 1 (:func:`rank_info`): the mesh runs in one process until ROADMAP
+A5b.  Request handling
 never touches the run's hot path: a scrape costs one registry snapshot.
 """
 
@@ -29,7 +30,8 @@ METRICS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 def rank_info():
     """``(process_id, num_processes)``: the port runs as one process,
-    rank 0 of 1, until the multi-card slice gives it a process group."""
+    rank 0 of 1, until a mesh across processes (ROADMAP A5b) gives it a
+    process group."""
     return 0, 1
 
 

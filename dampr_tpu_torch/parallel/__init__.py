@@ -1,5 +1,32 @@
-"""Keyed folds on the device.
+"""Execution over a mesh of shards, inside one process.
 
-Port of ``dampr_tpu/parallel``'s single-device fold (:mod:`.shuffle`); the
-mesh, the exchange and the collectives across cards are a later slice.
+Port of ``dampr_tpu/parallel``.  A mesh (:mod:`.mesh`) is an ordered
+tuple of torch devices (``settings.mesh_devices``; one device may be
+named more than once); the collectives between its shards are
+:mod:`.mesh`'s ``all_to_all``, ``psum``, ``all_gather`` and
+``ppermute``.
+
+- :func:`.shuffle.mesh_keyed_fold`: the keyed shuffle (B7), per shard a
+  local fold, an ``all_to_all`` routed by ``h1 % D`` with capacity
+  buffers and an overflow retry, then a final fold.
+- :func:`.shuffle.mesh_global_sum`: a degenerate-key aggregate.
+- :mod:`.exchange`: the general byte exchange (B8), run as a
+  :mod:`.replan` schedule under ``settings.exchange_hbm_budget``.
+- :mod:`.ring`: ring all-reduce and all-gather (B9); :mod:`.sgd`: the
+  data-parallel SGD step (B10).
+
+A mesh across processes (``init_distributed``, the fleet view, the
+straggler mitigation) is ROADMAP item A5b.
 """
+
+from . import replan
+from .exchange import mesh_blob_exchange, mesh_shuffle_blocks
+from .mesh import (data_mesh, default_mesh, maybe_init_distributed,
+                   process_info)
+from .replan import plan_exchange, step_inflight_bytes
+from .shuffle import mesh_global_sum, mesh_keyed_fold
+
+__all__ = ["data_mesh", "default_mesh", "maybe_init_distributed",
+           "process_info", "mesh_keyed_fold", "mesh_global_sum",
+           "mesh_blob_exchange", "mesh_shuffle_blocks",
+           "replan", "plan_exchange", "step_inflight_bytes"]

@@ -7,9 +7,9 @@ Port of ``dampr_tpu/plan``:
 - :mod:`.cost` sizes a named run from its run history (partition count,
   per-stage ``batch_size`` and ``n_reducers``), and the learned cost
   model (:mod:`.model`) may override the partition count;
-- :mod:`.lower` picks each executed stage's target, and which device
-  edges keep their counts on the card (priced against the spill path
-  over the run's history);
+- :mod:`.lower` picks each executed stage's target, which device edges
+  keep their counts on the card (priced against the spill path over the
+  run's history), and which redistributions ride the mesh exchange;
 - :mod:`.pipeline` marks the stage edges the runner may stream;
 - the static analyzer (:mod:`..analyze`, ``settings.analyze``) reports on
   the stages that will execute;
@@ -62,6 +62,7 @@ def empty_report(graph):
                      "handoff": []},
         "device_stages": 0,
         "handoff_edges": 0,
+        "shuffle": lower.empty_shuffle_section(False),
         "pipeline": pipeline.empty_section(settings.pipeline_enabled()),
         "analysis": _av.empty_section(),
         "stage_shapes": ir.stage_shapes(graph),
@@ -77,7 +78,8 @@ def prepare(graph, outputs, runner=None):
     (``adaptive``) and the cost model (``cost``), which set
     ``runner.n_partitions`` and per-stage options, the lowering with its
     handoff edges (``lowering``, ``device_stages``, ``handoff_edges``;
-    ``runner._handoff_sids``), the streamed edges (``pipeline``;
+    ``runner._handoff_sids``), the shuffle routing (``shuffle``;
+    ``runner._shuffle_targets``), the streamed edges (``pipeline``;
     ``runner._pipeline_edges``), the ``analysis`` section and the
     executed ``stage_shapes``.  Without a runner the sizing layers have no
     run name, so no history."""
@@ -95,6 +97,7 @@ def prepare(graph, outputs, runner=None):
     report["device_stages"] = lowering["device_stages"]
     report["handoff_edges"] = sum(1 for e in lowering["handoff"]
                                   if e["handoff"] == "device")
+    report["shuffle"] = lower.apply_shuffle(graph, lowering, runner=runner)
     pipeline.apply(runner, graph, outputs, report)
     report["analysis"] = _analysis_section(graph)
     report["stage_shapes"] = ir.stage_shapes(graph)

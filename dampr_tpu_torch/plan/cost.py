@@ -35,14 +35,6 @@ from . import ir
 
 log = logging.getLogger("dampr_tpu_torch.plan.cost")
 
-#: Shuffle-routing constants of :func:`shuffle_choice` (the JAX package's
-#: ``exchange_min_bytes`` and ``exchange_hbm_budget`` defaults): the
-#: recorded shuffle input under which auto keeps the host shuffle, and the
-#: in-flight device bytes one exchange step may hold.
-EXCHANGE_MIN_BYTES = 4 * 1024 ** 2
-EXCHANGE_HBM_BUDGET = 64 * 1024 ** 2
-
-
 def empty_cost_section(reason=None):
     from . import model as _model
 
@@ -169,16 +161,18 @@ def load_tuned(run_name):
         return None
 
 
-def shuffle_choice(hist_stage, n_dev, n_partitions, mode="auto",
+def shuffle_choice(hist_stage, n_dev, n_partitions, mode=None,
                    model=None):
     """(target, reason): route one redistribution stage over the ``host``
-    shuffle or the ``mesh`` collective byte exchange.  An explicit
-    ``mode`` ("on"/"off") wins; auto decides from the corpus: a recorded
-    shuffle input under :data:`EXCHANGE_MIN_BYTES` keeps the host path,
-    a larger or unmeasured one rides the collective, and a model with
-    both the exchange and fold classes fit decides by modeled seconds.
-    The port has no collective exchange yet (multi-card item): this has
-    no caller."""
+    shuffle or the ``mesh`` byte exchange (:mod:`..parallel.exchange`).
+    An explicit ``mode`` (default ``settings.mesh_exchange``) wins; auto
+    decides from the corpus: a recorded shuffle input under
+    ``settings.exchange_min_bytes`` keeps the host path (the D*D window
+    pack and unpack dominate a tiny exchange), a larger or unmeasured one
+    rides the collective, and a model with both the exchange and fold
+    classes fit decides by modeled seconds."""
+    if mode is None:
+        mode = settings.mesh_exchange
     m = str(mode).lower()
     if m in ("off", "0", "false") or not settings.use_device:
         return "host", "settings.mesh_exchange={!r} pins the host " \
@@ -197,18 +191,23 @@ def shuffle_choice(hist_stage, n_dev, n_partitions, mode="auto",
         pred = model.shuffle_prediction(bytes_in / 1e6)
         if pred is not None:
             return pred
-    if bytes_in < EXCHANGE_MIN_BYTES:
+    if bytes_in < settings.exchange_min_bytes:
         return "host", (
             "history: {} B shuffle input < exchange_min_bytes={} — the "
             "D*D collective window pack/unpack overhead dominates; host "
-            "shuffle is cheaper".format(bytes_in, EXCHANGE_MIN_BYTES))
+            "shuffle is cheaper".format(
+                bytes_in, settings.exchange_min_bytes))
     recs = st.get("records_in") or st.get("records_out") or 0
     rec_bytes = (bytes_in / float(recs)) if recs else None
     detail = "~{:.0f} B/record, ".format(rec_bytes) if rec_bytes else ""
     return "mesh", (
         "history: {} B shuffle input across {} partitions on {} devices "
-        "({}windowed under exchange_hbm_budget={})".format(
-            bytes_in, n_partitions, n_dev, detail, EXCHANGE_HBM_BUDGET))
+        "({}windowed under exchange_hbm_budget={}){}".format(
+            bytes_in, n_partitions, n_dev, detail,
+            settings.exchange_hbm_budget,
+            "; coded aggregation armed (exchange_coding={}) for "
+            "sum-combinable folds".format(settings.exchange_coding)
+            if settings.exchange_coding_enabled() else ""))
 
 
 def _clamped_partitions(reduce_bytes):

@@ -6,8 +6,8 @@ cache's preview.
 
 Port of ``dampr_tpu/plan/explain.py``, surfaced as ``PBase.explain()``.
 Pure rendering: ``explain()`` never executes the pipeline and never
-mutates the handle's graph.  The port runs on one card, so its shuffle
-lines route every redistribution over the host shuffle.
+mutates the handle's graph.  Its shuffle lines route each
+redistribution as :func:`.lower.apply_shuffle` would.
 """
 
 from .. import settings
@@ -226,12 +226,17 @@ def _cost_lines(graph, name):
 
 
 def _shuffle_lines(graph, name, outputs=()):
-    """The route of each redistribution stage: on one card every
-    exchange stays on the host shuffle (:func:`.cost.shuffle_choice`
-    with one device), and a device-lowered reduce folds on the card."""
-    if not settings.use_device:
-        return ["shuffle: mesh exchange off (settings.use_device=False; "
-                "every redistribution on the host shuffle)"]
+    """The host-or-mesh route of each redistribution stage, as
+    :func:`.lower.apply_shuffle` decides it: which exchanges ride the
+    budgeted collective and why the rest keep the host shuffle; a
+    device-lowered reduce is target ``device``."""
+    mode = str(settings.mesh_exchange).lower()
+    if mode in ("off", "0", "false") or not settings.use_device:
+        return ["shuffle: mesh exchange off (settings.mesh_exchange={!r}; "
+                "every redistribution on the host shuffle)".format(
+                    settings.mesh_exchange)]
+    n_dev = (2 if mode in ("on", "1", "true")
+             else settings.device_count_for_auto())
     device_sids = set()
     if settings.lower_enabled():
         hist_l = (cost.matched_history(name, graph)
@@ -239,33 +244,19 @@ def _shuffle_lines(graph, name, outputs=()):
         device_sids = {
             d["sid"] for d in lower.analyze(graph, outputs, hist_l)
             if d["target"] == "device" and d["kind"] == "reduce"}
-    decisions = []
-    for sid, stage in enumerate(graph.stages):
-        kind = ir.stage_kind(stage)
-        if kind == "map" and lower.is_sort_stage(stage):
-            if any(ir.stage_kind(c) == "reduce" for c in graph.stages
-                   if stage.output in getattr(c, "inputs", ())):
-                continue
-            kind = "sort"
-        elif kind != "reduce":
-            continue
-        if sid in device_sids:
-            decisions.append((sid, kind, "device",
-                              "device-lowered fold — redistribution rides "
-                              "the collective fold program, not the byte "
-                              "exchange"))
-            continue
-        target, reason = cost.shuffle_choice(None, 1, settings.partitions)
-        decisions.append((sid, kind, target, reason))
+    decisions = lower.shuffle_analyze(
+        graph, cost.matched_history(name, graph) if name else None,
+        n_dev, settings.partitions, device_sids,
+        model=cost.current_model(name, graph) if name else None)
     if not decisions:
         return []
-    n_mesh = sum(1 for d in decisions if d[2] == "mesh")
+    n_mesh = sum(1 for d in decisions if d["target"] == "mesh")
     lines = ["shuffle: {} of {} redistribution stage(s) routed over the "
              "mesh exchange (hbm budget {})".format(
-                 n_mesh, len(decisions), cost.EXCHANGE_HBM_BUDGET)]
-    for sid, kind, target, reason in decisions:
+                 n_mesh, len(decisions), settings.exchange_hbm_budget)]
+    for d in decisions:
         lines.append("  s{}: {} shuffle -> {}  ({})".format(
-            sid, kind, target, reason))
+            d["sid"], d["kind"], d["target"], d["reason"]))
     return lines
 
 

@@ -1,8 +1,9 @@
 """The device-lowering pass: assign each executed stage a target.
 
 Port of ``dampr_tpu/plan/lower.py`` (``analyze`` with its history
-placement floor, ``handoff_analyze`` with its corpus pricing, and
-``apply``; shuffle routing waits for the multi-card slice):
+placement floor, ``handoff_analyze`` with its corpus pricing, ``apply``,
+and the host-or-mesh shuffle routing ``shuffle_analyze``/
+``apply_shuffle``):
 
 - a **map** stage lowers when its chain is a numeric ``map``/``filter``
   chain the static analyzer certifies (:mod:`..analyze.torchtrace`,
@@ -30,9 +31,13 @@ lowered fold may then keep its counts on the device
 prices the spill path faster.
 """
 
+import logging
+
 from .. import base, settings
 from ..graph import GMap, GReduce
 from . import ir
+
+log = logging.getLogger("dampr_tpu_torch.plan.lower")
 
 #: The history placement floor: in "auto" lowering a stage the plan would
 #: lower stays on the host when its shape-matched history shows it emitted
@@ -283,3 +288,99 @@ def apply(graph, outputs, runner=None):
         opts["exec_target"] = "device"
         stages[sid] = ir.clone_with_options(stages[sid], opts)
     return Graph(stages), section
+
+
+def empty_shuffle_section(enabled):
+    return {"enabled": enabled, "targets": [], "mesh_stages": 0}
+
+
+def shuffle_analyze(graph, history, n_dev, n_partitions, device_sids=(),
+                    model=None):
+    """Per-redistribution-stage shuffle decisions
+    ``[{sid, kind, target, reason}]``: every reduce (the group_by,
+    fold_by and join exchange) and every reduce-free sort re-key map (its
+    sorted read's range exchange).  A device-lowered reduce is recorded,
+    not routed: its redistribution rides the keyed fold program."""
+    from . import cost
+
+    by_sid = {}
+    if history:
+        by_sid = {s.get("stage"): s for s in history.get("stages", [])}
+    decisions = []
+    for sid, stage in enumerate(graph.stages):
+        if isinstance(stage, GReduce):
+            kind = "reduce"
+        elif is_sort_stage(stage):
+            # a re-key feeding a reduce is a group_by's key pass: the
+            # reduce gets the row
+            if any(isinstance(c, GReduce) for c in graph.stages
+                   if stage.output in getattr(c, "inputs", ())):
+                continue
+            kind = "sort"
+        else:
+            continue
+        if sid in device_sids:
+            decisions.append({
+                "sid": sid, "kind": kind, "target": "device",
+                "reason": "device-lowered fold — redistribution rides "
+                          "the collective fold program, not the byte "
+                          "exchange"})
+            continue
+        target, reason = cost.shuffle_choice(
+            by_sid.get(sid), n_dev, n_partitions, model=model)
+        decisions.append({"sid": sid, "kind": kind, "target": target,
+                          "reason": reason})
+    return decisions
+
+
+def apply_shuffle(graph, lowering, runner=None):
+    """The ``shuffle`` report section: host-or-mesh decisions for the
+    redistribution stages (``settings.mesh_exchange``; "auto" from the
+    shard count and the run's corpus), and with ``runner`` the routing
+    map ``runner._shuffle_targets`` ({sid: "mesh"|"host"}), a dispatch
+    hint the runner's exchange reads, never a stage option.  A stage
+    whose exchange timed out in an earlier run under the name (an
+    ``exchange_timeout`` fault event) stays on the host shuffle unless
+    the mode is "on"."""
+    section = empty_shuffle_section(False)
+    mode = str(settings.mesh_exchange).lower()
+    if mode in ("off", "0", "false") or not settings.use_device:
+        section["reason"] = (
+            "off (settings.mesh_exchange={!r}; every redistribution "
+            "stays on the host shuffle)".format(settings.mesh_exchange))
+        return section
+    from .. import faults as _faults
+    from . import cost
+
+    forced = mode in ("on", "1", "true")
+    n_dev = 2 if forced else settings.device_count_for_auto()
+    run_name = getattr(runner, "name", None)
+    device_sids = {d["sid"] for d in (lowering or {}).get("targets", [])
+                   if d["target"] == "device" and d["kind"] == "reduce"}
+    decisions = shuffle_analyze(
+        graph, cost.matched_history(run_name, graph), n_dev,
+        getattr(runner, "n_partitions", settings.partitions), device_sids,
+        model=cost.current_model(run_name, graph))
+    if not forced:
+        timed_out = _faults.stages_with_exchange_timeouts(run_name)
+        for d in decisions:
+            if d["target"] == "mesh" and d["sid"] in timed_out:
+                d["target"] = "host"
+                d["reason"] = (
+                    "fault-history: a previous run's collective exchange "
+                    "timed out at this stage (exchange_timeout_ms) — "
+                    "degraded to the host shuffle; delete the run's "
+                    "faults.jsonl to re-try the mesh")
+                log.warning("plan: stage %d shuffle degraded to host "
+                            "after a recorded exchange timeout", d["sid"])
+    section["enabled"] = True
+    section["targets"] = decisions
+    section["mesh_stages"] = sum(1 for d in decisions
+                                 if d["target"] == "mesh")
+    if settings.exchange_coding_enabled():
+        section["coding"] = str(settings.exchange_coding)
+    if runner is not None:
+        runner._shuffle_targets = {
+            d["sid"]: d["target"] for d in decisions
+            if d["target"] in ("mesh", "host")}
+    return section

@@ -61,7 +61,7 @@ KNOB_BOUNDS = {
 
 #: The environment variable the port reads each knob from at import (the
 #: vector an autotune session exports to its subprocess trials; a
-#: choice's ``env`` names it).  The exchange knobs wait for a mesh.
+#: choice's ``env`` names it).
 ENV_OF = {
     "n_partitions": None,
     "batch_size": None,
@@ -69,8 +69,8 @@ ENV_OF = {
     "overlap_windows": "DAMPR_TPU_TORCH_OVERLAP_WINDOWS",
     "spill_write_threads": "DAMPR_TPU_TORCH_SPILL_WRITERS",
     "spill_read_prefetch": "DAMPR_TPU_TORCH_SPILL_PREFETCH",
-    "exchange_hbm_budget": None,
-    "exchange_chunk_bytes": None,
+    "exchange_hbm_budget": "DAMPR_TPU_TORCH_EXCHANGE_HBM",
+    "exchange_chunk_bytes": "DAMPR_TPU_TORCH_EXCHANGE_CHUNK",
     "spill_codec": "DAMPR_TPU_TORCH_SPILL_CODEC",
 }
 

@@ -24,9 +24,9 @@ shapes exist, each only where the pipelined result equals the staged one:
 
 Everything else keeps its barrier: checkpoints and ``cached()`` pins,
 sorted-run materialization, multi-consumer outputs, sinks, device-lowered
-stages and handoff edges, and a runner that resumes or routes a shuffle
-over a mesh (neither exists on one card yet; the checks read the runner's
-attributes as the JAX package's do).  Decisions are computed with
+stages and handoff edges, a runner that resumes or routes a shuffle over
+the mesh, and every edge of a run where a mesh fold or exchange could
+engage (:func:`_mesh_possible`).  Decisions are computed with
 ``settings.pipeline`` off too (the report's ``active`` flag records it),
 so ``explain()`` always shows the table.
 
@@ -76,6 +76,22 @@ def _feeds_boundary_sensitive(graph, output, consumers, seen=None):
     return False
 
 
+def _mesh_possible():
+    """Could a mesh fold or exchange engage this run?  A forced mesh knob
+    or an "auto" one over more than one shard bars streaming: the mesh
+    paths window their own input, and their exactness must not depend on
+    pre-folded partials."""
+    if not settings.use_device:
+        return False
+    fold = str(settings.mesh_fold).lower()
+    exch = str(settings.mesh_exchange).lower()
+    if fold in ("on", "1", "true") or exch in ("on", "1", "true"):
+        return True
+    if fold in ("off", "0", "false") and exch in ("off", "0", "false"):
+        return False
+    return settings.device_count_for_auto() > 1
+
+
 def analyze(graph, outputs, runner=None):
     """One decision per producer -> consumer edge, plus the final-read
     edges of requested outputs: ``{src, dst, output, decision, mode,
@@ -92,6 +108,7 @@ def analyze(graph, outputs, runner=None):
         sid for sid, tgt in
         (getattr(runner, "_shuffle_targets", None) or {}).items()
         if tgt == "mesh") if runner is not None else set()
+    mesh = _mesh_possible()
 
     for sid, stage in enumerate(graph.stages):
         if isinstance(stage, (GInput, GSink)):
@@ -152,6 +169,10 @@ def analyze(graph, outputs, runner=None):
                 continue
             if sid in shuffle_sids or dst in shuffle_sids:
                 edge(dst, "barrier", None, "mesh-routed exchange")
+                continue
+            if mesh:
+                edge(dst, "barrier", None,
+                     "mesh fold/exchange may engage")
                 continue
 
             if isinstance(cons, GReduce):

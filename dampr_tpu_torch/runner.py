@@ -90,7 +90,7 @@ lowered map's edge into a device fold ``handoff="device"``, each job keeps
 its counts in a device vocabulary and registers them as device-resident
 refs at its end; map outputs a device fold reads enter the store's HBM
 tier; and a reduce whose input holds device refs folds on the device
-(:meth:`MTRunner._mesh_reduce`, on one device), so the counts stay on the
+(:meth:`MTRunner._mesh_reduce`), so the counts stay on the
 card from the map's batches to the fold's final fetch.  A failed run
 releases every device ref.
 
@@ -120,8 +120,12 @@ partition set aliases it where :meth:`MTRunner._alias_provenance_ok`
 allows.  SIGTERM during a run raises ``SystemExit(143)``, the failed
 run's path.
 
-Mesh execution across cards, mitigation and the cross-run cache are
-later slices.
+The mesh (:mod:`.parallel`): over more than one shard, associative
+folds run the mesh keyed fold (:meth:`MTRunner._mesh_reduce`), other
+shuffles the byte exchange (:meth:`MTRunner._mesh_exchange_entries`) and
+a sorted output's read the range exchange
+(:meth:`OutputDataset._mesh_range_sorted`).  A mesh across processes and
+the straggler mitigation are ROADMAP item A5b.
 """
 
 import collections
@@ -198,6 +202,39 @@ _HANDOFF_COUNTS = ("table_batches", "classic_batches", "misses",
                    "host_bootstraps")
 
 _I64_MAX = 2 ** 63 - 1
+
+
+def _mode_off(mode):
+    return str(mode).lower() in ("off", "0", "false")
+
+
+def _mode_on(mode):
+    return str(mode).lower() in ("on", "1", "true")
+
+
+def _exchange_mesh_gate(budget, target=None):
+    """The engage and window policy of every mesh byte-exchange user:
+    ``(mesh, D, window_bytes)``, or None when the path is off or the mesh
+    has one shard.  The window keeps the host's pack working set a
+    fraction of the run budget (the device side is the replan schedule's,
+    under ``settings.exchange_hbm_budget``).  ``target`` is the plan's
+    shuffle choice for the stage (:func:`.plan.lower.apply_shuffle`):
+    ``"host"`` declines in auto mode, ``"mesh"`` engages where the shard
+    count would not; an explicit ``settings.mesh_exchange`` wins."""
+    mode = settings.mesh_exchange
+    if _mode_off(mode) or not settings.use_device:
+        return None
+    if not _mode_on(mode):
+        if target == "host":
+            return None
+        if target != "mesh" and settings.device_count_for_auto() < 2:
+            return None
+    from .parallel.mesh import data_mesh, mesh_size
+
+    mesh = data_mesh()
+    D = mesh_size(mesh)
+    window = max(1 << 18, budget // (8 * D * D))
+    return mesh, D, window
 
 
 def _clone_op(op):
@@ -783,11 +820,17 @@ class OutputDataset(Dataset):
        concatenated and sorted whole first.
 
     Rungs 3 and 4 (and a single-partition output) hold every partition
-    sorted in RAM at once, as the JAX package's single-device reads do."""
+    sorted in RAM at once, as the JAX package's single-device reads do.
+    Where the mesh exchange engages (:func:`_exchange_mesh_gate`, under the
+    stage's shuffle choice), numeric keys take the mesh range read before
+    rungs 2 and 3 (:meth:`_mesh_range_sorted`)."""
 
     def __init__(self, pset, store=None):
         self.pset = pset
         self.store = store
+        # the mesh range read's bucket runs: reused across reads, released
+        # in delete()
+        self._range_cache = None
 
     def _partition_stream(self, pid):
         try:
@@ -833,6 +876,15 @@ class OutputDataset(Dataset):
             return iter(())
         return merge_sorted_streams([r.iter_windows() for r in refs])
 
+    def _key_sorted_blocks(self):
+        """A key-sorted run set's blocks: the mesh range read where the
+        mesh engages (global order spreads over the shards), else the
+        streamed k-way merge."""
+        blocks = self._mesh_range_sorted(sorted(self.pset.parts))
+        if blocks is None:
+            blocks = self._merged_run_blocks()
+        return blocks
+
     def read(self):
         pids = sorted(self.pset.parts)
         if not pids:
@@ -845,7 +897,9 @@ class OutputDataset(Dataset):
         blk = self._sorted_concat()
         if blk is not None:
             return blk.iter_pairs()
-        blocks = self._vector_merge_blocks(pids)
+        blocks = self._mesh_range_sorted(pids)
+        if blocks is None:
+            blocks = self._vector_merge_blocks(pids)
         if blocks is not None:
             return itertools.chain.from_iterable(
                 b.iter_pairs() for b in blocks)
@@ -861,6 +915,108 @@ class OutputDataset(Dataset):
             return None
         order = np.argsort(blk.keys, kind="stable")  # TypeError -> caller
         return blk.take(order)
+
+    def _mesh_range_sorted(self, pids, chunk=1 << 16):
+        """sort_by's redistribution over the mesh: numeric keys
+        re-partition by key range, sampled quantile bounds sending every
+        record through the byte exchange to bucket b (partition b, so
+        shard ``b % D``), and global order becomes bucket order, each
+        bucket merged alone.  A sorted-block generator, or None when the
+        mesh path is off, has one shard, or a key lane is an object lane.
+        The bucket runs are cached: a second read exchanges nothing."""
+        if self._range_cache is None:
+            budget = (self.store.budget if self.store is not None
+                      else settings.max_memory_per_stage)
+            gate = _exchange_mesh_gate(
+                budget, getattr(self.pset, "shuffle_target", None))
+            if gate is None:
+                return None
+            mesh, D, window = gate
+            refs = [r for pid in pids for r in self.pset.refs(pid)]
+            if not refs:
+                return iter(())
+            if any(r.key_dtype == object for r in refs):
+                return None
+            from .parallel import exchange as px
+
+            # Range bounds from a strided sample.  Hash-routed refs are
+            # key-random: one window per ref samples uniformly.  A sorted
+            # run is ordered within itself, so its early windows hold its
+            # smallest keys: up to 8 runs spread over the ref list (both
+            # ends included, for pre-sorted input) are read whole.
+            sorted_runs = bool(self.pset.key_sorted_runs)
+            if sorted_runs:
+                idx = np.unique(np.linspace(
+                    0, len(refs) - 1, min(8, len(refs))).astype(int))
+                sample_refs = [refs[i] for i in idx]
+                per = max(16, 65536 // max(1, sum(
+                    max(1, len(r) >> 14) for r in sample_refs)))
+            else:
+                sample_refs = refs
+                per = max(16, 65536 // len(refs))
+            samples = []
+            for r in sample_refs:
+                for wi, w in enumerate(r.iter_windows()):
+                    if len(w):
+                        stride = max(1, len(w) // per)
+                        samples.append(np.asarray(w.keys[::stride]))
+                    if not sorted_runs and wi == 0:
+                        break
+            if not samples:
+                return iter(())
+            allk = np.concatenate(samples)
+            bounds = np.quantile(allk, np.linspace(0, 1, D + 1)[1:-1])
+
+            bucket_refs = [[] for _ in range(D)]
+            state = {"batch": [], "bytes": 0, "seq": 0}
+
+            def flush():
+                if not state["batch"]:
+                    return
+                received, _moved = px.mesh_shuffle_blocks(
+                    mesh, state["batch"])
+                for b, blk in received:
+                    # each bucket piece key-sorted: a mergeable run
+                    run = blk.take(np.argsort(blk.keys, kind="stable"))
+                    bucket_refs[b].append(
+                        self.store.register(run) if self.store is not None
+                        else _RawRef(run))
+                state["batch"], state["bytes"] = [], 0
+
+            for r in refs:
+                for w in r.iter_windows():
+                    if not len(w):
+                        continue
+                    bidx = np.searchsorted(bounds, np.asarray(w.keys))
+                    order = np.argsort(bidx, kind="stable")
+                    sb = bidx[order]
+                    edges = np.flatnonzero(np.diff(sb)) + 1
+                    at = 0
+                    for end in list(edges) + [len(sb)]:
+                        if end > at:
+                            state["batch"].append(
+                                (state["seq"], state["seq"] % D,
+                                 int(sb[at]), w.take(order[at:end])))
+                            state["seq"] += 1
+                            state["bytes"] += w.nbytes() * (end - at) // max(
+                                1, len(w))
+                        at = end
+                    if state["bytes"] >= window:
+                        flush()
+            flush()
+            # a read after the stage walk: settle the spills these
+            # registrations queued (no other barrier runs for them)
+            if self.store is not None:
+                self.store.drain_writes()
+            self._range_cache = bucket_refs
+
+        def gen():
+            for brefs in self._range_cache:
+                parts = [ref.get() for ref in brefs]
+                for blk in self._merge_sorted_parts(parts, chunk):
+                    yield blk
+
+        return gen()
 
     def _vector_merge_blocks(self, pids, chunk=1 << 16):
         """K-way merge of numeric-keyed partitions, each sorted whole (on a
@@ -944,11 +1100,13 @@ class OutputDataset(Dataset):
                 yield blk
             return
         if self.pset.key_sorted_runs:
-            for b in self._merged_run_blocks():
+            for b in self._key_sorted_blocks():
                 yield b
             return
         pids = sorted(self.pset.parts)
-        blocks = self._vector_merge_blocks(pids)
+        blocks = self._mesh_range_sorted(pids)
+        if blocks is None:
+            blocks = self._vector_merge_blocks(pids)
         if blocks is not None:
             for b in blocks:
                 yield b
@@ -963,7 +1121,31 @@ class OutputDataset(Dataset):
             yield out
 
     def delete(self):
+        if self._range_cache is not None:
+            for brefs in self._range_cache:
+                for ref in brefs:
+                    if self.store is not None:
+                        self.store.drop_ref(ref)
+                    else:
+                        ref.delete()
+            self._range_cache = None
         self.pset.delete(self.store)
+
+
+class _RawRef(object):
+    """An in-memory stand-in for a BlockRef where an OutputDataset has no
+    store."""
+
+    __slots__ = ("_block",)
+
+    def __init__(self, block):
+        self._block = block
+
+    def get(self):
+        return self._block
+
+    def delete(self):
+        self._block = None
 
 
 class _SinkOutput(object):
@@ -984,8 +1166,8 @@ class StageStats(object):
     materialized inputs (a tap's size is unknown until read: 0),
     ``bytes_out`` its output's host and device bytes or its part files'.
     ``retries`` and ``quarantined`` count the stage's job re-executions
-    and poison records; ``shuffle_target`` holds what a run on one device
-    gives (shuffle routing across devices is a later slice)."""
+    and poison records; ``shuffle_target`` the plan's host-or-mesh
+    shuffle choice for the stage (None where it routes nothing)."""
 
     __slots__ = ("stage_id", "kind", "op", "target", "shuffle_target",
                  "n_jobs", "records_in", "records_out", "bytes_in",
@@ -1077,8 +1259,19 @@ class MTRunner(object):
         # a streamed chain's consumer results, computed at the producer's
         # turn: the consumer's turn takes them instead of running
         self._chain_results = {}
-        # reduces that took _mesh_reduce's device fold
+        # reduces that took _mesh_reduce's fold
         self.mesh_folds = 0
+        # general shuffles over the byte exchange, their payload bytes,
+        # schedule steps and modeled in-flight high-water mark
+        self.mesh_exchanges = 0
+        self.mesh_exchange_bytes = 0
+        self.mesh_exchange_steps = 0
+        self.mesh_exchange_peak_inflight = 0
+        self.coded_exchange = {"windows": 0, "raw_bytes": 0,
+                               "coded_bytes": 0}
+        # the plan's host-or-mesh shuffle choice per stage id
+        # (plan.lower.apply_shuffle): a dispatch hint, never a stage option
+        self._shuffle_targets = {}
         # reduce partitions that went out of core, by path
         self.streamed_assoc_folds = 0
         self.streamed_views = 0
@@ -1571,19 +1764,20 @@ class MTRunner(object):
                     for blk in wsink.finish() or ():
                         yield mi, blk
 
-            gen = codec()
+            gen = _overlap_stream(codec(), self.store,
+                                  size_of=lambda it: it[1].nbytes())
             prof = _profile.active()
             if prof is not None:
                 # one window pass serves every member: its time goes once
-                # to a label naming the fused scanners
+                # to a label naming the fused scanners, timed on this
+                # thread (the job's wait for each window, hand-offs
+                # included)
                 gen = prof.timed_iter(
                     gen, "scan:" + "+".join(
                         type(s.mapper).__name__ for s in stages),
                     records_of=lambda it: len(it[1]))
             try:
-                for mi, blk in _overlap_stream(
-                        gen, self.store,
-                        size_of=lambda it: it[1].nbytes()):
+                for mi, blk in gen:
                     members[mi][1](blk)
             except BaseException:
                 for (wsink, _push, _end), mj in zip(members, parts):
@@ -1655,6 +1849,7 @@ class MTRunner(object):
         # and the budget), so the fold reads them where they are.
         feeds_device_fold = (
             feeds_reduce and settings.use_device
+            and not _mode_off(settings.mesh_fold)
             and any(isinstance(s, GReduce) and stage.output in s.inputs
                     and len(s.inputs) == 1
                     and isinstance(s.reducer, base.AssocFoldReducer)
@@ -1819,12 +2014,16 @@ class MTRunner(object):
                 finally:
                     self._note_device_sink(sink)
             elif use_blocks:
-                blocks = mapper.map_blocks(chunk)
+                blocks = _overlap_stream(mapper.map_blocks(chunk),
+                                         self.store)
                 if prof is not None:
-                    # each window's scan and tokenize is the scanner's
+                    # the job's wait for each window (its scan and
+                    # tokenize, and the overlap executor's hand-off of it)
+                    # is the scanner's, timed on this thread, so it never
+                    # overlaps the combine folds timed here too
                     blocks = prof.timed_iter(blocks,
                                              _profile.op_label(mapper, 0))
-                for blk in _overlap_stream(blocks, self.store):
+                for blk in blocks:
                     push(blk)
             elif ident_blocks:
                 for blk in chunk.iter_blocks():
@@ -2002,6 +2201,132 @@ class MTRunner(object):
             pset.parts[pid] = refs
 
     # -- reduce ------------------------------------------------------------
+    def _code_exchange_batch(self, batch, op):
+        """Coded aggregation (``settings.exchange_coding``): each
+        destination partition's window blocks fold into one partial under
+        the stage's associative op before they cross the mesh (duplicate
+        keys collapse on the host; arXiv 1901.07418).  Per partition:
+        integer lanes for sums (a float sum's order would drift), any
+        numeric lane for min/max; anything else ships raw.  Returns
+        ``(coded batch, raw_bytes, coded_bytes)``."""
+        by_pid = {}
+        raw_bytes = 0
+        for seq, pid, item in batch:
+            blk = item.get() if isinstance(item, storage.BlockRef) else item
+            raw_bytes += blk.nbytes()
+            by_pid.setdefault(pid, []).append((seq, blk))
+        out = []
+        coded_bytes = 0
+        kinds = "iu" if op.kind == "sum" else "iuf"
+        for pid in sorted(by_pid):
+            items = by_pid[pid]
+            blocks = [b for _s, b in items]
+            merged = blocks[0] if len(blocks) == 1 else Block.concat(blocks)
+            vals = merged.values
+            folded = None
+            if vals.ndim == 1 and vals.dtype.kind in kinds:
+                try:
+                    folded = segment.fold_block(merged, op)
+                except Exception:  # noqa: BLE001 - exactness: ship raw
+                    folded = None
+            if folded is not None:
+                coded_bytes += folded.nbytes()
+                out.append((min(s for s, _b in items), pid, folded))
+            else:
+                for seq, blk in items:
+                    coded_bytes += blk.nbytes()
+                    out.append((seq, pid, blk))
+        return out, raw_bytes, coded_bytes
+
+    def _mesh_exchange_entries(self, entries, target=None, reducer=None):
+        """The general shuffle over the mesh: every input partition's
+        blocks cross the byte exchange (:mod:`.parallel.exchange`), in
+        windows bounded by the run budget, partition ``pid`` landing on
+        shard ``pid % D``; both sides of a join route alike, so they stay
+        co-partitioned.  ``target`` is the plan's shuffle choice for the
+        stage (:func:`_exchange_mesh_gate`); ``reducer`` (a one-input
+        stage's) arms the coded pre-fold of associative folds under
+        ``settings.exchange_coding``.  Returns the exchanged
+        PartitionSets (new refs in the store), or None where the gate
+        declines."""
+        gate = _exchange_mesh_gate(self.store.budget, target)
+        if gate is None:
+            return None
+        mesh, D, window = gate
+        from .parallel import exchange as px
+
+        coding_op = None
+        if (settings.exchange_coding_enabled() and len(entries) == 1
+                and isinstance(reducer, base.AssocFoldReducer)
+                and reducer.op.kind in ("sum", "min", "max")):
+            coding_op = reducer.op
+        out_entries = []
+        ran = False
+        for pset in entries:
+            out = storage.PartitionSet(pset.n_partitions)
+            state = {"batch": [], "bytes": 0, "seq": 0}
+
+            def flush():
+                nonlocal ran
+                batch = state["batch"]
+                if not batch:
+                    return
+                coding = None
+                if coding_op is not None:
+                    batch, raw_b, coded_b = self._code_exchange_batch(
+                        batch, coding_op)
+                    coding = {"mode": "camr", "raw_bytes": raw_b,
+                              "coded_bytes": coded_b}
+                    self.coded_exchange["windows"] += 1
+                    self.coded_exchange["raw_bytes"] += raw_b
+                    self.coded_exchange["coded_bytes"] += coded_b
+                routed = [(seq, seq % D, pid,
+                           item.get() if isinstance(item, storage.BlockRef)
+                           else item)
+                          for seq, pid, item in batch]
+                received, moved = px.mesh_shuffle_blocks(mesh, routed,
+                                                         coding=coding)
+                for pid, blk in received:
+                    out.add(pid, self.store.register(blk))
+                self.mesh_exchange_bytes += moved
+                self.mesh_exchange_steps += px.last_info["steps"]
+                self.mesh_exchange_peak_inflight = max(
+                    self.mesh_exchange_peak_inflight,
+                    px.last_info["peak_inflight_bytes"])
+                ran = True
+                state["batch"], state["bytes"] = [], 0
+
+            def add(pid, item, nbytes):
+                state["batch"].append((state["seq"], pid, item))
+                state["seq"] += 1
+                state["bytes"] += nbytes
+                if state["bytes"] >= window:
+                    flush()
+
+            for pid in sorted(pset.parts):
+                for ref in pset.parts[pid]:
+                    if ref.total_bytes <= window:
+                        add(pid, ref, ref.total_bytes)
+                        continue
+                    # a block past the window would amplify to D*D rows of
+                    # its own pow2 size: stream it in bounded pieces
+                    # (slices of a sorted run stay sorted runs; seq keeps
+                    # arrival order)
+                    piece, pbytes = [], 0
+                    for w in ref.iter_windows():
+                        piece.append(w)
+                        pbytes += w.nbytes()
+                        if pbytes >= window:
+                            add(pid, Block.concat(piece), pbytes)
+                            piece, pbytes = [], 0
+                    if piece:
+                        add(pid, Block.concat(piece), pbytes)
+            flush()
+            out_entries.append(out)
+        if ran:
+            self.mesh_exchanges += 1
+        return out_entries
+
     def _tiny_assoc_reduce(self, stage, entries):
         """The small associative fold: every partition folds in one pass
         over the concatenated refs (``sort_and_group`` then
@@ -2042,39 +2367,45 @@ class MTRunner(object):
         return pset, nrec, 1
 
     def _mesh_reduce(self, stage, entries):
-        """The device fold of an associative sum/min/max reduce whose
-        input holds device-resident refs (the HBM tier, the handoff): the
-        refs' lanes fold where they are, host refs window by window after
-        one upload each, partials refold on the device, and one fetch of
-        the distinct keys' results ends the stage, in one pass over every
-        partition.  Host memory holds one window and the key table.
+        """The mesh keyed fold of an associative sum/min/max reduce
+        (``settings.mesh_fold``): host refs window by window through
+        :func:`.parallel.shuffle.mesh_keyed_fold` (local fold, the
+        all_to_all by ``h1 % D``, the final fold), device-resident refs
+        (the HBM tier, the handoff) joining as partials on the device
+        and entering the program on their shards, partials refolded over
+        the mesh, and one fetch of the distinct keys' results ending the
+        stage, in one pass over every partition.  Host memory holds one
+        window and the key table.
 
-        The counterpart of the reference's ``_mesh_reduce``.  It runs on
-        one device until the multi-card slice (ROADMAP A5); on one device
-        the reference's collective program degenerates to the local fold
-        (:mod:`.parallel.shuffle`), and so does this.  As in the
-        reference on one device, a reduce with nothing device-resident
-        returns None (the host folds are cheaper).  None too wherever the
-        host path is needed for exactness: object or float values, a
-        running absolute sum past int64, a 64-bit key collision, or a key
-        table past a quarter of the budget."""
-        if (not settings.use_device or len(entries) != 1
+        The counterpart of the reference's ``_mesh_reduce``.  In "auto"
+        it engages when the mesh has more than one shard or the input
+        holds device refs (on one shard with nothing device-resident the
+        host folds are cheaper).  It returns None wherever the host path
+        is needed for exactness: object or float values, a running
+        absolute sum past int64, a 64-bit key collision, or a key table
+        past a quarter of the budget."""
+        mode = settings.mesh_fold
+        if (_mode_off(mode) or not settings.use_device or len(entries) != 1
                 or not isinstance(stage.reducer, base.AssocFoldReducer)):
             return None
         op = stage.reducer.op
         if op.kind not in ("sum", "min", "max"):
             return None
         refs = list(entries[0].all_refs())
-        if not any(r.is_device for r in refs):
+        if (not _mode_on(mode) and settings.device_count_for_auto() < 2
+                and not any(r.is_device for r in refs)):
             return None
+        if not refs:
+            return storage.PartitionSet(self.n_partitions, hash_routed=True,
+                                        hash_sorted=True), 0, 1
         if any(r.value_dtype == object for r in refs):
             return None
         from .blocks import _concat_cols
         from .ops.hashing import combine64
-        from .parallel.shuffle import (compact_partial, mesh_keyed_fold,
-                                       mesh_keyed_refold)
+        from .parallel import shuffle as _shuffle
+        from .parallel.mesh import data_mesh
 
-        dev = self.device
+        mesh = data_mesh()
         window_budget = max(1 << 20, self.store.budget // 4)
         acc_budget = max(1 << 20, self.store.budget // 4)
 
@@ -2174,8 +2505,8 @@ class MTRunner(object):
                 acc["nonneg"] = False
 
         def compact():
-            f = compact_partial(mesh_keyed_refold(partials, op.kind,
-                                                  nonneg=acc["nonneg"]))
+            f = _shuffle.compact_partial(_shuffle.mesh_keyed_refold(
+                mesh, partials, op.kind, nonneg=acc["nonneg"]))
             del partials[:]
             partials.append(f)
 
@@ -2202,8 +2533,8 @@ class MTRunner(object):
             account(np.abs(v64.astype(np.float64)).sum(), int(v64.min()))
             h1, h2 = blk.hashes()
             merge_table(blk.keys, h1, h2)
-            partials.append(mesh_keyed_fold(h1, h2, v64, op.kind,
-                                            device=dev))
+            partials.append(_shuffle.mesh_keyed_fold(
+                mesh, h1, h2, v64, op.kind, raw=True))
             self.store.count_h2d(16 * len(blk))
             maybe_compact()
 
@@ -2272,7 +2603,8 @@ class MTRunner(object):
             tk.take(idx), fv, fh1, fh2, bool(stage.options.get("memory")))
         with self._lock:
             self.mesh_folds += 1
-        log.info("device fold: %d keys from %d device refs", nrec, dev_folds)
+        log.info("mesh fold: %d keys over %d shard(s), %d device refs",
+                 nrec, len(mesh.devices), dev_folds)
         return pset, nrec, 1
 
     def _emit_keyed_fold(self, keys, vals, h1, h2, pin):
@@ -2315,6 +2647,11 @@ class MTRunner(object):
         fast = self._tiny_assoc_reduce(stage, entries)
         if fast is not None:
             return fast
+        exchanged = self._mesh_exchange_entries(
+            entries, target=self._shuffle_targets.get(stage_id),
+            reducer=stage.reducer)
+        if exchanged is not None:
+            entries = exchanged
         threshold = settings.streaming_reduce_threshold
         if threshold is None:
             threshold = self.store.budget
@@ -2442,8 +2779,15 @@ class MTRunner(object):
 
         P = self.n_partitions
         n_reducers = stage.options.get("n_reducers", self.n_reducers)
-        results = self._pool_map(job, list(range(P)), n_reducers,
-                                 label="reduce")
+        try:
+            results = self._pool_map(job, list(range(P)), n_reducers,
+                                     label="reduce")
+        finally:
+            if exchanged is not None:
+                # the exchanged copies are this reduce's own; the
+                # originals in env keep the stage input's lifecycle
+                for e in exchanged:
+                    e.delete(self.store)
         pset = storage.PartitionSet(P)
         for pid, refs in results:
             for ref in refs:
@@ -3125,6 +3469,11 @@ class MTRunner(object):
               stage.reducer if isinstance(stage, GReduce) else stage.sinker)
         st = StageStats(sid, kind, plan.ir.chain_name(op),
                         stage.options.get("exec_target", "host"))
+        # the plan's shuffle choice rides the materialized partitions too:
+        # a lazily read sorted output picks its range read at read time
+        st.shuffle_target = self._shuffle_targets.get(sid)
+        if isinstance(result, storage.PartitionSet):
+            result.shuffle_target = st.shuffle_target
         st.n_jobs = njobs
         st.records_out = nrec
         st.seconds = time.perf_counter() - t0
@@ -3279,13 +3628,22 @@ class MTRunner(object):
                 "hbm_peak_bytes": sto.hbm_peak_bytes,
                 "overlap_peak_bytes": sto.overlap_peak_bytes,
             },
-            # one device: nothing folds or moves across devices (the
-            # device folds on the card are device.mesh_folds)
-            "mesh": {"devices": 1, "folds": 0, "exchanges": 0,
-                     "exchange_bytes": 0,
-                     "exchange": {"bytes": 0, "steps": 0,
-                                  "peak_inflight_bytes": 0,
-                                  "mesh_stages": 0}},
+            # the mesh: its shards, the keyed folds and byte exchanges
+            # (schedule steps, the modeled in-flight high-water mark and
+            # the budget it was planned under; mesh_stages, the stages
+            # the plan routed over the exchange)
+            "mesh": {"devices": settings.device_count_for_auto(),
+                     "folds": self.mesh_folds,
+                     "exchanges": self.mesh_exchanges,
+                     "exchange_bytes": self.mesh_exchange_bytes,
+                     "exchange": {
+                         "bytes": self.mesh_exchange_bytes,
+                         "steps": self.mesh_exchange_steps,
+                         "peak_inflight_bytes":
+                             self.mesh_exchange_peak_inflight,
+                         "hbm_budget": settings.exchange_hbm_budget,
+                         "mesh_stages": ((self.plan_report or {}).get(
+                             "shuffle") or {}).get("mesh_stages", 0)}},
             "device": device,
             "streamed_assoc_folds": self.streamed_assoc_folds,
             "pipeline": self._pipeline_section(),
@@ -3311,6 +3669,13 @@ class MTRunner(object):
                                         self.scan_groups]},
             "tiny_folds": self.tiny_folds,
         }
+        if self.coded_exchange["windows"]:
+            # what the coded pre-fold traded for shuffle bytes
+            ce = dict(self.coded_exchange, mode=str(settings.exchange_coding))
+            if ce["raw_bytes"]:
+                ce["savings_fraction"] = round(
+                    1.0 - ce["coded_bytes"] / float(ce["raw_bytes"]), 4)
+            summary["mesh"]["exchange"]["coding"] = ce
         if self._reuse_summary is not None:
             # the cross-run cache: hits, bytes mounted and published,
             # incremental merges, recompute fallbacks, the decisions

@@ -89,6 +89,78 @@ def _device_type():
     return str(device).split(":")[0]
 
 
+#: The mesh axis name (``dampr_tpu.settings.mesh_axis``).
+mesh_axis = "shards"
+
+#: The shards of the mesh (:mod:`.parallel.mesh`), in order: a string of
+#: comma-separated devices, each with an optional ``*n`` repeat
+#: (``"cpu*8"``, ``"cuda:0*4"``, ``"cuda:0,cuda:1"``), or a list of
+#: devices.  One device may be named more than once.  None (the default)
+#: is every visible card, or :data:`device` when that is the CPU.  A rig
+#: for tests and the smoke script, not a feature: it is how an 8-shard
+#: mesh runs on the CPU (the JAX package's tests force 8 virtual CPU
+#: devices) and a 4-shard mesh on one card.  A ``cuda`` shard with no
+#: card raises; it never runs on the CPU.
+mesh_devices = os.environ.get("DAMPR_TPU_TORCH_MESH_DEVICES") or None
+
+
+def _mesh_entries():
+    """The unresolved mesh device names (see :data:`mesh_devices`)."""
+    spec = mesh_devices
+    if spec is None:
+        if _device_type() == "cpu":
+            return [str(device)]
+        import torch
+
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        return ["cuda:{}".format(i) for i in range(n)] or [str(device)]
+    if isinstance(spec, str):
+        out = []
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            name, _, times = part.partition("*")
+            out.extend([name.strip()] * (int(times) if times else 1))
+        return out
+    return [str(d) for d in spec]
+
+
+def mesh_device_list():
+    """The mesh's shards as resolved ``torch.device``s; raises for a
+    ``cuda`` shard with no such card (never a silent CPU run)."""
+    import torch
+
+    out = []
+    for name in _mesh_entries():
+        d = torch.device(name)
+        if d.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "mesh shard {!r} names a card but "
+                    "torch.cuda.is_available() is False; set mesh_devices "
+                    "(DAMPR_TPU_TORCH_MESH_DEVICES) to CPU shards to run "
+                    "on the CPU".format(name))
+            index = torch.cuda.current_device() if d.index is None \
+                else d.index
+            if index >= torch.cuda.device_count():
+                raise RuntimeError("mesh shard {!r}: only {} card(s) "
+                                   "visible".format(
+                                       name, torch.cuda.device_count()))
+            d = torch.device("cuda", index)
+        out.append(d)
+    if not out:
+        raise ValueError("mesh_devices names no device")
+    return out
+
+
+def device_count_for_auto():
+    """Shards of the mesh for "auto" mesh decisions: the length of
+    :data:`mesh_devices` (1 on one card or the CPU by default), counted
+    without resolving a device."""
+    return len(_mesh_entries())
+
+
 def use_device_for(n):
     """Device-dispatch decision for an n-record keyed batch: at least 4096
     records on the CPU device, 65536 on a card (below that a launch and a
@@ -185,6 +257,64 @@ def effective_handoff_budget():
 def _env_flag(name, default="0"):
     return os.environ.get(name, default).lower() not in (
         "0", "false", "no", "off", "")
+
+
+#: Capacity slack of the keyed fold's per-destination buffers
+#: (:func:`.parallel.shuffle.mesh_keyed_fold`: ``ceil(N / D) * factor``
+#: rows per (source, destination); an overflow doubles it and reruns).
+shuffle_capacity_factor = 1.5
+
+#: Route associative sum/min/max reduces through the mesh keyed fold
+#: (local fold -> all_to_all -> final fold): "auto" when the mesh has
+#: more than one shard or the reduce reads device refs, "on", "off".  The
+#: host path takes over wherever exactness needs it (object or float
+#: values, a running sum past int64, a 64-bit key collision).
+mesh_fold = os.environ.get("DAMPR_TPU_TORCH_MESH_FOLD", "auto")
+
+#: Route the general shuffle (non-associative group_by reduces, joins,
+#: sort_by's range read) through the mesh byte exchange
+#: (:mod:`.parallel.exchange`): partition ``pid`` lands on shard
+#: ``pid % D``.  "auto" when the mesh has more than one shard, "on",
+#: "off".  ``mesh_fold`` takes precedence where it applies.
+mesh_exchange = os.environ.get("DAMPR_TPU_TORCH_MESH_EXCHANGE", "auto")
+
+#: Peak in-flight device bytes of one exchange step (send and delivered
+#: buffers, :func:`.parallel.replan.step_inflight_bytes`): every window
+#: runs as a schedule of chunked steps that each fit it.
+exchange_hbm_budget = int(os.environ.get(
+    "DAMPR_TPU_TORCH_EXCHANGE_HBM", str(64 * 1024 ** 2)))
+
+#: An explicit cap (bytes) on one piece of the exchange schedule, below
+#: what the budget allows; 0 derives it from the budget.
+exchange_chunk_bytes = int(os.environ.get("DAMPR_TPU_TORCH_EXCHANGE_CHUNK",
+                                          "0"))
+
+#: Recorded shuffle input under which "auto" keeps a stage on the host
+#: shuffle (:func:`.plan.cost.shuffle_choice`); explicit modes win.
+exchange_min_bytes = int(os.environ.get(
+    "DAMPR_TPU_TORCH_EXCHANGE_MIN_BYTES", str(4 * 1024 ** 2)))
+
+#: Deadline (ms) of one exchange step; 0 = none.  A step past it flushes
+#: the flight recorder, records an ``exchange_timeout`` fault event (the
+#: next run under the name keeps that stage on the host shuffle) and
+#: exits the process with 70.
+exchange_timeout_ms = int(os.environ.get(
+    "DAMPR_TPU_TORCH_EXCHANGE_TIMEOUT_MS", "0"))
+
+#: Coded aggregation over the byte exchange: "camr" folds each window's
+#: blocks per destination partition under the stage's associative op
+#: before they cross (integer lanes for sums, numeric for min/max);
+#: "off" ships them raw.
+exchange_coding = os.environ.get("DAMPR_TPU_TORCH_EXCHANGE_CODING", "off")
+
+
+def exchange_coding_enabled():
+    return str(exchange_coding).lower() in ("camr", "on", "1", "true")
+
+
+#: Per-route compression of the exchange's blobs: "auto" (zstd, then lz4,
+#: else raw), a codec name, or "off".
+exchange_codec = os.environ.get("DAMPR_TPU_TORCH_EXCHANGE_CODEC", "auto")
 
 
 #: Static pipeline analysis (:mod:`.analyze`): UDF purity and determinism

@@ -112,7 +112,7 @@ class BlockRef(object):
         """None (the lane stays on the host) or ``(lane, lane_abs,
         lane_min)``: the int64 device lane of an integer or bool value
         lane, a float64 over-estimate of its absolute sum and its minimum.
-        It mirrors the fold's lane whitelist
+        It mirrors the integer part of the fold's lane whitelist
         (``parallel.shuffle._lane_safe_values``), so a device ref never
         meets a refusal at reduce time.  The reference's int32 branch (JAX
         without x64) has no counterpart: torch lanes are int64.  Floats stay
@@ -1096,6 +1096,9 @@ class PartitionSet(object):
         self.hash_sorted = hash_sorted
         self.key_sorted_runs = key_sorted_runs
         self.pipeline_fold_delta = {}
+        # the plan's shuffle choice for the producing stage (the runner
+        # sets it): a sorted read's range redistribution follows it
+        self.shuffle_target = None
 
     def add(self, pid, ref):
         self.parts.setdefault(pid, []).append(ref)

@@ -179,7 +179,8 @@ class TestAutotuneSession:
                                "spill_codec": "zstd",
                                "exchange_hbm_budget": 1 << 26})
         assert env == {"DAMPR_TPU_TORCH_OVERLAP_WINDOWS": "4",
-                       "DAMPR_TPU_TORCH_SPILL_CODEC": "zstd"}
+                       "DAMPR_TPU_TORCH_SPILL_CODEC": "zstd",
+                       "DAMPR_TPU_TORCH_EXCHANGE_HBM": str(1 << 26)}
 
     def test_dir_digest_equals_jax(self, tmp_path):
         d = tmp_path / "out"
@@ -345,7 +346,8 @@ class TestSubprocessSession:
 
 C3_VALUES = {"merge_fanin": 77, "overlap_windows": 5,
              "spill_write_threads": 3, "spill_read_prefetch": 6,
-             "spill_codec": "zlib"}
+             "spill_codec": "zlib", "exchange_hbm_budget": 1 << 25,
+             "exchange_chunk_bytes": 4096}
 
 PROBE = """
 import json, sys
@@ -381,9 +383,6 @@ class TestC3:
         assert {k for k, v in model.ENV_OF.items() if v} == set(C3_VALUES)
         for knob in C3_VALUES:
             assert model.ENV_OF[knob].startswith("DAMPR_TPU_TORCH_")
-        # the exchange knobs wait for a mesh
-        assert model.ENV_OF["exchange_hbm_budget"] is None
-        assert model.ENV_OF["exchange_chunk_bytes"] is None
 
     @pytest.mark.parametrize("knob", sorted(C3_VALUES))
     def test_variable_sets_the_knob(self, probes, knob):

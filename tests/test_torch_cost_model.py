@@ -538,8 +538,12 @@ class TestShuffleChoice:
                                                       mode=mode, model=rm)
 
     def test_constants_are_the_jax_defaults(self):
-        assert cost.EXCHANGE_MIN_BYTES == 4 * 1024 ** 2
-        assert cost.EXCHANGE_HBM_BUDGET == 64 * 1024 ** 2
+        """The routing's two numbers are settings now, as in the JAX
+        package, with its defaults."""
+        assert settings.exchange_min_bytes == \
+            ref_settings.exchange_min_bytes == 4 * 1024 ** 2
+        assert settings.exchange_hbm_budget == \
+            ref_settings.exchange_hbm_budget == 64 * 1024 ** 2
 
 
 class TestTuned:

@@ -46,10 +46,7 @@ with open(os.path.join(ROOT, "docs", "doctor_schema.json")) as _f:
     DOCTOR_SCHEMA = json.load(_f)
 
 #: The JAX playbook's knobs the port leaves out, pinned.
-LEFT_OUT = {"exchange_chunk_bytes", "exchange_coding", "exchange_hbm_budget",
-            "exchange_min_bytes", "exchange_timeout_ms", "lower_min_records",
-            "mesh_exchange", "mesh_fold", "mitigate",
-            "shuffle_capacity_factor", "speculate_after_steps",
+LEFT_OUT = {"lower_min_records", "mitigate", "speculate_after_steps",
             "speculate_threshold", "spill_inflight_bytes",
             "spill_read_threads"}
 

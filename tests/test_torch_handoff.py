@@ -39,6 +39,7 @@ from dampr_tpu_torch.ops import handoff as port_handoff
 from dampr_tpu_torch.ops import hashing as port_hashing
 from dampr_tpu_torch.ops import lower as port_lower
 from dampr_tpu_torch.ops import text as port_text
+from dampr_tpu_torch.parallel import mesh as port_mesh
 from dampr_tpu_torch.parallel import shuffle as port_shuffle
 from dampr_tpu_torch.plan import passes as port_passes
 
@@ -639,10 +640,12 @@ def _live_rows(h1, h2, v, ok, view):
 @pytest.mark.parametrize("signed", [False, True])
 def test_refold_matches_reference(kind, signed):
     """``mesh_keyed_refold`` over ``mesh_keyed_fold`` partials:
-    the port's live rows equal the JAX package's as sorted sets (the
-    nonneg sum takes K2's scan, the rest the scatter folds)."""
+    the port's live rows on a mesh of one shard (the local fold alone)
+    equal the JAX package's as sorted sets (the nonneg sum takes K2's
+    scan, the rest the scatter folds)."""
     rng = np.random.RandomState(17)
     mesh = data_mesh()
+    pmesh = port_mesh.data_mesh(["cpu"])
     ref_parts, port_parts = [], []
     for n in (3000, 1, 777):
         h1 = rng.randint(0, 50, size=n).astype(np.uint32) * np.uint32(
@@ -651,11 +654,13 @@ def test_refold_matches_reference(kind, signed):
         v = rng.randint(-40 if signed else 0, 100, size=n).astype(np.int64)
         ref_parts.append(ref_shuffle.mesh_keyed_fold(mesh, h1, h2, v, kind,
                                                      raw=True))
-        port_parts.append(port_shuffle.mesh_keyed_fold(h1, h2, v, kind))
+        port_parts.append(port_shuffle.mesh_keyed_fold(pmesh, h1, h2, v,
+                                                       kind, raw=True))
     nonneg = kind == "sum" and not signed
     ref = ref_shuffle.mesh_keyed_refold(mesh, ref_parts, kind,
                                         nonneg=nonneg)
-    port = port_shuffle.mesh_keyed_refold(port_parts, kind, nonneg=nonneg)
+    port = port_shuffle.mesh_keyed_refold(pmesh, port_parts, kind,
+                                          nonneg=nonneg)
     want = _live_rows(*ref, view=np.asarray)
     assert want
     assert _live_rows(*port, view=lambda t: t.numpy()) == want

@@ -293,7 +293,8 @@ class TestDeviceFoldWindows:
         is a failure of the run, not a reason for the host fold."""
         from dampr_tpu_torch.parallel import shuffle
 
-        def refuse(*a, **kw):
+        def refuse(mesh, h1, h2, v, kind="sum", capacity_factor=None,
+                   raw=False):
             raise ValueError("segfold refused the lanes (injected)")
 
         monkeypatch.setattr(shuffle, "mesh_keyed_fold", refuse)

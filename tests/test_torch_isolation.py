@@ -96,6 +96,20 @@ ooc = {"fold": words.count().run(memory_budget=1).read(),
        .run(memory_budget=1).read(),
        "sort": Dampr.memory([3, 1, 2] * 50).sort_by(lambda x: x)
        .run(memory_budget=1).read()[::50]}
+settings.streaming_reduce_threshold = None
+settings.mesh_devices = ["cpu"] * 4
+import numpy as np
+from dampr_tpu_torch.parallel import data_mesh, ring, sgd
+mesh = data_mesh()
+records["mesh"] = [
+    words.count().read(),
+    left.join(right).reduce(lambda l, r: (list(l), list(r))).read(),
+    Dampr.memory([3, 1, 2] * 50).sort_by(lambda x: x)
+    .run(memory_budget=1).read()[::50],
+    ring.ring_allreduce(mesh, np.arange(8)).tolist(),
+    sgd.train(mesh, np.ones((8, 2), np.float32), np.ones(8, np.float32),
+              n_steps=2)[1] > 0]
+settings.mesh_devices = None
 loaded = sorted(m for m in sys.modules
                 if m == "dampr_tpu" or m.startswith("dampr_tpu."))
 print(json.dumps({"modules": names, "reference": loaded,
@@ -126,7 +140,10 @@ print(json.dumps({"modules": names, "reference": loaded,
                  "plan.model", "plan.pipeline", "plan.explain", "faults",
                  "resume", "plan.reuse", "obs.promtext", "obs.serve",
                  "obs.timeseries", "serve", "serve.wire", "serve.scheduler",
-                 "serve.worker", "serve.daemon", "serve.client"):
+                 "serve.worker", "serve.daemon", "serve.client",
+                 "parallel", "parallel.mesh", "parallel.shuffle",
+                 "parallel.replan", "parallel.exchange", "parallel.ring",
+                 "parallel.sgd"):
         assert "dampr_tpu_torch." + name in report["modules"]
     assert report["idf"] == [["a", 2, 4], ["b", 2, 4], ["c", 1, 4]]
     assert report["len"] == [4]
@@ -146,7 +163,9 @@ print(json.dumps({"modules": names, "reference": loaded,
         "resume": [[["a", 2], ["b", 2], ["c", 1]], 1, ["resumed-reduce"],
                    [["a", 2], ["b", 2], ["c", 1]], ["DTA501", "DTA501"]],
         "adapt": [False, True, True],
-        "reuse": [[[["a", 2], ["b", 2], ["c", 1]]] * 2, [0, 1]]}
+        "reuse": [[[["a", 2], ["b", 2], ["c", 1]]] * 2, [0, 1]],
+        "mesh": [[["a", 2], ["b", 2], ["c", 1]], pair, [1, 2, 3],
+                 [12, 16] * 4, True]}
     assert report["ooc"] == {"fold": [["a", 2], ["b", 2], ["c", 1]],
                              "join": pair, "sort": [1, 2, 3]}
 
@@ -157,6 +176,29 @@ def test_no_source_imports_jax_or_dampr_tpu(path):
     with open(path, encoding="utf-8") as f:
         src = f.read()
     assert not _FORBIDDEN.findall(src), path
+
+
+def test_cuda_mesh_shard_without_a_card_raises():
+    """A mesh that names a ``cuda`` shard on a machine without a card
+    raises where the mesh is built, and a run that would engage it fails;
+    it never runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the no-card case cannot occur")
+    from dampr_tpu_torch import Dampr, settings
+    from dampr_tpu_torch.parallel import mesh
+
+    old = (settings.device, settings.mesh_devices, settings.mesh_fold)
+    settings.device = "cpu"
+    settings.mesh_devices = "cuda:0*4"
+    settings.mesh_fold = "on"
+    try:
+        assert settings.device_count_for_auto() == 4
+        with pytest.raises(RuntimeError, match="is_available"):
+            mesh.data_mesh()
+        with pytest.raises(RuntimeError, match="is_available"):
+            Dampr.memory(list(range(100)), partitions=4).count().read()
+    finally:
+        settings.device, settings.mesh_devices, settings.mesh_fold = old
 
 
 def test_cuda_device_without_a_card_raises():
