@@ -194,7 +194,17 @@ the kernels build for sm_90a).  Phases, each of which must pass:
     equal to its mesh-off run, once more under a 256 KiB budget; the
     rings (B9) and 20 SGD steps (B10) at D = 4 against plain torch and
     D = 1; one ``mesh-programs`` line (B7-B10 timed, launches, bounds);
-18. ``serve``, the serve daemon and the cross-run cache
+18. ``fleet``, the mesh across processes (:func:`phase_fleet`): two rank
+    processes on the card, each naming 2 shards of it (a global mesh of
+    4), a gloo process group between them, over the 16 MB head: TF-IDF
+    through the mesh fold (sink lines equal the one-process run's, K2
+    launched on each rank), group_by, the joins and sort_by through the
+    byte exchange (also under a 256 KiB budget), a rank killed
+    mid-exchange (its peer's watchdog aborts within twice the deadline,
+    both crashdumps valid, a ``resume="auto"`` rerun exact), the straggler
+    mitigation engaging and disengaging exactly, and rank 0's fleet merge
+    naming the straggler; one ``fleet`` JSON line;
+19. ``serve``, the serve daemon and the cross-run cache
     (:func:`phase_serve`): ``python -m dampr_tpu_torch.serve.daemon`` as
     its own process (2 worker slots, its own scratch root and cache
     directory), each job in a worker process on the card, one ``serve``
@@ -211,7 +221,7 @@ the kernels build for sm_90a).  Phases, each of which must pass:
     ``serve-metrics`` and ``serve-overhead`` (the worker's start-up);
     the daemon's pid never holds a CUDA context
     (``nvidia-smi --query-compute-apps``, polled through the phase);
-19. ``tooling``, the port's tools (:func:`phase_tooling`): ``python -m
+20. ``tooling``, the port's tools (:func:`phase_tooling`): ``python -m
     dampr_tpu_torch.cli bench`` in its own process on the card, traced,
     with autotune on and 3 trials, over the ``--mb`` corpus: its exact
     check against the single-core baseline, a lowered stage and a handoff
@@ -232,7 +242,8 @@ phase's "off" run.  Prints a
 ``{"kernels": [...]}`` JSON line second to last (``launches_faults``: the
 retried TF-IDF run's; ``launches_serve``: the served cold run's, read
 from the worker's ``stats.json``; ``launches_tooling``: the bench's
-winning autotune trial's, from its ``stats.json``) and
+winning autotune trial's, from its ``stats.json``; ``launches_fleet``:
+each rank's in the fleet phase's TF-IDF) and
 ``{"ok": true, "device": {...}}`` last; exits non-zero, printing no
 result, if there is no card or any phase fails.
 """
@@ -250,6 +261,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 #: H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth and
 #: the non-tensor-core 32-bit vector rate, used for 32-bit integer ops.
@@ -3380,9 +3392,10 @@ def fold_dict(hashing, words, fh1, fh2, fv):
 def mesh_exchange_pipes(Dampr, head, chunk, head_df):
     """The mesh phase's exchange pipelines over the corpus's head: a
     non-associative group_by, an inner and a left join, and a sort_by
-    (numeric keys: its read redistributes by key range)."""
-    import zlib
-
+    (numeric keys: its read redistributes by key range).  Every UDF
+    captures only picklable state (``zlib`` is a global here, not a
+    closure variable), so the fleet phase's ranks pass the analyzer's
+    pre-flight check."""
     lines = Dampr.text(head, chunk)
     right = Dampr.memory(sorted(head_df.items())[::3]).group_by(
         lambda wc: wc[0])
@@ -3919,6 +3932,635 @@ def startup_breakdown(settings):
     out = json.loads(res.stdout.strip().splitlines()[-1])
     out["process_wall"] = wall
     return out
+
+
+#: The fleet phase's deployment: two rank processes on the one card, each
+#: naming :data:`FLEET_LOCAL` shards of it (a global mesh of 4), a gloo
+#: process group between them.
+FLEET_RANKS = 2
+FLEET_LOCAL = 2
+FLEET_DEVICE = "cuda:0"
+#: The step watchdog's deadline in the fleet phase: the kill part's rank 0
+#: must exit within twice it of rank 1's death.
+FLEET_TIMEOUT_MS = 6000
+#: The mitigation part: rank 1 sleeps this long at every exchange step for
+#: the first FLEET_SLOW_WINDOW_MS of the run (the fault grammar's windowed
+#: slowness), and the run's budget keeps its exchange windows small
+#: (256 KiB at D = 4), so it has windows to engage, skip, probe and
+#: disengage in.
+FLEET_SLOW_MS = 200
+FLEET_SLOW_WINDOW_MS = 2000
+FLEET_MIT_BUDGET = 32 * 1024 ** 2
+#: The traced part: rank 1 enters every exchange step this late.
+FLEET_LAG_MS = 150
+#: The exchange budget of part (b)'s second pass.
+FLEET_SMALL_HBM = 256 * 1024
+#: The most seconds one pair of rank processes may take.
+FLEET_PAIR_TIMEOUT = 600
+#: The timed B8 step's cell (bytes from each shard to each shard: 1 MiB,
+#: the mesh phase's), and the timed calls of B7 and B8 each.
+FLEET_STEP_CELL = 1 << 20
+FLEET_PROGRAM_REPS = 10
+
+
+def records_digest(recs, ordered=False):
+    """A record list's count and SHA-256 (of its reprs, in order where
+    ``ordered``, else sorted): what two processes compare."""
+    import hashlib
+
+    reprs = [repr(r) for r in recs]
+    if not ordered:
+        reprs.sort()
+    h = hashlib.sha256()
+    for r in reprs:
+        h.update(r.encode("utf-8"))
+        h.update(b"\n")
+    return {"records": len(reprs), "sha256": h.hexdigest()}
+
+
+def fleet_kill_pipe(Dampr, head, chunk):
+    """The kill part's resumable pipeline: a checkpointed map, then a
+    non-associative group_by through the byte exchange."""
+    return (Dampr.text(head, chunk)
+            .map(lambda l: (len(l) % 97, l))
+            .checkpoint(force=True)
+            .group_by(lambda t: t[0])
+            .reduce(lambda k, vs: sorted(v[1] for v in vs)[:3]))
+
+
+def _fleet_part_tfidf(ctx):
+    """(a) TF-IDF through the mesh fold across both ranks."""
+    Dampr, DocFreq, settings = ctx["Dampr"], ctx["DocFreq"], ctx["settings"]
+    settings.mesh_fold = "on"
+    settings.mesh_exchange = "auto"
+    out_dir = os.path.join(ctx["rdir"], "idf")
+    for k in ctx["kernels"].values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    em = tfidf_pipeline(Dampr, DocFreq, ctx["head"], ctx["chunk"],
+                        out_dir).run(name="fleet-tfidf")
+    secs = time.perf_counter() - t0
+    stats = em.stats()
+    return {"seconds": secs,
+            "launches": {k: kern.launches
+                         for k, kern in ctx["kernels"].items()},
+            "fold_segfold_launches": sum(
+                st["launches"]["segfold"] for st in stats["stages"]
+                if st["kind"] == "reduce"),
+            "mesh": stats["mesh"],
+            "sink": records_digest(part_lines(out_dir))}
+
+
+def _fleet_part_exchange(ctx):
+    """(b) group_by, the joins and sort_by through the byte exchange
+    across both ranks, at the default budget and at 256 KiB."""
+    Dampr, settings = ctx["Dampr"], ctx["settings"]
+    px, pmesh = ctx["px"], ctx["pmesh"]
+    settings.mesh_fold = "off"
+    settings.mesh_exchange = "on"
+    default = settings.exchange_hbm_budget
+    rows = {}
+    for label, hbm in (("default", default), ("256k", FLEET_SMALL_HBM)):
+        settings.exchange_hbm_budget = hbm
+        for name in ("group_by", "join", "left_join", "sort_by"):
+            pipe = mesh_exchange_pipes(Dampr, ctx["head"], ctx["chunk"],
+                                       ctx["head_df"])[name]
+            x0 = (px.total_exchanges, px.total_steps, px.total_bytes)
+            s0 = (pmesh.staging_seconds, pmesh.wire_seconds)
+            t0 = time.perf_counter()
+            em = pipe.run(name="fleet-x-{}-{}".format(name, label),
+                          memory_budget=(
+                              max(1 << 16, os.path.getsize(ctx["head"]) // 4)
+                              if name == "sort_by" else None))
+            recs = em.read()
+            rows["{}-{}".format(name, label)] = {
+                "seconds": time.perf_counter() - t0,
+                "exchanges": px.total_exchanges - x0[0],
+                "steps": px.total_steps - x0[1],
+                "bytes": px.total_bytes - x0[2],
+                "staging_seconds": pmesh.staging_seconds - s0[0],
+                "wire_seconds": pmesh.wire_seconds - s0[1],
+                "digest": records_digest(recs, ordered=name == "sort_by")}
+    settings.exchange_hbm_budget = default
+    return {"runs": rows}
+
+
+def _fleet_part_mitigate(ctx):
+    """(d) group_by through the exchange with the mitigation on and rank
+    1 slowed for a window of the run."""
+    Dampr, settings, px = ctx["Dampr"], ctx["settings"], ctx["px"]
+    saved = {k: getattr(settings, k) for k in (
+        "mitigate", "speculate_after_steps", "mitigate_probe_windows",
+        "speculate_threshold", "exchange_timeout_ms", "faults")}
+    settings.mesh_fold = "off"
+    settings.mesh_exchange = "on"
+    settings.mitigate = "on"
+    settings.speculate_after_steps = 2
+    settings.mitigate_probe_windows = 2
+    settings.speculate_threshold = 1.5
+    # window skipping needs the bounded-collective regime
+    settings.exchange_timeout_ms = FLEET_TIMEOUT_MS
+    settings.faults = ("exchange_step:rank=1,sleep_ms={},every=1,"
+                       "duration_ms={},times=1000000".format(
+                           FLEET_SLOW_MS, FLEET_SLOW_WINDOW_MS))
+    try:
+        pipe = mesh_exchange_pipes(Dampr, ctx["head"], ctx["chunk"],
+                                   ctx["head_df"])["group_by"]
+        x0 = px.total_exchanges
+        t0 = time.perf_counter()
+        em = pipe.run(name="fleet-mitigate", memory_budget=FLEET_MIT_BUDGET)
+        recs = em.read()
+        mit = em.stats()["mitigation"]
+    finally:
+        for k, v in saved.items():
+            setattr(settings, k, v)
+        ctx["faults"].clear()  # the run's plan outlives it otherwise
+    return {"seconds": time.perf_counter() - t0,
+            "windows": px.total_exchanges - x0,
+            "mitigation": {k: mit[k] for k in (
+                "engaged", "observations", "engagements", "disengagements",
+                "windows_skipped", "speculative_attempts",
+                "speculative_wins", "stolen_partitions", "straggler_rank",
+                "downweighted_ranks")},
+            "digest": records_digest(recs)}
+
+
+def _fleet_part_traced(ctx):
+    """(e) a traced group_by with rank 1 late at every step: rank 0 merges
+    the ranks' artifacts at finalize."""
+    Dampr, settings = ctx["Dampr"], ctx["settings"]
+    saved = {k: getattr(settings, k) for k in ("trace", "trace_dir",
+                                               "faults")}
+    settings.mesh_fold = "off"
+    settings.mesh_exchange = "on"
+    settings.trace = True
+    settings.trace_dir = os.path.join(ctx["fdir"], "trace")
+    settings.faults = "exchange_step:rank=1,sleep_ms={}".format(FLEET_LAG_MS)
+    try:
+        pipe = mesh_exchange_pipes(Dampr, ctx["head"], ctx["chunk"],
+                                   ctx["head_df"])["group_by"]
+        t0 = time.perf_counter()
+        em = pipe.run(name="fleet-traced")
+        recs = em.read()
+        stats = em.stats()
+    finally:
+        for k, v in saved.items():
+            setattr(settings, k, v)
+        ctx["faults"].clear()
+    fl = stats.get("fleet") or {}
+    skew = fl.get("skew") or {}
+    return {"seconds": time.perf_counter() - t0,
+            "digest": records_digest(recs),
+            "merged": bool(fl),
+            "alignment": fl.get("alignment"),
+            "missing_ranks": fl.get("missing_ranks"),
+            "straggler_rank": skew.get("straggler_rank"),
+            "late_ratio": skew.get("late_ratio"),
+            "skew_seconds": skew.get("skew_seconds"),
+            "steps": len(skew.get("steps") or ()),
+            "merged_trace_file": fl.get("merged_trace_file"),
+            "clock": stats["process"].get("clock")}
+
+
+def _fleet_part_programs(ctx):
+    """B7 and B8 across the ranks, timed on the host clock around calls
+    that end synchronized (a fetch, or ``torch.cuda.synchronize``): the
+    keyed fold of the head's DocFreq lanes (local fold, the all_to_all
+    across the ranks, the final fold, the all_gather of the ``gather``
+    variant); one exchange of :data:`FLEET_STEP_CELL` bytes a cell with
+    the exchange's codec off (its pack, the step, the unpack); and that
+    step alone (the all_to_all of the ``[D*D, C]`` buffer and its
+    lengths, the gather of what the shards received).  Each with its
+    host staging (copies) and gloo (wire) seconds a call."""
+    import numpy as np
+    from dampr_tpu_torch.ops import text
+    from dampr_tpu_torch.parallel import shuffle
+
+    px, pmesh, settings = ctx["px"], ctx["pmesh"], ctx["settings"]
+    mesh = pmesh.data_mesh()
+    h1, h2, v = docfreq_lanes(np, text, ctx["head"])
+    D = pmesh.mesh_size(mesh)
+    rng = np.random.RandomState(5)
+    C = FLEET_STEP_CELL
+    blobs = {(s, d): rng.bytes(C) for s in range(D) for d in range(D)}
+    buf = np.frombuffer(b"".join(blobs[(s, d)] for s in range(D)
+                                 for d in range(D)),
+                        dtype=np.uint8).reshape(D * D, C)
+    lens = np.full(D * D, C, dtype=np.int32)
+
+    def step():
+        out = px._exchange_step(mesh, buf, lens)
+        px._synchronize(mesh)
+        return out
+
+    def timed(fn):
+        fn()
+        fn()
+        s0 = (pmesh.staging_seconds, pmesh.wire_seconds,
+              pmesh.cross_rank_calls, pmesh.cross_rank_bytes)
+        t0 = time.perf_counter()
+        for _ in range(FLEET_PROGRAM_REPS):
+            out = fn()
+        n = FLEET_PROGRAM_REPS
+        return out, {
+            "ms": (time.perf_counter() - t0) * 1e3 / n,
+            "staging_ms": (pmesh.staging_seconds - s0[0]) * 1e3 / n,
+            "wire_ms": (pmesh.wire_seconds - s0[1]) * 1e3 / n,
+            "collectives": (pmesh.cross_rank_calls - s0[2]) // n,
+            "bytes_sent": (pmesh.cross_rank_bytes - s0[3]) // n}
+
+    _out, b7 = timed(lambda: shuffle.mesh_keyed_fold(mesh, h1, h2, v, "sum"))
+    codec = settings.exchange_codec
+    settings.exchange_codec = "off"
+    try:
+        out, b8 = timed(lambda: px.mesh_blob_exchange(mesh, blobs,
+                                                      budget=1 << 30))
+        steps = px.last_info["steps"]
+    finally:
+        settings.exchange_codec = codec
+    check(out == blobs, "fleet: the timed exchange changed its bytes")
+    (rb, rl), b8_step = timed(step)
+    check(all(int(t[s]) == C for t in rl for s in range(D))
+          and bytes(rb[D - 1][0].cpu().numpy()) == blobs[(0, D - 1)],
+          "fleet: the timed exchange step delivered other bytes")
+    b7["rows"] = int(len(h1))
+    b8.update(steps=steps, cell_bytes=C)
+    b8_step["cell_bytes"] = C
+    return {"B7": b7, "B8": b8, "B8-step": b8_step, "shards": D}
+
+
+def _fleet_part_kill(ctx):
+    """(c) a resumable traced run in which rank 1 dies at its first
+    exchange step; rank 0's watchdog ends it.  Neither rank returns."""
+    Dampr, settings = ctx["Dampr"], ctx["settings"]
+    settings.mesh_fold = "off"
+    settings.mesh_exchange = "on"
+    settings.trace = True
+    settings.exchange_timeout_ms = FLEET_TIMEOUT_MS
+    settings.faults = "rank_kill:rank=1,nth=1,exit=137"
+    fleet_kill_pipe(Dampr, ctx["head"], ctx["chunk"]).run(
+        name="fleet-kill", resume=True)
+    return {"completed": True}  # never reached: a failed check
+
+
+FLEET_PARTS = {"a": _fleet_part_tfidf, "b": _fleet_part_exchange,
+               "c": _fleet_part_kill, "d": _fleet_part_mitigate,
+               "e": _fleet_part_traced, "t": _fleet_part_programs}
+
+
+def fleet_rank_main(rank, port, fdir, parts):
+    """One rank process of the fleet phase: join the gloo group, run the
+    named parts in order, print one ``fleet-part`` JSON line each."""
+    import traceback
+
+    with open(os.path.join(fdir, "spec.json")) as f:
+        spec = json.load(f)
+    from dampr_tpu_torch import Dampr, faults, settings
+    from dampr_tpu_torch.ops.text import DocFreq
+    from dampr_tpu_torch.parallel import exchange as px
+    from dampr_tpu_torch.parallel import mesh as pmesh
+    from dampr_tpu_torch.runner import KERNELS
+
+    settings.device = spec["device"]
+    settings.mesh_devices = "{}*{}".format(spec["shard_device"], FLEET_LOCAL)
+    rdir = os.path.join(fdir, "rank{}".format(rank))
+    os.makedirs(rdir, exist_ok=True)
+    settings.scratch_root = os.path.join(rdir, "scratch")
+    t0 = time.perf_counter()
+    pmesh.init_distributed("localhost:{}".format(port), FLEET_RANKS, rank)
+    ctx = {"Dampr": Dampr, "DocFreq": DocFreq, "settings": settings,
+           "faults": faults, "px": px, "pmesh": pmesh, "kernels": KERNELS, "rdir": rdir,
+           "fdir": fdir, "head": spec["head"], "chunk": spec["chunk"],
+           "head_df": dict(spec["head_df"])}
+    print("fleet-part " + json.dumps({
+        "part": "join", "rank": rank, "seconds": time.perf_counter() - t0,
+        "process": pmesh.process_info(), "clock": pmesh.clock_sync}),
+        flush=True)
+    for part in parts:
+        try:
+            row = FLEET_PARTS[part](ctx)
+        except Exception:
+            traceback.print_exc()
+            return 1
+        row.update(part=part, rank=rank)
+        print("fleet-part " + json.dumps(row), flush=True)
+    return 0
+
+
+def _fleet_pair(fdir, parts, device):
+    """Start the two rank processes of ``parts`` and wait for both.
+    Returns ``[(returncode, exit_time, rows)]`` by rank (the time each
+    exit was seen, polled every 10 ms)."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    here = os.path.abspath(__file__)
+    env = dict(os.environ, DAMPR_TPU_TORCH_DEVICE=device)
+    env.pop("DAMPR_TPU_TORCH_COORDINATOR", None)
+    procs, errs = [], []
+    for r in range(FLEET_RANKS):
+        err = open(os.path.join(fdir, "rank{}-{}.err".format(r, parts)),
+                   "w")
+        errs.append(err)
+        procs.append(subprocess.Popen(
+            [sys.executable, here, "--fleet-rank", str(r), "--fleet-port",
+             str(port), "--fleet-dir", fdir, "--fleet-parts", parts],
+            stdout=subprocess.PIPE, stderr=err, text=True, env=env,
+            cwd=os.path.dirname(here)))
+    outs = [[] for _ in procs]
+    exits = [None] * len(procs)
+    import threading
+
+    def drain(i):
+        for line in procs[i].stdout:
+            outs[i].append(line)
+
+    readers = [threading.Thread(target=drain, args=(i,), daemon=True)
+               for i in range(len(procs))]
+    for t in readers:
+        t.start()
+    deadline = time.time() + FLEET_PAIR_TIMEOUT
+    try:
+        while None in exits:
+            for i, p in enumerate(procs):
+                if exits[i] is None and p.poll() is not None:
+                    exits[i] = time.time()
+            check(time.time() < deadline,
+                  "fleet: rank processes of parts {} past {} s".format(
+                      parts, FLEET_PAIR_TIMEOUT))
+            time.sleep(0.01)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for t in readers:
+            t.join(timeout=10)
+        for e in errs:
+            e.close()
+    result = []
+    for i, p in enumerate(procs):
+        rows = {}
+        for line in outs[i]:
+            if line.startswith("fleet-part "):
+                row = json.loads(line.split(" ", 1)[1])
+                rows[row["part"]] = row
+        result.append((p.returncode, exits[i], rows))
+    return result
+
+
+def _fleet_err_tail(fdir, rank, parts):
+    with open(os.path.join(fdir, "rank{}-{}.err".format(rank, parts))) as f:
+        return f.read()[-3000:]
+
+
+def phase_fleet(Dampr, DocFreq, settings, workdir, head, head_df,
+                head_n_lines, require_launches=True):
+    """The mesh across processes: two rank processes on the
+    one card, each with ``settings.mesh_devices = "cuda:0*2"`` (a global
+    mesh of 4 shards), a gloo process group between them, over the
+    corpus's 16 MB head; the first pair runs parts (a), (b), (d) and (e)
+    in one process each (``import torch`` paid once) and times B7 and B8
+    across the ranks, a second pair part (c):
+
+    (a) TF-IDF through the mesh fold across both ranks: each rank's sink
+        lines equal the one-process run's and the oracle; each rank's K1,
+        K2 and B4 launches, K2 launched in each rank's fold;
+    (b) group_by, an inner and a left join and sort_by through the byte
+        exchange across the ranks, at the default budget and at 256 KiB:
+        records equal the one-process run's on both ranks;
+    (c) ``rank_kill`` on rank 1 at its first exchange step: rank 1 exits
+        137, rank 0's watchdog exits 70 within twice
+        ``exchange_timeout_ms`` of rank 1's death, both crashdumps
+        validate and name their rank, and a ``resume="auto"`` rerun in
+        this process (the stage kept on the host for the recorded
+        timeout) reads back the records of a cold run;
+    (d) ``mitigate = "on"`` with rank 1 slowed for a window of the run:
+        the controllers engage, skip at least one window, probe and
+        disengage, the same on both ranks, and the records equal the cold
+        run's;
+    (e) a traced run with rank 1 late at every step: rank 0's merge names
+        rank 1 the straggler, aligned on the clock handshake, and the
+        merged trace validates.
+
+    Prints one ``fleet`` JSON line; returns each rank's kernel launches
+    in part (a)."""
+    fdir = os.path.join(workdir, "fleet")
+    os.makedirs(fdir, exist_ok=True)
+    chunk = os.path.getsize(head) // 8 + 1
+    with open(os.path.join(fdir, "spec.json"), "w") as f:
+        json.dump({"head": head, "chunk": chunk,
+                   "head_df": sorted(head_df.items()),
+                   "device": str(settings.device),
+                   "shard_device": FLEET_DEVICE}, f)
+    # -- the one-process runs the ranks are held against --------------------
+    saved = {k: getattr(settings, k) for k in (
+        "mesh_devices", "mesh_fold", "mesh_exchange", "scratch_root",
+        "exchange_hbm_budget")}
+    t0 = time.perf_counter()
+    settings.scratch_root = os.path.join(fdir, "one", "scratch")
+    ref = {}
+    try:
+        settings.mesh_devices = None
+        settings.mesh_fold = "auto"
+        settings.mesh_exchange = "off"
+        one_dir = os.path.join(fdir, "one", "idf")
+        tfidf_pipeline(Dampr, DocFreq, head, chunk, one_dir).run(
+            name="fleet-one-tfidf")
+        one_lines = part_lines(one_dir)
+        check(one_lines == tfidf_oracle_lines(head_df, head_n_lines),
+              "fleet: the one-process TF-IDF of the head differs from the "
+              "oracle")
+        ref["tfidf"] = records_digest(one_lines)
+        pipes = mesh_exchange_pipes(Dampr, head, chunk, head_df)
+        for name, pipe in pipes.items():
+            em = pipe.run(name="fleet-one-" + name, memory_budget=(
+                max(1 << 16, os.path.getsize(head) // 4)
+                if name == "sort_by" else None))
+            ref[name] = records_digest(em.read(),
+                                       ordered=name == "sort_by")
+        cold = fleet_kill_pipe(Dampr, head, chunk).run(name="fleet-cold")
+        ref["kill"] = records_digest(cold.read())
+    finally:
+        for k, v in saved.items():
+            setattr(settings, k, v)
+    one_s = time.perf_counter() - t0
+
+    # -- pair 1: parts a, b, d, e ----------------------------------------------
+    t0 = time.perf_counter()
+    pair = _fleet_pair(fdir, "abdet", str(settings.device))
+    pair_s = time.perf_counter() - t0
+    for r, (rc, _t, rows) in enumerate(pair):
+        check(rc == 0, "fleet: rank {} exited {}: {}".format(
+            r, rc, _fleet_err_tail(fdir, r, "abdet")))
+        check(set(rows) == {"join", "a", "b", "d", "e", "t"},
+              "fleet: rank {} printed parts {}".format(r, sorted(rows)))
+    rows = [p[2] for p in pair]
+    for r, rr in enumerate(rows):
+        proc = rr["join"]["process"]
+        check(proc["global_devices"] == FLEET_RANKS * FLEET_LOCAL
+              and proc["multiprocess"],
+              "fleet: rank {} sees {}".format(r, proc))
+        a = rr["a"]
+        check(a["sink"] == ref["tfidf"],
+              "fleet (a): rank {}'s TF-IDF sink lines differ from the "
+              "one-process run's".format(r))
+        check(a["mesh"]["devices"] == FLEET_RANKS * FLEET_LOCAL
+              and a["mesh"]["folds"] > 0,
+              "fleet (a): rank {}'s fold did not run over the global mesh: "
+              "{}".format(r, a["mesh"]))
+        if require_launches:
+            check(a["fold_segfold_launches"] > 0,
+                  "fleet (a): K2 never launched in rank {}'s fold".format(r))
+            for name, n in a["launches"].items():
+                check(n > 0, "fleet (a): kernel {} never launched on rank "
+                             "{}".format(name, r))
+        for key, row in rr["b"]["runs"].items():
+            name = key.rsplit("-", 1)[0]
+            check(row["digest"] == ref[name],
+                  "fleet (b): rank {}'s {} differs from the one-process "
+                  "run's".format(r, key))
+            check(row["exchanges"] > 0 and row["steps"] > 0,
+                  "fleet (b): rank {}'s {} never crossed the mesh".format(
+                      r, key))
+        d = rr["d"]
+        check(d["digest"] == ref["group_by"],
+              "fleet (d): rank {}'s mitigated group_by differs from the "
+              "cold run".format(r))
+        mit = d["mitigation"]
+        check(mit["engagements"] >= 1 and mit["windows_skipped"] >= 1
+              and mit["disengagements"] >= 1 and not mit["engaged"],
+              "fleet (d): rank {}'s mitigation did not engage, skip and "
+              "disengage: {} over {} windows".format(r, mit, d["windows"]))
+        check(mit["straggler_rank"] == 1,
+              "fleet (d): the straggler is not rank 1: {}".format(mit))
+        check(rr["e"]["digest"] == ref["group_by"],
+              "fleet (e): rank {}'s traced group_by differs".format(r))
+    shared = ("observations", "engagements", "disengagements",
+              "windows_skipped", "straggler_rank", "downweighted_ranks")
+    check({k: rows[0]["d"]["mitigation"][k] for k in shared}
+          == {k: rows[1]["d"]["mitigation"][k] for k in shared},
+          "fleet (d): the ranks' controllers disagree")
+    e0 = rows[0]["e"]
+    check(e0["merged"] and e0["missing_ranks"] == []
+          and e0["alignment"] == "clock",
+          "fleet (e): rank 0 did not merge both ranks on the clock: "
+          "{}".format(e0))
+    check(e0["straggler_rank"] == 1,
+          "fleet (e): the merge names rank {} the straggler".format(
+              e0["straggler_rank"]))
+    validate_trace_file(e0["merged_trace_file"], "exchange")
+
+    # -- pair 2: part c, the kill ---------------------------------------------
+    t0 = time.perf_counter()
+    kill = _fleet_pair(fdir, "c", str(settings.device))
+    kill_s = time.perf_counter() - t0
+    (rc0, t_0, _r0), (rc1, t_1, _r1) = kill
+    check(rc1 == 137, "fleet (c): rank 1 exited {}, not 137: {}".format(
+        rc1, _fleet_err_tail(fdir, 1, "c")))
+    check(rc0 == 70, "fleet (c): rank 0 exited {}, not 70: {}".format(
+        rc0, _fleet_err_tail(fdir, 0, "c")))
+    latency = t_0 - t_1
+    check(latency <= 2 * FLEET_TIMEOUT_MS / 1000.0,
+          "fleet (c): rank 0 aborted {:.3f} s after rank 1's death, past "
+          "{:.1f} s".format(latency, 2 * FLEET_TIMEOUT_MS / 1000.0))
+    dumps = {
+        0: os.path.join(fdir, "rank0", "scratch", "fleet-kill", "trace",
+                        "crashdump.json"),
+        1: os.path.join(fdir, "rank1", "scratch", "fleet-kill", "trace",
+                        "rank1", "crashdump.rank1.json")}
+    reasons = {}
+    for r, path in dumps.items():
+        check(os.path.isfile(path), "fleet (c): rank {} left no crashdump "
+                                    "at {}".format(r, path))
+        validate_trace_file(path)
+        with open(path) as f:
+            other = json.load(f)["otherData"]
+        check(other["process"]["process_id"] == r,
+              "fleet (c): rank {}'s crashdump names rank {}".format(
+                  r, other["process"]["process_id"]))
+        reasons[r] = other["crash"]["reason"]
+    check(reasons == {0: "exchange-timeout", 1: "fault-injected-kill"},
+          "fleet (c): crash reasons {}".format(reasons))
+    saved = {k: getattr(settings, k) for k in (
+        "mesh_devices", "mesh_fold", "mesh_exchange", "scratch_root")}
+    t0 = time.perf_counter()
+    try:
+        # one process over the global mesh's shards: the planner has a mesh
+        # to keep the stage off, for the recorded timeout
+        settings.mesh_devices = "{}*{}".format(
+            FLEET_DEVICE, FLEET_RANKS * FLEET_LOCAL)
+        settings.mesh_fold = "off"
+        settings.mesh_exchange = "auto"
+        settings.scratch_root = os.path.join(fdir, "rank0", "scratch")
+        em = fleet_kill_pipe(Dampr, head, chunk).run(name="fleet-kill",
+                                                      resume="auto")
+        resumed = records_digest(em.read())
+        kinds = [s["kind"] for s in em.stats]
+        shuffle = (em.stats().get("plan") or {}).get("shuffle") or {}
+    finally:
+        for k, v in saved.items():
+            setattr(settings, k, v)
+    resume_s = time.perf_counter() - t0
+    check(any(k.startswith("resumed-") for k in kinds),
+          "fleet (c): the rerun restored nothing: {}".format(kinds))
+    degraded = [t for t in shuffle.get("targets") or ()
+                if "fault-history" in (t.get("reason") or "")]
+    check(degraded and all(t["target"] == "host" for t in degraded),
+          "fleet (c): the rerun did not keep the stage on the host: "
+          "{}".format(shuffle))
+    check(resumed == ref["kill"],
+          "fleet (c): the resumed run differs from the cold run")
+
+    def per_rank(part, key):
+        return [rows[r][part][key] for r in range(FLEET_RANKS)]
+
+    line = {
+        "run": "fleet", "ranks": FLEET_RANKS, "local_shards": FLEET_LOCAL,
+        "global_shards": FLEET_RANKS * FLEET_LOCAL, "backend": "gloo",
+        "head_bytes": os.path.getsize(head),
+        "one_process_seconds": one_s, "pair_seconds": pair_s,
+        "join_seconds": per_rank("join", "seconds"),
+        "clock": per_rank("join", "clock"),
+        "a": {"seconds": per_rank("a", "seconds"),
+              "launches": per_rank("a", "launches"),
+              "fold_segfold_launches": per_rank("a",
+                                                "fold_segfold_launches"),
+              "host_staging": [rows[r]["a"]["mesh"]["exchange"].get(
+                  "host_staging") for r in range(FLEET_RANKS)]},
+        "b": {key: {"seconds": [rows[r]["b"]["runs"][key]["seconds"]
+                                for r in range(FLEET_RANKS)],
+                    "steps": rows[0]["b"]["runs"][key]["steps"],
+                    "bytes": rows[0]["b"]["runs"][key]["bytes"],
+                    "staging_seconds": [
+                        rows[r]["b"]["runs"][key]["staging_seconds"]
+                        for r in range(FLEET_RANKS)],
+                    "wire_seconds": [
+                        rows[r]["b"]["runs"][key]["wire_seconds"]
+                        for r in range(FLEET_RANKS)]}
+              for key in rows[0]["b"]["runs"]},
+        "c": {"seconds": kill_s, "abort_latency_seconds": latency,
+              "bound_seconds": 2 * FLEET_TIMEOUT_MS / 1000.0,
+              "resume_seconds": resume_s, "restored": kinds},
+        "d": {"seconds": per_rank("d", "seconds"),
+              "windows": per_rank("d", "windows"),
+              "mitigation": per_rank("d", "mitigation")},
+        "programs": {name: [rows[r]["t"][name]
+                            for r in range(FLEET_RANKS)]
+                     for name in ("B7", "B8", "B8-step")},
+        "e": {"seconds": per_rank("e", "seconds"),
+              "alignment": e0["alignment"],
+              "straggler_rank": e0["straggler_rank"],
+              "late_ratio": e0["late_ratio"],
+              "skew_seconds": e0["skew_seconds"], "steps": e0["steps"]},
+    }
+    log("fleet " + json.dumps(line))
+    return {name: [rows[r]["a"]["launches"][name]
+                   for r in range(FLEET_RANKS)]
+            for name in rows[0]["a"]["launches"]}
 
 
 def phase_serve(Dampr, DocFreq, TokenCounts, settings, workdir, corpus,
@@ -4518,7 +5160,17 @@ def main(argv=None):
                     help="record file size (MiB) of the ooc phase's external "
                          "sort; its budgets, chunks and the fold and join "
                          "inputs scale with it")
+    # a rank process of the fleet phase (started by the phase itself)
+    ap.add_argument("--fleet-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--fleet-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--fleet-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--fleet-parts", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+
+    if args.fleet_rank is not None:
+        return fleet_rank_main(args.fleet_rank, args.fleet_port,
+                               args.fleet_dir, args.fleet_parts)
 
     import torch
 
@@ -4774,7 +5426,8 @@ def main(argv=None):
             n_lines, workdir, part_lines(os.path.join(workdir, "idf")))
         head = os.path.join(workdir, "corpus_16mb.txt")
         head_lines(corpus, head, 16 * 1024 ** 2)
-        head_df = oracle(head)[1]
+        head_oracle = oracle(head)
+        head_df = head_oracle[1]
         phase_handoff_degrade(Dampr, DocFreq, settings, KERNELS, head,
                               head_df)
         phase_handoff_kill(torch, Dampr, DocFreq, storage, handoff, head)
@@ -4881,6 +5534,17 @@ def main(argv=None):
             "through the exchange, rings and SGD exact; in {:.3f} s".format(
                 MESH_SHARDS, time.perf_counter() - t0))
 
+        # -- the mesh across processes: two ranks on the card, gloo ---------
+        t0 = time.perf_counter()
+        fleet_launches = phase_fleet(Dampr, DocFreq, settings, workdir,
+                                     head, head_df, head_oracle[2])
+        log("phase fleet: two ranks over {} shards: TF-IDF, group_by, joins "
+            "and sort_by equal one process; a killed rank aborted its peer "
+            "in bound and the rerun resumed exactly; the mitigation engaged "
+            "and disengaged exactly; the merge named the straggler; in "
+            "{:.3f} s".format(FLEET_RANKS * FLEET_LOCAL,
+                              time.perf_counter() - t0))
+
         # -- the serve daemon and the cross-run cache -----------------------
         t0 = time.perf_counter()
         serve_launches = phase_serve(
@@ -4926,6 +5590,7 @@ def main(argv=None):
             "launches_faults": faults_launches[name],
             "launches_serve": serve_launches.get(name, 0),
             "launches_tooling": tooling_launches[name],
+            "launches_fleet": fleet_launches[name],
             "max_abs_err": err[name], "ms": main_t["ms"],
             "device_ms": main_t["device_ms"], "host_ms": main_t["host_ms"],
             "profiler_ms": main_t["profiler_ms"],
@@ -4960,6 +5625,7 @@ def main(argv=None):
         "launches_faults": faults_launches["handoff"],
         "launches_serve": serve_launches.get("handoff", 0),
         "launches_tooling": tooling_launches["handoff"],
+        "launches_fleet": fleet_launches["handoff"],
         "max_abs_err": err["handoff"], "ms": ht["ms"],
         "device_ms": ht["device_ms"], "host_ms": ht["host_ms"],
         "profiler_ms": ht["profiler_ms"], "plain_ms": ht["plain"]["ms"],

@@ -11,8 +11,8 @@ argument (no console scripts: ``python -m`` needs no install):
 - ``stats``   — a finished run's ``stats.json``, pretty-printed, and where
   its trace is; ``--series`` renders the sampled series, ``--prom`` the
   Prometheus text, ``--log`` the newest structured events.  A run that
-  left a ``crashdump.json`` exits 3.  ``--fleet`` needs several processes
-  and exits 2.
+  left a crashdump (on any rank) exits 3.  ``--fleet`` merges a
+  multi-process run's per-rank traces and prints the fleet section.
 - ``doctor``  — ranked bottleneck diagnosis (:mod:`.obs.doctor`);
   ``--diff``, ``--json``, ``--autotune``.
 - ``lint``    — static pre-flight diagnostics (:mod:`.analyze.lint`).
@@ -33,21 +33,22 @@ import operator
 import os
 import sys
 
-#: The variable that would name a multi-process deployment's coordinator.
+#: The variable that names a multi-process deployment's coordinator.
 COORDINATOR_ENV = "DAMPR_TPU_TORCH_COORDINATOR"
-
-#: Why a tool refuses to span processes: the port's mesh runs in one
-#: process.
-MULTI_PROCESS = ("a mesh across processes (ROADMAP A5b) is not in the port "
-                 "yet; its mesh runs in one process")
 
 
 def _join_deployment():
-    """Refuse a multi-process deployment (a coordinator set in the
-    environment) with exit 2, rather than silently running as one
-    process."""
-    if os.environ.get(COORDINATOR_ENV):
-        print("{} is set, but {}".format(COORDINATOR_ENV, MULTI_PROCESS),
+    """Join the process group the environment names (a coordinator in
+    ``DAMPR_TPU_TORCH_COORDINATOR``, with ``..._NUM_PROCESSES`` and
+    ``..._PROCESS_ID``), so a tool dropped onto a rank spans every rank's
+    shards; nothing without a coordinator.  An incomplete deployment
+    exits 2 (never a silent run as one process); a failed join raises."""
+    from .parallel.mesh import maybe_init_distributed
+
+    try:
+        maybe_init_distributed()
+    except ValueError as e:
+        print("{} is set, but {}".format(COORDINATOR_ENV, e),
               file=sys.stderr)
         raise SystemExit(2)
 
@@ -261,26 +262,28 @@ def stats(argv=None):
                          "exposition format")
     ap.add_argument("--fleet", action="store_true",
                     help="merge a multi-process run's per-rank traces "
-                         "(needs the multi-device layer: refused)")
+                         "into one Perfetto timeline and print the fleet "
+                         "section (per-rank totals, exchange matrices, "
+                         "per-step skew, straggler)")
     ap.add_argument("--log", nargs="?", const=20, type=int, default=None,
                     metavar="N",
                     help="render the newest N structured log events "
                          "(default 20) from the run's events.jsonl "
                          "(settings.log_level / DAMPR_TPU_TORCH_LOG)")
     args = ap.parse_args(argv)
-    if args.fleet:
-        print("stats --fleet: {}".format(MULTI_PROCESS), file=sys.stderr)
-        return 2
 
     from .obs import export, flightrec
 
     summary, path = export.load_stats(args.run)
-    dump = flightrec.locate_crashdump(args.run)
+    # every rank's crashdump: a clean rank 0 must not hide a dead sibling
+    dumps = flightrec.locate_all_crashdumps(args.run)
+    dump = dumps[0] if dumps else None
     if summary is None:
         if dump is not None:
             # a run that died before its stats landed still left its
             # crash timeline: name it and fail
-            _report_crashdump(dump)
+            for d in dumps:
+                _report_crashdump(d)
             return 3
         print("no stats.json found for {!r} (searched under {}); traced "
               "runs write one — enable settings.trace / "
@@ -288,6 +291,16 @@ def stats(argv=None):
                   args.run, export.run_trace_dir(args.run)),
               file=sys.stderr)
         return 2
+    if args.fleet and summary.get("fleet") is None:
+        # merge afterwards, before any output mode renders (the ranks'
+        # artifacts may have landed after rank 0 finished; merging is
+        # idempotent, and --json embeds the section)
+        from .obs import fleet
+
+        section = fleet.merge_run(os.path.dirname(path) if path
+                                  else args.run)
+        if section is not None:
+            summary["fleet"] = section
     log_tail = None
     if args.log is not None:
         from .obs import log as obslog
@@ -322,6 +335,11 @@ def stats(argv=None):
             print("bottleneck: {}  (run `python -m dampr_tpu_torch.cli "
                   "doctor {}` for the full diagnosis)".format(
                       run_verdict, args.run))
+    if args.fleet and not args.json and not args.prom:
+        from .obs import fleet
+
+        print()
+        print(fleet.format_fleet(summary.get("fleet")))
     if args.series:
         _series_view(summary, path, args.run)
     if args.log is not None and not args.json and not args.prom:
@@ -330,7 +348,8 @@ def stats(argv=None):
         print()
         print(obslog.format_tail(log_tail))
     if dump is not None:
-        _report_crashdump(dump)
+        for d in dumps:
+            _report_crashdump(d)
         return 3
     return 0
 

@@ -267,8 +267,14 @@ class SiteRule(object):
 
 
 def _process_rank():
-    """This process's rank: the port runs one process, rank 0."""
-    return 0
+    """This process's rank (the process group's, else the launcher
+    environment's; touches no device)."""
+    try:
+        from .parallel.mesh import rank_info
+
+        return rank_info()[0]
+    except Exception:
+        return 0
 
 
 def _parse_value(key, val):

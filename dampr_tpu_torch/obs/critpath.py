@@ -38,8 +38,8 @@ verdict          meaning
 ===============  ============================================================
 
 Consumed as ``stats()["critpath"]`` (built by the runner for traced
-runs).  One device: the ``mesh`` and ``skew`` verdicts of the JAX
-package's fleet never occur.
+runs).  ``skew`` (the ranks' collective-entry spread) comes from the
+merged fleet timeline of a multi-process run (:func:`apply_skew`).
 """
 
 import json
@@ -267,6 +267,30 @@ def from_summary_only(summary):
                 "attributed_fraction": attributed,
                 "seconds": round(wall, 4)},
     }
+
+
+def apply_skew(section, fleet, wall):
+    """Put the fleet's ``skew`` resource into a run-level critpath
+    section (in place) once the merged timeline exists.  One rank's span
+    union cannot see skew (a rank waiting in a collective for a
+    straggler shows as ``mesh`` time); the fleet merge
+    (:func:`.fleet.step_skew`) measures the spread of the ranks' entries,
+    so it becomes its own fraction (the steps' spreads over the run's
+    wall, clamped) and takes the run's verdict where it dominates.  Stage
+    verdicts stay as they were."""
+    skew = (fleet or {}).get("skew") or {}
+    sec = (skew.get("skew_seconds") or 0.0)
+    run = (section or {}).get("run")
+    if not run or sec <= 0 or wall <= 0:
+        return section
+    fractions = run.setdefault("fractions", {})
+    fractions["skew"] = round(min(1.0, sec / wall), 4)
+    verdict = max(fractions,
+                  key=lambda r: (fractions[r], -_PRIORITY.index(r)
+                                 if r in _PRIORITY else 0))
+    run["verdict"] = verdict
+    run["skew_seconds"] = round(sec, 4)
+    return section
 
 
 def from_run(run):

@@ -19,9 +19,8 @@ estimated wall-time impact::
        -> settings.lower (DAMPR_TPU_TORCH_LOWER): ...
 
 The playbook keeps every verdict of the JAX package's.  The knobs the
-port does not have (:data:`MESH_KNOBS`: the straggler mitigation of a
-mesh across processes, and spill and placement knobs the port keeps
-fixed) are left out.
+port does not have (:data:`MESH_KNOBS`: spill and placement knobs the
+port keeps fixed) are left out.
 
 ``--diff A B`` compares two runs; ``--json`` emits the report in the
 JAX package's schema (``dampr-tpu-doctor/1``, ``docs/doctor_schema.json``);
@@ -34,11 +33,9 @@ from .. import settings
 
 SCHEMA = "dampr-tpu-doctor/1"
 
-#: The JAX playbook's knobs the port does not have: the straggler
-#: mitigation comes with a mesh across processes (ROADMAP A5b); the rest
-#: are spill and placement knobs the port keeps fixed.
-MESH_KNOBS = ("lower_min_records", "mitigate", "speculate_after_steps",
-              "speculate_threshold", "spill_inflight_bytes",
+#: The JAX playbook's knobs the port does not have: spill and placement
+#: knobs the port keeps fixed.
+MESH_KNOBS = ("lower_min_records", "spill_inflight_bytes",
               "spill_read_threads")
 
 #: Bottleneck taxonomy -> suggestions: (knob, the variable the port reads
@@ -149,6 +146,27 @@ _PLAYBOOK = {
          "and check worker-thread width"),
     ],
     "skew": [
+        ("mitigate", "DAMPR_TPU_TORCH_MITIGATE",
+         lambda cur: "on",
+         "act on the skew instead of diagnosing it: the mitigation "
+         "controller steals work from backlogged queues, speculatively "
+         "re-executes straggler jobs (first-result-wins, exactly-once "
+         "under attempt-scoped commits), degrades collective exchanges "
+         "in place while a rank is late, and down-weights a "
+         "persistently pathological rank's partition share for the "
+         "rest of the run"),
+        ("speculate_threshold", "DAMPR_TPU_TORCH_SPECULATE_THRESHOLD",
+         lambda cur: None,
+         "how many times slower than its peers (vs the other ranks' "
+         "mean entry lateness + the 20 ms jitter floor; for host jobs, "
+         "vs the median job duration) a worker must run before "
+         "mitigation engages — lower it to act on milder skew, raise "
+         "it if mitigation flaps on jitter"),
+        ("speculate_after_steps", "DAMPR_TPU_TORCH_SPECULATE_AFTER",
+         lambda cur: None,
+         "consecutive pathological windows before engaging (and "
+         "healthy probes before disengaging) — the debounce between "
+         "acting fast and acting on noise"),
         ("exchange_coding", "DAMPR_TPU_TORCH_EXCHANGE_CODING",
          lambda cur: "camr",
          "coded aggregation for sum-combinable keyed folds: pre-fold "

@@ -29,19 +29,41 @@ STATS_FILE = "stats.json"
 PRODUCER = "dampr_tpu_torch.obs"
 
 
-def run_trace_dir(run_name):
+def run_trace_dir(run_name, rank=None):
     """Where a run's artifacts live: ``<root>/<run>/trace/`` beside the
-    run's spill directory (the JAX package's rank-0 layout: the port runs
-    as one process)."""
+    run's spill directory.  A multi-process run writes per rank: rank 0
+    keeps ``<run>/trace/``, rank k writes ``<run>/trace/rank<k>/``.
+    ``rank=None`` is this process's rank
+    (:func:`..parallel.mesh.rank_info`, which touches no device)."""
     safe = run_name.replace("/", "_")
     root = settings.trace_dir or settings.scratch_root
-    return os.path.join(root, safe, "trace")
+    base = os.path.join(root, safe, "trace")
+    if rank is None:
+        from ..parallel.mesh import rank_info
+
+        rank = rank_info()[0]
+    if rank and rank > 0:
+        return os.path.join(base, "rank{}".format(int(rank)))
+    return base
 
 
 def process_section():
-    """The ``process`` block stamped into every artifact: the port runs as
-    one process, rank 0 of 1."""
-    return {"process_id": 0, "num_processes": 1}
+    """The ``process`` block stamped into every artifact (stats.json,
+    trace otherData, crashdumps, history records): the rank and the
+    ranks; once a process group is up, the global and local shard counts
+    (the fleet's shard -> rank map) and the clock handshake's anchor,
+    which the fleet merge aligns the ranks' timelines on."""
+    from ..parallel import mesh
+
+    pid, n = mesh.rank_info()
+    sec = {"process_id": pid, "num_processes": n}
+    if mesh.is_initialized():
+        local = len(settings._mesh_entries())
+        sec["global_devices"] = local * n
+        sec["local_devices"] = local
+    if mesh.clock_sync is not None:
+        sec["clock"] = dict(mesh.clock_sync)
+    return sec
 
 
 def chrome_events(tracer):

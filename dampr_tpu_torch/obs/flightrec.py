@@ -36,6 +36,19 @@ log = logging.getLogger("dampr_tpu_torch.obs.flightrec")
 
 CRASHDUMP_FILE = "crashdump.json"
 
+
+def crashdump_filename(rank=None):
+    """The crashdump's name: ``crashdump.json`` on rank 0,
+    ``crashdump.rank<k>.json`` on rank k (so a dead rank's dump names it
+    and never overwrites rank 0's).  ``rank=None`` is this process's."""
+    if rank is None:
+        from ..parallel.mesh import rank_info
+
+        rank = rank_info()[0]
+    if rank and rank > 0:
+        return "crashdump.rank{}.json".format(int(rank))
+    return CRASHDUMP_FILE
+
 #: Ring capacity (events): bounds the crash artifact whatever the run's
 #: size.  0 disables the recorder.
 RING_EVENTS = 1024
@@ -173,9 +186,10 @@ class FlightRecorder(object):
             log_tail = list(self._log)
             if log_tail:
                 doc["otherData"]["log"] = log_tail
-            tdir = _export.run_trace_dir(self.run)
+            rank = proc.get("process_id", 0)
+            tdir = _export.run_trace_dir(self.run, rank=rank)
             os.makedirs(tdir, exist_ok=True)
-            path = os.path.join(tdir, CRASHDUMP_FILE)
+            path = os.path.join(tdir, crashdump_filename(rank))
             tmp = path + ".tmp"
             with open(tmp, "w") as f:
                 json.dump(doc, f)
@@ -226,29 +240,54 @@ def clear_stale(run_name):
 
     try:
         os.unlink(os.path.join(_export.run_trace_dir(run_name),
-                               CRASHDUMP_FILE))
+                               crashdump_filename()))
     except OSError:
         pass
 
 
 def locate_crashdump(run_or_dir):
     """Resolve a run name / run directory / file path to an existing
-    crashdump, or None.  A file path is a dump itself, or an artifact
-    (``stats.json``) whose directory may hold one."""
+    crashdump, or None.  Any rank's dump counts (a fleet with one dead
+    rank is a crashed run): the first in rank order."""
+    dumps = locate_all_crashdumps(run_or_dir)
+    return dumps[0] if dumps else None
+
+
+def _rank_dumps_under(trace_dir):
+    """Every crashdump under one run's trace directory: rank 0's
+    ``crashdump.json`` and each ``rank<k>/crashdump.rank<k>.json``."""
+    import glob
+
+    out = []
+    for pat in ("crashdump.json", "crashdump.rank*.json",
+                "rank*/crashdump*.json"):
+        out.extend(glob.glob(os.path.join(trace_dir, pat)))
+    return sorted(set(out))
+
+
+def locate_all_crashdumps(run_or_dir):
+    """Every rank's crashdump for a run name / run directory / file path,
+    sorted (rank 0's first where it has one).  A file path is a dump
+    itself, or an artifact whose directory may hold some."""
     from . import export as _export
 
-    cands = []
+    if os.path.isfile(run_or_dir) and os.path.basename(
+            run_or_dir).startswith("crashdump"):
+        return [run_or_dir]
+    dirs = []
     if os.path.isfile(run_or_dir):
-        if os.path.basename(run_or_dir).startswith("crashdump"):
-            cands.append(run_or_dir)
-        cands.append(os.path.join(os.path.dirname(os.path.abspath(
-            run_or_dir)), CRASHDUMP_FILE))
+        dirs.append(os.path.dirname(os.path.abspath(run_or_dir)))
     if os.path.isdir(run_or_dir):
-        cands.append(os.path.join(run_or_dir, CRASHDUMP_FILE))
-        cands.append(os.path.join(run_or_dir, "trace", CRASHDUMP_FILE))
-    cands.append(os.path.join(_export.run_trace_dir(run_or_dir),
-                              CRASHDUMP_FILE))
-    for c in cands:
-        if os.path.isfile(c):
-            return c
-    return None
+        dirs.append(run_or_dir)
+        dirs.append(os.path.join(run_or_dir, "trace"))
+    dirs.append(_export.run_trace_dir(run_or_dir, rank=0))
+    seen = []
+    for d in dirs:
+        if not os.path.isdir(d):
+            continue
+        for dump in _rank_dumps_under(d):
+            if dump not in seen:
+                seen.append(dump)
+        if seen:
+            break  # one layout; candidate roots are not mixed
+    return seen

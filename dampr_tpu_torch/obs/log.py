@@ -71,6 +71,15 @@ EVENT_CODES = {
                         "for the stage (originals kept)",
     "codec-fallback": "a configured compression codec is unavailable; "
                       "encoding fell down the zstd->lz4->zlib ladder",
+    # -- straggler mitigation ------------------------------------------------
+    "mitigation-engaged": "skew mitigation engaged: collective exchanges "
+                          "degrade in place",
+    "mitigation-disengaged": "skew mitigation disengaged after healthy "
+                             "probe windows",
+    "mitigation-downweight": "a pathological rank's partition share was "
+                             "down-weighted for the rest of the run",
+    "mitigation-unsafe-skip": "mitigation engaged but window skipping is "
+                              "disabled (exchange watchdog off)",
     # -- metrics endpoint ----------------------------------------------------
     "metrics-port-fallback": "the per-rank /metrics port was taken; the "
                              "endpoint bound the next free port",

@@ -12,10 +12,9 @@ registry while a run is in flight:
 
 Enabled by ``settings.metrics_port`` (0 = off): the runner starts one
 server per run on ``metrics_port + rank``, and the port implies the
-100 ms sampler so the gauges move.  The port runs as one process, rank 0
-of 1 (:func:`rank_info`): the mesh runs in one process until ROADMAP
-A5b.  Request handling
-never touches the run's hot path: a scrape costs one registry snapshot.
+100 ms sampler so the gauges move; the rank is the process group's
+(:func:`rank_info`).  Request handling never touches the run's hot path:
+a scrape costs one registry snapshot.
 """
 
 import json
@@ -29,10 +28,12 @@ METRICS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 
 def rank_info():
-    """``(process_id, num_processes)``: the port runs as one process,
-    rank 0 of 1, until a mesh across processes (ROADMAP A5b) gives it a
-    process group."""
-    return 0, 1
+    """``(process_id, num_processes)`` (:func:`..parallel.mesh.rank_info`:
+    the process group's, else the launcher environment's; touches no
+    device)."""
+    from ..parallel.mesh import rank_info as _rank_info
+
+    return _rank_info()
 
 
 class MetricsServer(object):

@@ -1,28 +1,35 @@
 """The general mesh exchange: byte blobs over an all_to_all (B8).
 
-Port of ``dampr_tpu/parallel/exchange.py``, the parts that run in one
-process.  :mod:`.shuffle` covers the associative numeric fold; this
-module carries every other keyed exchange (non-associative group_by,
-joins, sort_by's range read): records whose values are any Python
-objects cross the mesh as byte payloads.
+Port of ``dampr_tpu/parallel/exchange.py``.  :mod:`.shuffle` covers the
+associative numeric fold; this module carries every other keyed
+exchange (non-associative group_by, joins, sort_by's range read):
+records whose values are any Python objects cross the mesh as byte
+payloads.
 
 - **Routing** is by partition id: partition ``pid`` lands on shard
-  ``pid % D``, so both sides of a join meet on one shard.
+  ``pid % D``, so both sides of a join meet on one shard; a straggler
+  mitigation's sticky down-weight re-weights it
+  (:meth:`.mitigate.MitigationController.route_table`).
 - **Payload**: each (source shard, destination) pair's blocks pickle
   once per window, columnar (:func:`_pack_group`).
 - **Steps**: a window runs as a :mod:`.replan` schedule.  Each step is a
   ``[D*D, C]`` uint8 buffer (row ``s*D + d``: source s's bytes for
   destination d) and an int32 length row, shard s holding its D rows;
   :func:`.mesh.all_to_all` moves them, and the pieces reassemble in order
-  on the receiving side, byte for byte.
+  on the receiving side, byte for byte.  Across processes every rank
+  packs the same buffer, sends its local shards' rows, and an all_gather
+  of what the shards received (the ``gather`` variant) gives every rank
+  the whole delivery.
 - **Deadline**: under ``settings.exchange_timeout_ms`` a watchdog guards
   each step; a step past it records an ``exchange_timeout`` fault event
   (the next run under the name keeps the stage on the host shuffle) and
-  exits the process with 70.
-
-The multi-process parts (the replicating ``gather`` variant, the skew
-share and the straggler mitigation's skip, the ``rank_kill`` site) are
-ROADMAP item A5b.
+  exits the process with 70.  The ``rank_kill`` fault site sits at each
+  step's entry.
+- **Mitigation** (:mod:`.mitigate`): an engaged controller skips a
+  window (its blobs are delivered as they are: every rank holds them
+  all), and after each window that ran, the ranks share their first
+  step's entry time over an all_gather (:func:`_share_skew`), the live
+  form of :func:`..obs.fleet.step_skew`.
 """
 
 import logging
@@ -38,6 +45,7 @@ from .. import faults as _faults
 from .. import settings
 from ..io import codecs as _codecs
 from . import mesh as _mesh
+from . import mitigate as _mitigate
 from . import replan
 
 log = logging.getLogger("dampr_tpu_torch.parallel.exchange")
@@ -69,15 +77,22 @@ def _exchange_step(mesh, buf, lens):
     """One collective step: the ``[D*D, C]`` buffer and its lengths,
     shard s holding rows ``s*D .. s*D + D - 1``, through the all_to_all.
     Returns what each shard received (``[D, C]`` and ``[D]``: row s from
-    shard s), on its device."""
+    shard s), on its device: in one process its shards', across
+    processes every shard's, through an all_gather (the ``gather``
+    variant)."""
     import torch
 
-    D = len(mesh.devices)
+    D = _mesh.mesh_size(mesh)
     C = buf.shape[1]
     bb = [t.reshape(D, C) for t in _mesh.shard(
         mesh, torch.from_numpy(buf.reshape(-1)))]
     ll = _mesh.shard(mesh, torch.from_numpy(lens))
-    return _mesh.all_to_all(mesh, bb), _mesh.all_to_all(mesh, ll)
+    rb, rl = _mesh.all_to_all(mesh, bb), _mesh.all_to_all(mesh, ll)
+    if mesh.nproc > 1:
+        rb = _mesh.all_gather(mesh, [t.unsqueeze(0) for t in rb])[0]
+        rl = _mesh.all_gather(mesh, [t.unsqueeze(0) for t in rl])[0]
+        return list(rb), list(rl)
+    return rb, rl
 
 
 #: The shape of the last exchange this process ran: steps, payload bytes,
@@ -94,19 +109,15 @@ def _step_watchdog(step_i, timeout_ms):
     """The deadline of one step: past it, flush the flight recorder,
     record the ``exchange_timeout`` fault event (the next run's shuffle
     routing keeps the stage on the host) and exit the process with 70,
-    never a hang.  Returns the event the step sets when it finishes."""
+    never a hang.  Returns the event the step sets when it finishes; its
+    ``abort(exc)`` runs the same exit at once (a collective across ranks
+    that raised because a peer died can never complete)."""
     done = threading.Event()
     ctx = dict(_faults.run_context)
 
-    def expire():
-        if done.wait(timeout_ms / 1000.0):
-            return
+    def abort(exc):
         from ..obs import flightrec as _flightrec
 
-        exc = TimeoutError(
-            "collective exchange step {} exceeded exchange_timeout_ms={}; "
-            "aborting rather than hanging the collective".format(
-                step_i, timeout_ms))
         log.error("%s (run=%r stage=%r)", exc, ctx.get("run"),
                   ctx.get("stage"))
         _flightrec.flush_active("exchange-timeout", exc)
@@ -115,8 +126,17 @@ def _step_watchdog(step_i, timeout_ms):
             step=step_i, timeout_ms=timeout_ms)
         os._exit(70)  # EX_SOFTWARE: a bounded abort
 
+    def expire():
+        if done.wait(timeout_ms / 1000.0):
+            return
+        abort(TimeoutError(
+            "collective exchange step {} exceeded exchange_timeout_ms={}; "
+            "aborting rather than hanging the collective".format(
+                step_i, timeout_ms)))
+
     threading.Thread(target=expire, daemon=True,
                      name="dampr-exchange-watchdog").start()
+    done.abort = abort
     return done
 
 
@@ -130,12 +150,33 @@ def mesh_blob_exchange(mesh, blobs, budget=None, coding=None):
     ``budget`` (default ``settings.exchange_hbm_budget``); pieces
     reassemble in order, byte for byte.  Each step emits ``exchange``
     spans for its pack (``h2d``), collective (``step``) and unpack
-    (``d2h``).  The straggler mitigation's skip of a window is A5b's."""
+    (``d2h``).
+
+    An engaged mitigation controller that says skip returns the blobs as
+    they are (``last_info["skipped"]``): every rank holds every blob, so
+    the delivery equals its input.  Across processes a window that ran
+    ends with the skew share (:func:`_share_skew`)."""
     from ..obs import trace as _trace
 
     global last_info, codec_raw_bytes, codec_wire_bytes, watchdogs_armed
-    global pack_seconds_total, pack_hidden_seconds_total
+    global pack_seconds_total, pack_hidden_seconds_total, share_failures
     D = _mesh.mesh_size(mesh)
+    ctl = _mitigate.active()
+    if ctl is not None and not ctl.use_collective():
+        # degrade in place: the fleet stops waiting on the straggler at
+        # every step; the content is the same by construction
+        _trace.instant("mitigation", "window-skipped",
+                       bytes=sum(len(b) for b in blobs.values()))
+        last_info = {
+            "steps": 0, "bytes": 0, "peak_inflight_bytes": 0,
+            "budget": (budget if budget is not None
+                       else settings.exchange_hbm_budget),
+            "clamped": False, "skipped": True, "capacity": 0,
+            "sent_per_device": [0] * D, "received_per_device": [0] * D,
+            "pair_bytes": {},
+        }
+        return dict(blobs)
+    gather = mesh.nproc > 1
     codec = wire_codec()
     codec_info = None
     if codec is not None and blobs:
@@ -161,7 +202,7 @@ def mesh_blob_exchange(mesh, blobs, budget=None, coding=None):
         codec_wire_bytes += wire_total
     sched = replan.plan_exchange(
         D, {sd: len(b) for sd, b in blobs.items()}, budget=budget,
-        coding=coding)
+        gather=gather, coding=coding)
     sent = [0] * D
     received = [0] * D
     pair = {}
@@ -170,6 +211,7 @@ def mesh_blob_exchange(mesh, blobs, budget=None, coding=None):
             pair[(s, d)] = pair.get((s, d), 0) + len(b)
     parts = {}
     pack_acct = {"seconds": 0.0, "exposed": 0.0}
+    entry_perf = None
 
     def pack_step(step):
         """The host staging of one step's send buffer: pure over
@@ -213,7 +255,14 @@ def mesh_blob_exchange(mesh, blobs, budget=None, coding=None):
                     pack_acct["exposed"] += pack_acct["seconds"] - s0
             for s in range(D):
                 sent[s] += sent_inc[s]
+            # rank_kill (exit action: a rank dead mid-exchange, where its
+            # peers would hang) and exchange_step (a failed step)
+            _faults.check("rank_kill")
             _faults.check("exchange_step")
+            if i == 0:
+                # the first step's entry, after the fault sites, so an
+                # injected stall shows as lateness like a real one
+                entry_perf = time.perf_counter()
             timeout_ms = settings.exchange_timeout_ms
             guard = None
             if timeout_ms > 0:
@@ -224,7 +273,16 @@ def mesh_blob_exchange(mesh, blobs, budget=None, coding=None):
                                  bytes=int(step.payload_bytes()),
                                  capacity=int(step.capacity),
                                  inflight_bytes=int(step.inflight_bytes)):
-                    rb, rl = _exchange_step(mesh, buf, lens)
+                    try:
+                        rb, rl = _exchange_step(mesh, buf, lens)
+                    except RuntimeError as e:
+                        if guard is not None and mesh.nproc > 1:
+                            # gloo raised: a peer rank is gone, and the
+                            # step can never complete
+                            guard.abort(RuntimeError(
+                                "collective exchange step {} failed across "
+                                "ranks: {}".format(i, e)))
+                        raise
                     _synchronize(mesh)
             finally:
                 if guard is not None:
@@ -247,6 +305,29 @@ def mesh_blob_exchange(mesh, blobs, budget=None, coding=None):
     out = {sd: b"".join(ps) for sd, ps in parts.items()}
     if codec is not None:
         out = {sd: _codecs.decompress(b[0], b[1:]) for sd, b in out.items()}
+    if ctl is not None and gather and entry_perf is not None:
+        # the live skew observation: every rank gets the same vector, so
+        # the controllers' states stay equal fleet-wide.  The share is a
+        # collective like a step and has the same watchdog; what can fail
+        # inside the try is the collective (the watchdog's) or nothing
+        timeout_ms = settings.exchange_timeout_ms
+        guard = None
+        if timeout_ms > 0:
+            watchdogs_armed += 1
+            guard = _step_watchdog("skew-share", timeout_ms)
+        try:
+            _share_skew(mesh, D, ctl, entry_perf)
+        except Exception as e:
+            if guard is not None and isinstance(e, RuntimeError):
+                # gloo raised: a peer rank is gone
+                guard.abort(RuntimeError(
+                    "mitigation skew share failed across ranks: "
+                    "{}".format(e)))
+            share_failures += 1
+            log.warning("mitigation skew share failed", exc_info=True)
+        finally:
+            if guard is not None:
+                guard.set()
     for d in range(D):
         if sent[d]:
             sent_bytes_per_device[d] = (
@@ -279,6 +360,48 @@ def mesh_blob_exchange(mesh, blobs, budget=None, coding=None):
     if sched.coding:
         last_info["coding"] = dict(sched.coding)
     return out
+
+
+#: Skew shares that raised (logged, and the window's observation lost:
+#: the JAX package's one fallback), since import.
+share_failures = 0
+
+_warned_no_clock = False
+
+
+def _share_skew(mesh, D, ctl, entry_perf):
+    """Share this rank's first-step entry time (on the handshake's clock)
+    and its count of transient retries over an all_gather, and feed the
+    controller the window's lateness by rank (it differences the
+    counts).  ``D * 16`` bytes a window."""
+    import torch
+
+    from ..obs.fleet import _rank_of_device
+
+    global _warned_no_clock
+    if _mesh.clock_sync is None:
+        # no common clock anchor: raw monotonic clocks differ by each
+        # host's uptime, so no observation beats a wrong one
+        if not _warned_no_clock:
+            _warned_no_clock = True
+            log.warning(
+                "mitigation: no clock handshake (mesh.clock_sync is "
+                "None); live skew observation is off in this process")
+        return
+    t = entry_perf - _mesh.clock_sync["barrier_perf"]
+    row = torch.tensor([[t, float(ctl.local_fault_count())]],
+                       dtype=torch.float64)
+    out = _mesh.all_gather(mesh, [row.to(dev) for dev in mesh.devices])[0]
+    out = out.cpu().numpy()
+    entries, fault_counts = {}, {}
+    for d in range(D):
+        r = _rank_of_device(d, mesh.nproc, D)
+        if r not in entries:
+            entries[r] = float(out[d, 0])
+            fault_counts[r] = int(out[d, 1])
+    first = min(entries.values())
+    ctl.observe_window({r: e - first for r, e in entries.items()},
+                       fault_counts=fault_counts)
 
 
 def _synchronize(mesh):
@@ -332,23 +455,32 @@ def mesh_shuffle_blocks(mesh, routed, coding=None):
 
     ``routed``: iterable of (seq, src_shard, pid, Block); ``seq`` restores
     each partition's block order on the receiving side (a group's values
-    come in arrival order).  Partition ``pid`` lands on shard ``pid % D``
-    (the weighted routing of a straggling rank is A5b's).  Returns
+    come in arrival order).  Partition ``pid`` lands on shard ``pid % D``,
+    or where an engaged mitigation's weighted route table sends it (a
+    placement only: every rank reads the whole delivery).  Returns
     ``(received, bytes_moved)``: (pid, Block) sorted by seq, and the
-    payload bytes that crossed the collective."""
+    payload bytes that crossed the collective (0 for a skipped window)."""
     from ..obs import trace as _trace
 
     global total_exchanges, total_bytes, total_steps, peak_inflight_bytes
     global peak_capacity
     D = _mesh.mesh_size(mesh)
+    ctl = _mitigate.active()
+    route = ctl.route_table(D, mesh.nproc) if ctl is not None else None
+
+    def dst(pid):
+        return route[pid % len(route)] if route else pid % D
+
     groups = {}
     for seq, src, pid, blk in routed:
-        groups.setdefault((src % D, pid % D), []).append((seq, pid, blk))
+        groups.setdefault((src % D, dst(pid)), []).append((seq, pid, blk))
     blobs = {sd: _pack_group(items) for sd, items in groups.items()}
     moved = sum(len(b) for b in blobs.values())
     with _trace.span("collective", "exchange", bytes=moved,
                      blobs=len(blobs)):
         recv = mesh_blob_exchange(mesh, blobs, coding=coding)
+    if last_info.get("skipped"):
+        moved = 0  # degraded in place: nothing crossed the mesh
     total_exchanges += 1
     total_bytes += moved
     total_steps += last_info["steps"]
@@ -358,7 +490,7 @@ def mesh_shuffle_blocks(mesh, routed, coding=None):
     out = []
     for (_s, d), blob in recv.items():
         for seq, pid, blk in _unpack_group(blob):
-            assert pid % D == d, (pid, d)
+            assert dst(pid) == d, (pid, d)
             out.append((seq, pid, blk))
     out.sort(key=lambda t: t[0])
     return [(pid, blk) for _seq, pid, blk in out], moved

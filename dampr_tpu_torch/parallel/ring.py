@@ -31,10 +31,7 @@ def _split(mesh, x):
     D = _mesh.mesh_size(mesh)
     assert t.shape[0] % D == 0, (
         "leading dim {} must divide across {} devices".format(t.shape[0], D))
-    n = t.shape[0] // D
-    shards = [t[d * n:(d + 1) * n].to(dev)
-              for d, dev in enumerate(mesh.devices)]
-    return shards, as_numpy
+    return _mesh.shard(mesh, t), as_numpy
 
 
 def _join(mesh, shards, as_numpy):
@@ -70,14 +67,14 @@ def ring_allgather(mesh, x):
     calls += 1
     shards, as_numpy = _split(mesh, x)
     D = _mesh.mesh_size(mesh)
-    held = [{d: s} for d, s in enumerate(shards)]  # owner -> piece
+    glob = list(_mesh.local_index(mesh))
+    held = [{d: s} for d, s in zip(glob, shards)]  # owner -> piece
     rot = list(shards)
     for hop in range(1, D):
         rot = _mesh.ppermute(mesh, rot)
-        for d in range(D):
+        for l, d in enumerate(glob):
             # ppermute sends i -> i + 1: after ``hop`` hops shard d holds
             # the piece of shard d - hop
-            held[d][(d - hop) % D] = rot[d]
-    gathered = [torch.cat([held[d][j] for j in range(D)])
-                for d in range(D)]
+            held[l][(d - hop) % D] = rot[l]
+    gathered = [torch.cat([h[j] for j in range(D)]) for h in held]
     return _join(mesh, gathered, as_numpy)

@@ -40,11 +40,9 @@ def _shards(mesh, a):
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(a, dtype=np.float32))
     D = _mesh.mesh_size(mesh)
-    n = t.shape[0] // D
-    assert n * D == t.shape[0], (
+    assert t.shape[0] % D == 0, (
         "batch {} must divide across {} devices".format(t.shape[0], D))
-    return [t[d * n:(d + 1) * n].to(dev)
-            for d, dev in enumerate(mesh.devices)]
+    return _mesh.shard(mesh, t)
 
 
 #: Steps since import.

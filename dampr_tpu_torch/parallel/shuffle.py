@@ -15,8 +15,11 @@ shard runs the reference's ``_build_fold_program`` over its lanes:
    nothing was dropped, so the result never loses a row.
 
 The output is sharded: each shard's padded lanes, concatenated in shard
-order.  On a mesh of one shard the program is the local fold alone (no
-pack, no copy): the routing moves nothing there.
+order.  Across processes (the ``gather`` variant) every rank runs its
+local shards and an all_gather of the four output lanes gives each rank
+the whole output, as the JAX package's multi-process program does.  On a
+mesh of one shard the program is the local fold alone (no pack, no
+copy): the routing moves nothing there.
 
 Lanes are torch tensors on the shards' devices: ``h1``/``h2`` int32 (the
 uint32 hash lanes' bit patterns), ``v`` int64 (float32 for float32
@@ -164,10 +167,12 @@ def _one_shard_fold(inv, h1, h2, v, kind, nonneg):
 
 
 def _fold_program(mesh, lanes, capacity, kind, nonneg):
-    """One run of the program over D shards.  ``lanes[d]`` is shard d's
-    ``(inv, h1, h2, v)`` on its device.  Returns the sharded output
-    ``(h1, h2, v, ok)`` and the psum of the dropped rows."""
-    D = len(mesh.devices)
+    """One run of the program over D shards.  ``lanes[l]`` is local shard
+    l's ``(inv, h1, h2, v)`` on its device.  Returns the output ``(h1,
+    h2, v, ok)`` of every shard in shard order (across processes through
+    the all_gather of the ``gather`` variant) and the psum of the dropped
+    rows."""
+    D = _mesh.mesh_size(mesh)
     packed, dropped = [], []
     for inv, h1, h2, v in lanes:
         inv, h1, h2, v = _local_fold(inv, h1, h2, v, kind, nonneg)
@@ -178,12 +183,16 @@ def _fold_program(mesh, lanes, capacity, kind, nonneg):
             for i in range(4)]
     flat = D * capacity
     out = []
-    for d in range(D):
+    for d in range(len(mesh.devices)):
         rok, rh1, rh2, rv = (r[d].reshape(flat) for r in recv)
         inv2, fh1, fh2, fv = _local_fold(
             (rok != 1).to(torch.int32), rh1, rh2, rv, kind, nonneg)
         out.append((fh1, fh2, fv, (inv2 == 0).to(torch.int32)))
     total_dropped = int(_mesh.psum(mesh, dropped)[0])
+    if mesh.nproc > 1:
+        # gather: every rank reads the whole output
+        return (tuple(_mesh.all_gather(mesh, [o[i] for o in out])[0]
+                      for i in range(4)), total_dropped)
     return (tuple(_mesh.unshard(mesh, [o[i] for o in out])
                   for i in range(4)), total_dropped)
 
@@ -200,7 +209,7 @@ def _run_fold_padded(mesh, h1, h2, v, valid, n_local, kind, nonneg,
     """The capacity-retry loop over padded lanes (``D * n_local`` rows):
     run the program, double the capacity on overflow."""
     global program_runs, retries
-    D = len(mesh.devices)
+    D = _mesh.mesh_size(mesh)
     capacity = max(8, int(-(-n_local // D) * factor))
     lanes = list(zip(*(_mesh.shard(mesh, t) for t in (
         (valid != 1).to(torch.int32), h1, h2, v))))
@@ -240,7 +249,7 @@ def mesh_keyed_fold(mesh, h1, h2, v, kind="sum", capacity_factor=None,
     lanes :func:`_lane_safe_values` refuses)."""
     v = _lane_safe_values(np.asarray(v), kind)
     dev = mesh.devices[0]
-    D = len(mesh.devices)
+    D = _mesh.mesh_size(mesh)
     total = len(h1)
     if total == 0:
         if raw:
@@ -295,7 +304,7 @@ def mesh_keyed_refold(mesh, parts, kind, nonneg=False,
     h2 = torch.cat([p[1].to(dev) for p in parts])
     v = torch.cat([p[2].to(dev) for p in parts])
     ok = torch.cat([p[3].to(dev) for p in parts])
-    D = len(mesh.devices)
+    D = _mesh.mesh_size(mesh)
     if D == 1:
         n_pad = _pad_pow2(h1.shape[0])
         if n_pad != h1.shape[0]:
@@ -340,7 +349,7 @@ def mesh_global_sum(mesh, v):
     (the degenerate-key case: ``len`` and global sums).  Integers sum in
     int64, float32 in float32."""
     v = _lane_safe_values(np.asarray(v), "sum")
-    D = len(mesh.devices)
+    D = _mesh.mesh_size(mesh)
     total = len(v)
     n_local = max(1, -(-total // D))
     pv = np.zeros(n_local * D, dtype=v.dtype)

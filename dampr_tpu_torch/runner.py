@@ -124,8 +124,13 @@ The mesh (:mod:`.parallel`): over more than one shard, associative
 folds run the mesh keyed fold (:meth:`MTRunner._mesh_reduce`), other
 shuffles the byte exchange (:meth:`MTRunner._mesh_exchange_entries`) and
 a sorted output's read the range exchange
-(:meth:`OutputDataset._mesh_range_sorted`).  A mesh across processes and
-the straggler mitigation are ROADMAP item A5b.
+(:meth:`OutputDataset._mesh_range_sorted`).  Across processes every rank
+runs the same walk on the same inputs and the collectives span the ranks
+(:mod:`.parallel.mesh`); rank 0 of a traced run merges the ranks'
+artifacts at finalize (:mod:`.obs.fleet`).  Under ``settings.mitigate``
+a controller (:mod:`.parallel.mitigate`) dispatches jobs with stealing
+and speculation, and degrades the collective paths in place while a
+rank straggles.
 """
 
 import collections
@@ -148,6 +153,7 @@ from .dataset import (BlockDataset, CatDataset, Chunker, Dataset, OrderKey,
 from .graph import GInput, GMap, GReduce, GSink
 from .inputs import close_readahead
 from .ops import devtime
+from .parallel import mitigate as _mitigate
 from .ops import fnv as _fnv
 from .ops import handoff as _handoff
 from .ops import lower as ops_lower
@@ -1313,13 +1319,41 @@ class MTRunner(object):
         # the summary records the port it bound
         self._metrics_server = None
         self._endpoint_info = None
+        # the straggler mitigation's controller (settings.mitigate); None
+        # keeps every site one check
+        self._mitigation = None
+        # the exchange's and the collectives' cumulative counters at run
+        # start: finalize reports this run's share
+        self._exchange_snapshot = None
         # the cross-run cache (plan/reuse.py, settings.reuse): the live
         # counters that land as stats()["reuse"]; None while the cache is
         # off keeps the section out of the summary
         self._reuse_summary = None
 
     # -- helpers -----------------------------------------------------------
-    def _pool_map(self, fn, jobs, n_workers, label=None, on_result=None):
+    def _speculation_ok(self, *stages):
+        """May these stages' jobs be re-executed speculatively?  Not where
+        the analyzer (``settings.analyze``) finds a nondeterministic UDF:
+        the first result to finish would win, whichever it is.  Asked
+        only while a mitigation controller is armed."""
+        if not settings.analyze or _mitigate.active() is None:
+            return True
+        from .analyze import props
+
+        for stage in stages:
+            try:
+                v = props.stage_verdict(stage)
+            except Exception:  # noqa: BLE001 - analysis never fails a run
+                continue
+            if not v.deterministic:
+                ctl = _mitigate.active()
+                if ctl is not None:
+                    ctl.note_speculation_declined(v.name, v.nondet_evidence)
+                return False
+        return True
+
+    def _pool_map(self, fn, jobs, n_workers, label=None, on_result=None,
+                  speculative=True):
         """Run ``fn`` over ``jobs`` on a thread pool; every job's
         exception surfaces (results are read in order) and its keyed
         device calls are charged to this run's store.  ``label`` names
@@ -1331,7 +1365,10 @@ class MTRunner(object):
 
         Under ``settings.job_retries`` each job runs inside
         ``store.attempt()`` (a failed attempt's refs are dropped) and a
-        failure retries as :meth:`_retrying` classifies it."""
+        failure retries as :meth:`_retrying` classifies it.  While a
+        mitigation controller is armed the jobs go through
+        :func:`.parallel.mitigate.pool_dispatch` (stealing, and where
+        ``speculative``, first-result-wins duplicates of stragglers)."""
         fn = self._retrying(fn, label or "job")
 
         def charged(j):
@@ -1345,6 +1382,8 @@ class MTRunner(object):
                 with _trace.span("job", label):
                     return inner_t(j)
 
+        # a speculative duplicate skips the once-per-job accounting below
+        charged_spec = charged
         prof = _profile.active()
         if prof is not None:
             inner_p = charged
@@ -1382,6 +1421,22 @@ class MTRunner(object):
         workers = max(1, min(n_workers, len(jobs)))
         if workers == 1:
             return collect(charged(j) for j in jobs)
+        ctl = _mitigate.active()
+        if ctl is not None:
+            # sinks never speculate (two writers of one part file), nor do
+            # quarantine-armed runs (a lost duplicate's quarantined
+            # records would count twice)
+            results = _mitigate.pool_dispatch(
+                ctl, charged, jobs, workers, store=self.store,
+                speculative=(speculative
+                             and self._quarantine is None),
+                spec_fn=charged_spec)
+            if on_result is not None:
+                # after every job: a streamed edge degrades under an
+                # armed controller, so this is a staged publish
+                for i, r in enumerate(results):
+                    on_result(i, r)
+            return results
         with ThreadPoolExecutor(max_workers=workers,
                                 thread_name_prefix="dampr-job") as pool:
             return collect(pool.map(charged, jobs))
@@ -1408,6 +1463,11 @@ class MTRunner(object):
                         raise
                     delay = (_faults.backoff(attempt)
                              if kind == "transient" else 0.0)
+                    ctl = _mitigate.active()
+                    if ctl is not None and kind == "transient":
+                        # this rank's retry rate, shared with the fleet
+                        # on the next window's skew share
+                        ctl.note_local_retry()
                     with self._retry_lock:
                         self.retries_total += 1
                         self._backoff_seconds += delay
@@ -1508,7 +1568,8 @@ class MTRunner(object):
         try:
             results = self._pool_map(
                 mj.job, chunks, self.n_maps, label="map",
-                on_result=folder.publish if folder is not None else None)
+                on_result=folder.publish if folder is not None else None,
+                speculative=self._speculation_ok(stage))
         finally:
             close_readahead(chunks)
             if folder is not None:
@@ -1539,7 +1600,9 @@ class MTRunner(object):
         op = getattr(getattr(self.graph.stages[hint["dst"]], "reducer",
                              None), "op", None)
         degrade = None
-        if mj.sorted_runs or mj.pin:
+        if _mitigate.active() is not None:
+            degrade = "mitigation controller armed"
+        elif mj.sorted_runs or mj.pin:
             degrade = "producer run mode incompatible"
         elif op is None or op.kind not in ("sum", "min", "max"):
             degrade = "consumer op not early-foldable"
@@ -1589,6 +1652,11 @@ class MTRunner(object):
         bookkeeping and keeps the consumer's result in
         ``self._chain_results[sid_c]``; None degrades to the barrier."""
         stage_c = self.graph.stages[sid_c]
+        if _mitigate.active() is not None:
+            self._pipeline_stats["degraded"] += 1
+            log.info("streamed edge s%s degraded to staged barrier: "
+                     "mitigation controller armed", sid_p)
+            return None
         entries = [env[s] for s in stage_p.inputs]
         chunks = self._as_chunks(entries[0])
         supplementary = [self._as_chunks(e) for e in entries[1:]]
@@ -1647,7 +1715,7 @@ class MTRunner(object):
         pool_done_at = None
         try:
             self._pool_map(mj_p.job, chunks, self.n_maps, label="map",
-                           on_result=publish)
+                           on_result=publish, speculative=False)
             pool_done_at = time.perf_counter()
             mappings_c = []
             for key in sorted(futures):
@@ -1792,8 +1860,9 @@ class MTRunner(object):
                           (wsink, push, end), mj in zip(members, parts)]
 
         try:
-            results = self._pool_map(group_job, chunks, self.n_maps,
-                                     label="map-group")
+            results = self._pool_map(
+                group_job, chunks, self.n_maps, label="map-group",
+                speculative=self._speculation_ok(*stages))
         finally:
             close_readahead(chunks)
         ret = []
@@ -2277,15 +2346,18 @@ class MTRunner(object):
                         batch, coding_op)
                     coding = {"mode": "camr", "raw_bytes": raw_b,
                               "coded_bytes": coded_b}
-                    self.coded_exchange["windows"] += 1
-                    self.coded_exchange["raw_bytes"] += raw_b
-                    self.coded_exchange["coded_bytes"] += coded_b
                 routed = [(seq, seq % D, pid,
                            item.get() if isinstance(item, storage.BlockRef)
                            else item)
                           for seq, pid, item in batch]
                 received, moved = px.mesh_shuffle_blocks(mesh, routed,
                                                          coding=coding)
+                if coding is not None and not px.last_info.get("skipped"):
+                    # a window the mitigation skipped moved nothing, so
+                    # it saved nothing
+                    self.coded_exchange["windows"] += 1
+                    self.coded_exchange["raw_bytes"] += raw_b
+                    self.coded_exchange["coded_bytes"] += coded_b
                 for pid, blk in received:
                     out.add(pid, self.store.register(blk))
                 self.mesh_exchange_bytes += moved
@@ -2383,10 +2455,15 @@ class MTRunner(object):
         host folds are cheaper).  It returns None wherever the host path
         is needed for exactness: object or float values, a running
         absolute sum past int64, a 64-bit key collision, or a key table
-        past a quarter of the budget."""
+        past a quarter of the budget, and while an engaged mitigation
+        degrades the collectives in place (every rank declines together:
+        the controllers' states agree)."""
         mode = settings.mesh_fold
         if (_mode_off(mode) or not settings.use_device or len(entries) != 1
                 or not isinstance(stage.reducer, base.AssocFoldReducer)):
+            return None
+        ctl = _mitigate.active()
+        if ctl is not None and not ctl.collective_fold_ok():
             return None
         op = stage.reducer.op
         if op.kind not in ("sum", "min", "max"):
@@ -2604,7 +2681,7 @@ class MTRunner(object):
         with self._lock:
             self.mesh_folds += 1
         log.info("mesh fold: %d keys over %d shard(s), %d device refs",
-                 nrec, len(mesh.devices), dev_folds)
+                 nrec, mesh.size, dev_folds)
         return pset, nrec, 1
 
     def _emit_keyed_fold(self, keys, vals, h1, h2, pin):
@@ -2780,8 +2857,9 @@ class MTRunner(object):
         P = self.n_partitions
         n_reducers = stage.options.get("n_reducers", self.n_reducers)
         try:
-            results = self._pool_map(job, list(range(P)), n_reducers,
-                                     label="reduce")
+            results = self._pool_map(
+                job, list(range(P)), n_reducers, label="reduce",
+                speculative=self._speculation_ok(stage))
         finally:
             if exchanged is not None:
                 # the exchanged copies are this reduce's own; the
@@ -2825,7 +2903,8 @@ class MTRunner(object):
 
         try:
             results = self._pool_map(job, list(enumerate(chunks)),
-                                     self.n_maps, label="sink")
+                                     self.n_maps, label="sink",
+                                     speculative=False)
         finally:
             close_readahead(chunks)
         return (_SinkOutput([p for p, _ in results]),
@@ -2891,9 +2970,11 @@ class MTRunner(object):
                 tdir = _export.run_trace_dir(self.name)
                 os.makedirs(tdir, exist_ok=True)
                 path = os.path.join(tdir, _obslog.FILE)
+            from .parallel.mesh import rank_info
+
             self.logstream = _obslog.LogStream(
-                self.name, rank=0, level=lvl or "warn", path=path,
-                recorder=rec)
+                self.name, rank=rank_info()[0], level=lvl or "warn",
+                path=path, recorder=rec)
             _obslog.start(self.logstream)
             _obslog.info("run-start", "run %s started", self.name,
                          partitions=self.n_partitions)
@@ -2904,6 +2985,11 @@ class MTRunner(object):
         if settings.profile:
             self.profiler = _profile.Profiler(self.name)
             _profile.start(self.profiler)
+        if settings.mitigate_enabled():
+            # every rank builds one and feeds it the same shared
+            # observations, so its collective decisions agree
+            self._mitigation = _mitigate.MitigationController(self.name)
+            _mitigate.start(self._mitigation)
         if interval > 0:
             from .obs import progress as _progress
             from .obs.metrics import Metrics
@@ -2948,6 +3034,8 @@ class MTRunner(object):
             _profile.stop(self.profiler)
         if self.flightrec is not None:
             _flightrec.stop(self.flightrec)
+        if self._mitigation is not None:
+            _mitigate.stop(self._mitigation)
         srv, self._metrics_server = self._metrics_server, None
         if srv is not None:
             if srv.port is not None:
@@ -3071,6 +3159,7 @@ class MTRunner(object):
         t_start = time.perf_counter()
         epoch = devtime.epoch()
         launches0 = {k: kern.launches for k, kern in KERNELS.items()}
+        self._exchange_snapshot = self._exchange_counters()
         rec = self._start_obs()
         try:
             return self._run_guarded(outputs)
@@ -3260,6 +3349,17 @@ class MTRunner(object):
 
         self.graph, self.plan_report = plan.prepare(self.graph, outputs,
                                                     runner=self)
+        if settings.analyze:
+            from .parallel.mesh import rank_info
+
+            nproc = rank_info()[1]
+            if nproc > 1:
+                # across ranks an unpicklable UDF capture fails at a
+                # process boundary: name the stage, the UDF and the
+                # variable before anything runs
+                from .analyze import validate as _av
+
+                _av.preflight_dispatch_check(self.graph, nproc)
         rep = self.plan_report
         _trace.instant("plan", "optimize", lane="stages",
                        stages_before=rep.get("stages_before"),
@@ -3669,6 +3769,21 @@ class MTRunner(object):
                                         self.scan_groups]},
             "tiny_folds": self.tiny_folds,
         }
+        ex_delta = self._exchange_deltas()
+        if ex_delta is not None:
+            summary["mesh"]["exchange"].update(ex_delta)
+        if self._mitigation is not None:
+            # what the skew signal made the engine do, mirrored into the
+            # plan report (the mitigation changes the plan at run time)
+            mit = self._mitigation.summary()
+            summary["mitigation"] = mit
+            plan_sec = summary.get("plan")
+            if isinstance(plan_sec, dict):
+                plan_sec["mitigation"] = {
+                    k: mit[k] for k in (
+                        "engagements", "disengagements", "windows_skipped",
+                        "speculative_wins", "stolen_partitions",
+                        "downweighted_ranks")}
         if self.coded_exchange["windows"]:
             # what the coded pre-fold traded for shuffle bytes
             ce = dict(self.coded_exchange, mode=str(settings.exchange_coding))
@@ -3716,6 +3831,25 @@ class MTRunner(object):
             summary["stats_file"] = spath
             _export.write_stats(summary, spath)
             log.info("trace: %s; stats: %s", summary["trace_file"], spath)
+            # rank 0 of a clean multi-process run merges the ranks'
+            # artifacts (waiting at most fleet_wait_ms for its siblings,
+            # so a dead one cannot wedge it) into the fleet timeline and
+            # stats()["fleet"]; one process never enters
+            proc = summary.get("process") or {}
+            if (proc.get("num_processes", 1) > 1
+                    and not proc.get("process_id")
+                    and not self._run_failed
+                    and settings.fleet_wait_ms > 0):
+                try:
+                    from .obs import fleet as _fleet
+
+                    fl = _fleet.merge_run(
+                        self.name, wait_ms=settings.fleet_wait_ms,
+                        summary=summary)
+                    if fl is not None:
+                        summary["fleet"] = fl
+                except Exception:
+                    log.warning("fleet trace merge failed", exc_info=True)
         self.run_summary = summary
         if not self._run_failed:
             # one record per finalized run (a failed run's measurements
@@ -3723,8 +3857,83 @@ class MTRunner(object):
             from .obs import history as _history
 
             hpath = _history.append(summary)
-            if hpath and settings.sentry_window > 0:
+            proc = summary.get("process") or {}
+            if (hpath and settings.sentry_window > 0
+                    and not proc.get("process_id")):
+                # rank 0 only: a sibling rank's record is rank-tagged
+                # trail, not a run-level point
                 self._sentry_check(summary)
+
+    @staticmethod
+    def _exchange_counters():
+        """The exchange's and the collectives' cumulative counters (the
+        per-run epoch :meth:`_exchange_deltas` differences)."""
+        from .parallel import exchange as px
+        from .parallel import mesh as _pmesh
+
+        return (dict(px.sent_bytes_per_device),
+                dict(px.received_bytes_per_device),
+                dict(px.pair_bytes_per_route),
+                {"codec_raw": px.codec_raw_bytes,
+                 "codec_wire": px.codec_wire_bytes,
+                 "pack_seconds": px.pack_seconds_total,
+                 "pack_hidden": px.pack_hidden_seconds_total,
+                 "staging_seconds": _pmesh.staging_seconds,
+                 "wire_seconds": _pmesh.wire_seconds,
+                 "calls": _pmesh.cross_rank_calls,
+                 "bytes": _pmesh.cross_rank_bytes})
+
+    def _exchange_deltas(self):
+        """This run's per-shard sent and received bytes and its (src, dst)
+        route matrix (what the fleet view folds into rank x rank
+        matrices), codec and pack-overlap evidence, and the host staging
+        of the collectives across ranks; None when nothing moved."""
+        if self._exchange_snapshot is None:
+            return None
+        sent0, recv0, pair0, sc0 = self._exchange_snapshot
+        sent1, recv1, pair1, sc1 = self._exchange_counters()
+
+        def delta(cur, base):
+            return {k: v - base.get(k, 0) for k, v in cur.items()
+                    if v - base.get(k, 0) > 0}
+
+        sent = delta(sent1, sent0)
+        recv = delta(recv1, recv0)
+        pair = delta(pair1, pair0)
+        calls = sc1["calls"] - sc0["calls"]
+        if not (sent or recv or pair or calls):
+            return None
+        section = {
+            "sent_per_device": {str(k): v for k, v in sorted(sent.items())},
+            "received_per_device": {str(k): v
+                                    for k, v in sorted(recv.items())},
+            # JSON-safe route triples [src_shard, dst_shard, bytes]
+            "routes": [[s, d, n] for (s, d), n in sorted(pair.items())],
+        }
+        raw = sc1["codec_raw"] - sc0["codec_raw"]
+        wire = sc1["codec_wire"] - sc0["codec_wire"]
+        if raw > 0:
+            section["codec"] = {
+                "raw_bytes": raw, "wire_bytes": wire,
+                "savings_fraction": round(1.0 - wire / float(raw), 4)}
+        packed = sc1["pack_seconds"] - sc0["pack_seconds"]
+        hidden = sc1["pack_hidden"] - sc0["pack_hidden"]
+        if packed > 1e-9:
+            section["overlap"] = {
+                "pack_seconds": round(packed, 4),
+                "hidden_seconds": round(hidden, 4),
+                "hidden_fraction": round(hidden / packed, 4)}
+        if calls:
+            # the collectives across ranks, staged through host memory:
+            # the copies, the gloo calls, and this rank's bytes sent
+            section["host_staging"] = {
+                "calls": calls,
+                "bytes": sc1["bytes"] - sc0["bytes"],
+                "staging_seconds": round(
+                    sc1["staging_seconds"] - sc0["staging_seconds"], 6),
+                "wire_seconds": round(
+                    sc1["wire_seconds"] - sc0["wire_seconds"], 6)}
+        return section
 
     def _sentry_check(self, summary):
         """Fold the finalized run into its telemetry series and ask the

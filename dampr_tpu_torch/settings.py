@@ -155,10 +155,16 @@ def mesh_device_list():
 
 
 def device_count_for_auto():
-    """Shards of the mesh for "auto" mesh decisions: the length of
-    :data:`mesh_devices` (1 on one card or the CPU by default), counted
-    without resolving a device."""
-    return len(_mesh_entries())
+    """Shards of the global mesh for "auto" mesh decisions: the length of
+    :data:`mesh_devices` (1 on one card or the CPU by default), times the
+    ranks once a process group is up (every rank names its own local
+    shards), counted without resolving a device."""
+    from .parallel import mesh as _mesh
+
+    n = len(_mesh_entries())
+    if _mesh.is_initialized():
+        n *= _mesh.rank_info()[1]
+    return n
 
 
 def use_device_for(n):
@@ -300,6 +306,45 @@ exchange_min_bytes = int(os.environ.get(
 #: exits the process with 70.
 exchange_timeout_ms = int(os.environ.get(
     "DAMPR_TPU_TORCH_EXCHANGE_TIMEOUT_MS", "0"))
+
+#: Straggler mitigation (:mod:`.parallel.mitigate`): "on" starts a
+#: controller per run that turns the live skew signal into action: work
+#: stealing and speculative re-execution of straggler jobs on the host
+#: path, skipped collective windows while a rank is persistently late at
+#: exchange steps, and a sticky partition-share down-weight for a rank
+#: that stays pathological.  "off" (the default) is one None-check per
+#: site.
+mitigate = os.environ.get("DAMPR_TPU_TORCH_MITIGATE", "off")
+
+
+def mitigate_enabled():
+    return str(mitigate).lower() in ("on", "1", "true", "yes")
+
+
+#: The mitigation's one ratio: a rank whose step-entry lateness is at
+#: least this multiple of the other ranks' mean (plus a 20 ms jitter
+#: floor) counts as pathological, and a host job running this multiple
+#: of the median completed job becomes a speculation candidate.
+speculate_threshold = float(os.environ.get(
+    "DAMPR_TPU_TORCH_SPECULATE_THRESHOLD", "1.5"))
+
+#: Consecutive pathological windows before the mitigation engages (and
+#: healthy probes before it disengages); twice as many escalate to the
+#: sticky down-weight.
+speculate_after_steps = int(os.environ.get(
+    "DAMPR_TPU_TORCH_SPECULATE_AFTER", "3"))
+
+#: While engaged, every this-many skipped windows one runs through the
+#: mesh as a probe of the skew; 0 keeps the degrade for the run.
+mitigate_probe_windows = int(os.environ.get(
+    "DAMPR_TPU_TORCH_MITIGATE_PROBE", "4"))
+
+#: How long (ms) rank 0 of a traced multi-process run waits at finalize
+#: for its siblings' artifacts before it merges the fleet timeline
+#: (:mod:`.obs.fleet`) with what landed; 0 skips the merge at finalize
+#: (``cli stats --fleet`` merges afterwards).
+fleet_wait_ms = int(os.environ.get("DAMPR_TPU_TORCH_FLEET_WAIT_MS",
+                                   "10000"))
 
 #: Coded aggregation over the byte exchange: "camr" folds each window's
 #: blocks per destination partition under the stage's associative op

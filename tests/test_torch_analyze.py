@@ -669,6 +669,59 @@ class TestValidator:
         port_settings.analyze = False
         av.preflight_dispatch_check(pipe.pmer.graph, 2)
 
+    def test_run_preflights_on_two_ranks(self, monkeypatch, tmp_path):
+        """The runner's pre-flight hook: a run whose environment names
+        two ranks raises the JAX package's ``PreflightError`` rows before
+        any stage runs; one rank runs."""
+        monkeypatch.setattr(port_settings, "scratch_root", str(tmp_path))
+        monkeypatch.setattr(ref_settings, "scratch_root", str(tmp_path))
+        one = _pipelines(dampr_tpu_torch, port_base)["lock"][0]
+        assert list(one.run(name="pf-one").read())
+        for var in ("DAMPR_TPU_TORCH", "DAMPR_TPU"):
+            monkeypatch.setenv(var + "_NUM_PROCESSES", "2")
+            monkeypatch.setenv(var + "_PROCESS_ID", "0")
+        pipe = _pipelines(dampr_tpu_torch, port_base)["lock"][0]
+        with pytest.raises(PreflightError) as ei:
+            pipe.run(name="pf-two")
+        ref = _pipelines(dampr_tpu, ref_base)["lock"][0]
+        from dampr_tpu.analyze import validate as ref_av
+
+        with pytest.raises(ref_av.PreflightError) as ref_ei:
+            ref.run(name="pf-two-ref")
+        assert _rows(ei.value.diagnostics) == _rows(
+            ref_ei.value.diagnostics)
+
+    def test_speculation_declines_on_nondet_udf(self, monkeypatch,
+                                                tmp_path):
+        """The runner's speculation veto, against the JAX package's
+        case: with the mitigation armed and one map job stalled, a stage
+        with a nondeterministic UDF is never speculated, the controller
+        records the evidence, and the records equal the JAX run's."""
+        for st in (port_settings, ref_settings):
+            monkeypatch.setattr(st, "scratch_root", str(tmp_path))
+            monkeypatch.setattr(st, "max_processes", 4)
+            monkeypatch.setattr(st, "mitigate", "on")
+            monkeypatch.setattr(st, "speculate_threshold", 1.5)
+            monkeypatch.setattr(st, "faults", "udf:nth=1,sleep_ms=1200")
+        data = [(i % 16, i) for i in range(8000)]
+        mits, got = [], []
+        for D, name in ((dampr_tpu.Dampr, "spec-ref"),
+                        (dampr_tpu_torch.Dampr, "spec-port")):
+            em = (D.memory(data, partitions=4)
+                  .map(lambda x: (x[0], x[1] + int(time.time() * 0)))
+                  .fold_by(lambda x: x[0], operator.add,
+                           value=lambda x: x[1])).run(name=name)
+            got.append(sorted(em.read()))
+            mits.append(em.stats()["mitigation"])
+            em.delete()
+        ref_mit, mit = mits
+        assert got[0] == got[1]
+        assert mit["speculative_attempts"] == 0, mit
+        assert mit["speculation_declined"] == ref_mit[
+            "speculation_declined"]
+        assert any("time" in e for rec in mit["speculation_declined"]
+                   for e in rec["evidence"])
+
 
 def _comparable(section):
     """The section with the tracing library's own exception text cut from

@@ -3,8 +3,9 @@
 The port version of ``tests/test_metrics.py::TestStatsCli`` and of the
 ``cli.py`` entry points: ``python -m dampr_tpu_torch.cli stats`` with
 ``--series``, ``--prom`` and ``--log`` on a traced port run; exit 3 for a
-run that left a crashdump; ``--fleet`` and a coordinator in the
-environment refused with exit 2 (they need the multi-device layer).  On
+run that left a crashdump; ``--fleet`` on a one-process run prints the
+JAX package's "no fleet section" line, and a coordinator in the
+environment without the rank's id and count exits 2.  On
 the same ``trace.json`` and ``stats.json``, ``export.load_series``,
 ``format_series``, ``format_pipeline_series`` and ``critpath.from_run``
 give the JAX functions' results.  ``wc``, ``tfidf`` and ``lint`` run
@@ -102,9 +103,13 @@ class TestStats:
         assert "CRASHED RUN" in err and "RuntimeError" in err
 
     def test_fleet_refused(self, traced, capsys):
+        """A one-process run has no fleet to merge: the section stays
+        absent and the text says so (the multi-process merge is
+        ``test_torch_fleet_mp.py``'s)."""
         _run("cli-fleet")
-        assert cli.main(["stats", "cli-fleet", "--fleet"]) == 2
-        assert "A5" in capsys.readouterr().err
+        assert cli.main(["stats", "cli-fleet", "--fleet"]) == 0
+        assert "no fleet section: single-process run" in (
+            capsys.readouterr().out)
 
 
 class TestAgainstJax:
@@ -154,11 +159,15 @@ class TestDispatch:
     @pytest.mark.parametrize("argv", [["bench"], ["wc", "x"],
                                       ["tfidf", "x"]])
     def test_coordinator_refused(self, monkeypatch, capsys, argv):
+        """A coordinator without the rank's id and count is an incomplete
+        deployment: exit 2, never a silent run as one process."""
         monkeypatch.setenv(cli.COORDINATOR_ENV, "localhost:1234")
+        monkeypatch.delenv("DAMPR_TPU_TORCH_NUM_PROCESSES", raising=False)
+        monkeypatch.delenv("DAMPR_TPU_TORCH_PROCESS_ID", raising=False)
         with pytest.raises(SystemExit) as e:
             cli.main(argv)
         assert e.value.code == 2
-        assert "A5" in capsys.readouterr().err
+        assert "DAMPR_TPU_TORCH_NUM_PROCESSES" in capsys.readouterr().err
 
     def test_module_entry_point(self, tmp_path):
         env = dict(os.environ, DAMPR_TPU_TORCH_SCRATCH=str(tmp_path),
@@ -167,7 +176,7 @@ class TestDispatch:
                             "stats", "nonesuch", "--fleet"], cwd=ROOT,
                            env=env, capture_output=True, text=True,
                            timeout=120)
-        assert p.returncode == 2 and "A5" in p.stderr
+        assert p.returncode == 2 and "no stats.json found" in p.stderr
 
 
 def _text(tmp_path, seed=9):

@@ -46,8 +46,7 @@ with open(os.path.join(ROOT, "docs", "doctor_schema.json")) as _f:
     DOCTOR_SCHEMA = json.load(_f)
 
 #: The JAX playbook's knobs the port leaves out, pinned.
-LEFT_OUT = {"lower_min_records", "mitigate", "speculate_after_steps",
-            "speculate_threshold", "spill_inflight_bytes",
+LEFT_OUT = {"lower_min_records", "spill_inflight_bytes",
             "spill_read_threads"}
 
 

@@ -137,7 +137,9 @@ class TestRecords:
         assert snap["spill_codec"] == str(storage.SPILL_CODEC)
         assert snap["pipeline"] == settings.pipeline
         assert snap["exchange_hbm_budget"] == 64 * 1024 ** 2
-        assert snap["mitigate"] is None  # no such port knob
+        # the straggler mitigation's knobs are the port's since A5b
+        assert snap["mitigate"] == settings.mitigate == "off"
+        assert snap["speculate_threshold"] == settings.speculate_threshold
 
     def test_stage_shapes_and_fingerprints_agree(self):
         def pipes(pkg):

@@ -35,8 +35,8 @@ def test_port_imports_without_jax_or_the_jax_package(tmp_path):
     (a certified chain's lane program, ``validate()``) and the adaptive
     plan (a named run sized from its history, ``explain()``), faults
     and resume (a retried job, a restored rerun, ``validate(resume=True)``)
-    and the cross-run cache (a published run, then a mounted one), on the
-    CPU."""
+    and the cross-run cache (a published run, then a mounted one), the
+    mesh, the straggler mitigation and the fleet merge, on the CPU."""
     code = r"""
 import importlib, json, math, operator, pkgutil, sys
 sys.modules["jax"] = None
@@ -109,7 +109,14 @@ records["mesh"] = [
     ring.ring_allreduce(mesh, np.arange(8)).tolist(),
     sgd.train(mesh, np.ones((8, 2), np.float32), np.ones(8, np.float32),
               n_steps=2)[1] > 0]
+settings.mitigate = "on"
+records["mitigate"] = [
+    words.count().run(name="iso-mit").stats()["mitigation"]["enabled"],
+    left.join(right).reduce(lambda l, r: (list(l), list(r))).read()]
+settings.mitigate = "off"
 settings.mesh_devices = None
+from dampr_tpu_torch.obs import fleet
+records["fleet"] = fleet.merge_run("iso-mit")
 loaded = sorted(m for m in sys.modules
                 if m == "dampr_tpu" or m.startswith("dampr_tpu."))
 print(json.dumps({"modules": names, "reference": loaded,
@@ -143,7 +150,7 @@ print(json.dumps({"modules": names, "reference": loaded,
                  "serve.worker", "serve.daemon", "serve.client",
                  "parallel", "parallel.mesh", "parallel.shuffle",
                  "parallel.replan", "parallel.exchange", "parallel.ring",
-                 "parallel.sgd"):
+                 "parallel.sgd", "parallel.mitigate", "obs.fleet"):
         assert "dampr_tpu_torch." + name in report["modules"]
     assert report["idf"] == [["a", 2, 4], ["b", 2, 4], ["c", 1, 4]]
     assert report["len"] == [4]
@@ -165,7 +172,8 @@ print(json.dumps({"modules": names, "reference": loaded,
         "adapt": [False, True, True],
         "reuse": [[[["a", 2], ["b", 2], ["c", 1]]] * 2, [0, 1]],
         "mesh": [[["a", 2], ["b", 2], ["c", 1]], pair, [1, 2, 3],
-                 [12, 16] * 4, True]}
+                 [12, 16] * 4, True],
+        "mitigate": [True, pair], "fleet": None}
     assert report["ooc"] == {"fold": [["a", 2], ["b", 2], ["c", 1]],
                              "join": pair, "sort": [1, 2, 3]}
 

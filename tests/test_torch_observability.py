@@ -2,10 +2,9 @@
 port version of ``tests/test_observability.py``, and the traced
 TF-IDF-shaped run through both packages.
 
-Left out, with its queue item (ROADMAP): ``test_mesh_fold_emits_
-collective_spans`` (the fleet plane on NCCL, A5: one device folds no
-collective).  ``test_checkpoint_spans_on_resume`` is in
-``test_torch_resume.py``.
+``test_mesh_fold_emits_collective_spans`` runs on the port's 8-shard CPU
+rig, the JAX test's 8 devices.  ``test_checkpoint_spans_on_resume`` is
+in ``test_torch_resume.py``.
 
 The TF-IDF run goes through the JAX package with ``settings.lower = "1"``
 (its CPU jit leg, as ``tests/test_profile.py`` runs it) and through the
@@ -42,11 +41,6 @@ _spec.loader.exec_module(validate_trace)
 
 with open(os.path.join(ROOT, "docs", "trace_schema.json")) as _f:
     TRACE_SCHEMA = json.load(_f)
-
-#: Top-level sections of the JAX summary that belong to later slices of
-#: the port: mitigation and fleet (A5).
-LATER_SLICES = {"mitigation", "fleet"}
-
 
 @pytest.fixture(autouse=True)
 def cpu(tmp_path):
@@ -95,6 +89,24 @@ def _obs_threads():
 
 
 class TestTracedRuns:
+    def test_mesh_fold_emits_collective_spans(self, traced):
+        """On the 8-shard rig the associative fold rides the collective
+        path and records collective spans."""
+        old = settings.mesh_devices
+        settings.mesh_devices = "cpu*8"
+        try:
+            em = (Dampr.memory(list(range(20000)))
+                  .map(lambda x: (x % 31, 1))
+                  .fold_by(lambda kv: kv[0], operator.add, lambda kv: kv[1])
+                  .run(name="obs-mesh"))
+        finally:
+            settings.mesh_devices = old
+        out = dict(em.read())
+        assert sum(out.values()) == 20000
+        doc = _load_trace(em.stats())
+        assert "collective" in _cats(doc), _cats(doc)
+        em.delete()
+
     def test_tfidf_shape_kinds_and_schema(self, traced, tmp_path):
         """The block codec -> fold shape emits codec, fold, stage and job
         spans on per-slot lanes, and the trace validates."""
@@ -368,7 +380,7 @@ class TestTracedTfidfAgainstTheJaxPackage:
         assert port_doc["otherData"]["producer"] == "dampr_tpu_torch.obs"
         assert _cats(port_doc) == _cats(ref_doc), (
             _cats(port_doc) ^ _cats(ref_doc))
-        missing = set(ref_s) - set(port_s) - LATER_SLICES
+        missing = set(ref_s) - set(port_s)
         assert not missing, missing
         assert port_s["critpath"]["run"]["verdict"]
         assert port_s["profile"]["enabled"] is True
