@@ -800,7 +800,6 @@ def phase_tfidf(Dampr, DocFreq, kernels, corpus, chunk, nbytes, df, n_lines,
            "sink_lines": len(got),
            "device_stages": dstat["device_stages"],
            "device_fraction": dstat["device_fraction"],
-           "stream_fraction": dstat["stream_fraction"],
            "host_phase_seconds": dstat["host_phase_seconds"],
            "combine_seconds": stats["combine_seconds"],
            "stage_seconds": stage_seconds(stats),
@@ -5365,7 +5364,6 @@ def main(argv=None):
             runs.append({"scanner": name, "seconds": secs,
                          "mb_per_s": nbytes / 1e6 / secs,
                          "device_fraction": dstat["device_fraction"],
-                         "stream_fraction": dstat["stream_fraction"],
                          "host_phase_seconds": dstat["host_phase_seconds"],
                          "combine_seconds": stats["combine_seconds"],
                          "stage_seconds": stage_seconds(stats),
@@ -5395,7 +5393,6 @@ def main(argv=None):
         log("e2e-one-job " + json.dumps({
             "scanner": "DocFreq", "jobs": 1, "seconds": secs,
             "mb_per_s": nbytes / 1e6 / secs,
-            "stream_fraction": dstat["stream_fraction"],
             "host_phase_seconds": dstat["host_phase_seconds"],
             "combine_seconds": em.stats()["combine_seconds"],
             "batches": dstat["batches"]}))

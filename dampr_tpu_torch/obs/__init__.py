@@ -19,15 +19,22 @@ and merge generation.  Span categories (event ``cat``), all from the
 closed set of ``docs/trace_schema.json``:
 
 - ``stage`` / ``job`` — one span per stage on the ``stages`` lane; one per
-  job on its worker's lane;
+  job on its worker's lane (args ``job``, the job's index in its stage,
+  and ``stage``, the stage id);
 - ``codec`` — one span per produced window (scan, tokenize) on its
-  producer's lane; the lowered sink's host scan and bootstrap;
-- ``fold`` — map-side partial/final folds, the device fold's fetch;
+  producer's lane (arg ``job``: the job it feeds); the lowered sink's
+  host scan (``sink-scan``), padded batch (``sink-pad``) and bootstrap;
+- ``fold`` — map-side partial/final folds, the device fold's work
+  (``device-fold``) and fetch, the lowered sink's decode of a drained
+  batch (``sink-decode``);
 - ``stall`` — a fold consumer blocked on its producer (the per-slot view
   of devtime's ``codec_wait``);
-- ``device`` — the lowered sink's batch dispatch and drain;
-- ``handoff`` — table-program dispatches, degrades, the registration of
-  a job's device refs;
+- ``device`` — the lowered sink's batch dispatch (``map-fold``) and wait
+  (``drain``); each keyed batch op's device call (``keyed-fnv_lanes``,
+  ``keyed-mix_int``, ``keyed-hash_sort``, ``keyed-segment_fold``);
+- ``handoff`` — table-program dispatches (``table-probe``) and waits
+  (``table-drain``), the sink's host work into the vocabulary
+  (``absorb``), degrades, the registration of a job's device refs;
 - ``collective`` — the mesh keyed fold, its global sums and the byte
   exchange's windows;
 - ``exchange`` — the byte exchange's steps (``h2d``, ``step``, ``d2h``);
@@ -38,6 +45,22 @@ closed set of ``docs/trace_schema.json``:
 - ``retry`` — the JAX package's job retries (none yet: retries are a
   later slice).
 
+Every span carries ``cpu`` in its args: the seconds of its interval its
+thread spent on a core (``time.thread_time``, read inside the wall reads,
+so it never exceeds ``dur``; two more clock reads a span, while tracing
+only); the rest the thread waited, for the interpreter lock, another
+lock, a core or the card.  A ``complete`` span whose start was stamped on
+another thread carries none.  ``otherData`` adds ``lane_native_tid`` and
+``lane_thread_ident``: each ``tid``'s OS thread id
+(``threading.get_native_id``) and thread ident (``threading.get_ident``,
+the pthread id), so a ``torch.profiler`` trace joins the lane that made
+its host-side events (a CUDA-only profiler stamps its runtime events with
+the ident's low 32 bits read as a signed int32, in magnitude; one with
+CPU activity stamps its CPU ops with the OS thread id); and
+``wall_start_err_us``, the width of the narrowest of three
+``perf_counter`` brackets around the ``wall_start`` read: how far a span's
+wall time (``wall_start`` + ``ts``) may be off.
+
 **stats.json — the summary** (schema ``dampr-tpu-stats/1``), returned
 in-memory from every run, traced or not, as ``em.stats()``: per-stage
 ``records_in/out``, ``bytes_in/out``, spills and merges; the ``devtime``
@@ -46,7 +69,14 @@ buckets (:mod:`dampr_tpu_torch.ops.devtime`); ``overlap``, ``io``,
 (the port's kernel launches and host phases beside the JAX keys);
 ``trace_file`` / ``stats_file`` (None untraced).  A traced run adds
 ``metrics``, ``log``, ``spans`` and ``critpath``; a profiled run
-``profile``; a failed one ``crashdump_file``.
+``profile``; a failed one ``crashdump_file``.  ``spans`` gives each
+category its ``count``, ``seconds``, ``cpu_seconds`` and self time,
+``self_seconds`` and ``self_cpu_seconds``: a span's interval (and cpu)
+less what the child spans recorded by the same thread cover (nesting
+follows the recording thread, not the lane).  A traced or profiled run
+adds ``device.host_phase_cpu_seconds`` (the sink phases' thread CPU,
+keyed as ``host_phase_seconds``), ``cpu_seconds`` in each
+``device.keyed`` op and in each profiler op.
 
 **The metrics plane** (``settings.metrics_interval_ms``; traced runs
 sample at 100 ms): the registry (:mod:`.metrics`) and its sampler thread

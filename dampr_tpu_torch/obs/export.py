@@ -71,15 +71,14 @@ def chrome_events(tracer):
     pid = 1
     out = [{"ph": "M", "pid": pid, "tid": 0, "name": "process_name",
             "args": {"name": "dampr_tpu_torch:{}".format(tracer.run)}}]
-    # Stable small tids: Perfetto sorts tracks by tid, so lanes number in
-    # first-seen order instead of leaking thread idents.
-    tid_of = {}
+    tid_of = _lane_tids(tracer)
     for lane, lname in tracer.lane_names.items():
-        tid = tid_of.setdefault(lane, len(tid_of) + 1)
-        out.append({"ph": "M", "pid": pid, "tid": tid,
+        out.append({"ph": "M", "pid": pid, "tid": tid_of[lane],
                     "name": "thread_name", "args": {"name": lname}})
-    for cat, name, t0, dur, lane, args in tracer.events:
-        tid = tid_of.setdefault(lane, len(tid_of) + 1)
+    for rec in tracer.events:
+        cat, name, t0, dur, lane, args = rec[:6]
+        cpu = rec[6] if len(rec) > 6 else None
+        tid = tid_of[lane]
         ev = {"name": name, "cat": cat, "pid": pid, "tid": tid,
               "ts": round(t0 * 1e6, 3)}
         if dur is None:
@@ -88,10 +87,37 @@ def chrome_events(tracer):
         else:
             ev["ph"] = "X"
             ev["dur"] = round(dur * 1e6, 3)
+        if cpu is not None:
+            args = dict(args or (), cpu=round(cpu, 6))
         if args:
             ev["args"] = args
         out.append(ev)
     return out
+
+
+def _lane_tids(tracer):
+    """Stable small tids: Perfetto sorts tracks by tid, so lanes number in
+    first-seen order instead of leaking thread idents."""
+    tid_of = {}
+    for lane in tracer.lane_names:
+        tid_of.setdefault(lane, len(tid_of) + 1)
+    for rec in tracer.events:
+        tid_of.setdefault(rec[4], len(tid_of) + 1)
+    return tid_of
+
+
+def _lane_thread_ids(tracer):
+    """``({tid: OS thread id}, {tid: thread ident})`` for the lanes
+    :func:`chrome_events` numbers, keyed as JSON keys are, so that a
+    profiler's host-side events join the lane of the thread that made
+    them: a profiler with CPU activity stamps the OS thread id, a
+    CUDA-only one the low 32 bits of the thread ident (the pthread id)
+    on its runtime events."""
+    native, ident = {}, {}
+    for lane, tid in _lane_tids(tracer).items():
+        if lane in tracer.lane_threads:
+            native[str(tid)], ident[str(tid)] = tracer.lane_threads[lane]
+    return native, ident
 
 
 def counter_events(metrics, pid=1):
@@ -120,12 +146,16 @@ def write_trace(tracer, path, metrics=None):
         events.extend(counter_events(metrics))
     proc = process_section()
     proc["epoch_perf"] = tracer.epoch
+    native, ident = _lane_thread_ids(tracer)
     doc = {
         "traceEvents": events,
         "displayTimeUnit": "ms",
         "otherData": {
             "run": tracer.run,
             "wall_start": tracer.wall_start,
+            "wall_start_err_us": round(tracer.wall_start_err_us, 3),
+            "lane_native_tid": native,
+            "lane_thread_ident": ident,
             "producer": PRODUCER,
             "process": proc,
         },

@@ -12,7 +12,8 @@ went to.  This module is the attribution layer under ``settings.profile``
   batched-UDF path is timed per call (one clock pair per op per BATCH —
   never per record), codec windows are timed per window and attributed
   to the scanner op that produced them, and map-side partial/final folds
-  to the stage's combiner;
+  to the stage's combiner; each op cell carries its thread CPU seconds
+  beside its wall (``cpu_seconds``);
 - **device stages**: the device sink's sub-phases, host seconds at
   each — ``build`` (padded-matrix construction), ``h2d`` (the batch's
   copies and the kernels' enqueue), ``compute`` (the host blocked on
@@ -38,6 +39,7 @@ The summary ships as ``stats()["profile"]``.
 """
 
 import threading
+import time
 
 #: The active profiler or None.  Read unlocked on the hot path;
 #: start/stop mutate under _lock.
@@ -74,7 +76,9 @@ class Profiler(object):
     """One run's per-operator attribution.
 
     Per executed stage (keyed by sid): an ``ops`` table mapping operator
-    label -> ``[seconds, records, calls]``, a ``device`` table mapping
+    label -> ``[seconds, records, calls, cpu seconds]`` (the thread CPU
+    inside the op's seconds, None where no site passed it), a ``device``
+    table mapping
     sub-phase -> ``[seconds, bytes, calls]``, and job accounting
     (``jobs``, ``job_seconds`` thread-seconds).  All adds take one small
     lock; granularity is per batch / window / job, so contention is
@@ -115,16 +119,26 @@ class Profiler(object):
         return rec
 
     # -- accumulation (hot sites; per batch/window/job, never per record) ---
-    def op_add(self, label, seconds, records=0, calls=1, sid=None):
+    def op_add(self, label, seconds, records=0, calls=1, sid=None,
+               cpu=None):
         with self._mu:
             ops = self._rec(sid)["ops"]
             cell = ops.get(label)
             if cell is None:
-                ops[label] = [seconds, records, calls]
+                ops[label] = [seconds, records, calls, cpu]
             else:
                 cell[0] += seconds
                 cell[1] += records
                 cell[2] += calls
+                if cpu is not None:
+                    cell[3] = (cell[3] or 0.0) + cpu
+
+    def op_since(self, label, since, records=0, calls=1, sid=None):
+        """:meth:`op_add` for an op timed from ``since``, a :func:`mark`
+        taken before it: its wall and its thread CPU."""
+        cpu = time.thread_time() - since[1]
+        self.op_add(label, time.perf_counter() - since[0], records, calls,
+                    sid, cpu)
 
     def device_add(self, phase, seconds, nbytes=0, sid=None):
         with self._mu:
@@ -148,8 +162,6 @@ class Profiler(object):
         decompress/tokenize/parse — is attributed to ``label``.  Records
         one op_add per WINDOW; ``records_of(item)`` overrides the
         default ``len(item)`` record count."""
-        import time
-
         if sid is None:
             sid = self.sid
 
@@ -166,17 +178,16 @@ class Profiler(object):
         def gen():
             it = iter(items)
             while True:
-                t0 = time.perf_counter()
+                since = mark()
                 try:
                     item = next(it)
                 except StopIteration:
                     # the iterator's teardown (a last window's flush, a
                     # producer thread's join) is the op's too
-                    self.op_add(label, time.perf_counter() - t0, records=0,
-                                calls=0, sid=sid)
+                    self.op_since(label, since, records=0, calls=0,
+                                  sid=sid)
                     return
-                self.op_add(label, time.perf_counter() - t0,
-                            records=count(item), sid=sid)
+                self.op_since(label, since, records=count(item), sid=sid)
                 yield item
 
         return gen()
@@ -191,10 +202,14 @@ class Profiler(object):
         with self._mu:
             recs = sorted(self._stages.items())
         for sid, rec in recs:
-            ops = [{"op": label, "seconds": round(c[0], 6),
-                    "records": c[1], "calls": c[2]}
-                   for label, c in sorted(rec["ops"].items(),
-                                          key=lambda kv: -kv[1][0])]
+            ops = []
+            for label, c in sorted(rec["ops"].items(),
+                                   key=lambda kv: -kv[1][0]):
+                op = {"op": label, "seconds": round(c[0], 6),
+                      "records": c[1], "calls": c[2]}
+                if c[3] is not None:
+                    op["cpu_seconds"] = round(c[3], 6)
+                ops.append(op)
             device = {phase: {"seconds": round(c[0], 6), "bytes": c[1],
                               "calls": c[2]}
                       for phase, c in sorted(rec["device"].items())}
@@ -248,6 +263,13 @@ def active():
 
 def enabled():
     return _active is not None
+
+
+def mark():
+    """``(perf_counter, thread_time)`` now, for :meth:`Profiler.op_since`
+    (wall outside CPU: an op's CPU never exceeds its seconds)."""
+    t = time.perf_counter()
+    return t, time.thread_time()
 
 
 def device_add(phase, seconds, nbytes=0):

@@ -41,6 +41,9 @@ import contextlib
 import threading
 import time
 
+from ..obs import profile as _profile
+from ..obs import trace as _trace
+
 _lock = threading.Lock()
 _counters = {"device": 0.0, "transfer": 0.0, "codec": 0.0,
              "codec_wait": 0.0}
@@ -109,33 +112,78 @@ def stalled_slots():
     return _stalled
 
 
-@contextlib.contextmanager
-def track(kind):
-    t0 = time.perf_counter()
-    if kind != "codec":
-        # only codec regions feed active_in(): the others skip the entry
-        # lock and the _active bookkeeping
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            with _lock:
-                _counters[kind] += dt
-        return
-    key = (threading.get_ident(), kind)
-    with _lock:
-        _active[key] = _active.get(key, 0) + 1
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
+def _enter(kind):
+    """Open a ``kind`` region on this thread.  Only codec regions feed
+    :func:`active_in`: the others skip the lock and the bookkeeping."""
+    if kind == "codec":
+        key = (threading.get_ident(), kind)
         with _lock:
+            _active[key] = _active.get(key, 0) + 1
+
+
+def _leave(kind, seconds):
+    """Close the region :func:`_enter` opened, adding its seconds."""
+    with _lock:
+        if kind == "codec":
+            key = (threading.get_ident(), kind)
             depth = _active.get(key, 1) - 1
             if depth:
                 _active[key] = depth
             else:
                 _active.pop(key, None)
-            _counters[kind] += dt
+        _counters[kind] += seconds
+
+
+@contextlib.contextmanager
+def track(kind):
+    _enter(kind)
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _leave(kind, time.perf_counter() - t0)
+
+
+class Timed(object):
+    """One timing site: the wall clock read once at each end feeds the
+    ``kind`` bucket (as :func:`track`; None for none) and, while tracing,
+    one span ``cat:name`` on this thread (no span when ``cat`` is None).
+    While the tracer or the per-operator profiler is on it reads this
+    thread's CPU clock too, inside the wall reads, so ``cpu`` never
+    exceeds ``seconds``.  After the block the caller feeds its own
+    counters from ``seconds`` and ``cpu`` (None when not read); ``args``
+    may gain entries inside the block."""
+
+    __slots__ = ("kind", "cat", "name", "args", "seconds", "cpu", "_t0",
+                 "_c0", "_tracer")
+
+    def __init__(self, kind, cat=None, name=None, **args):
+        self.kind = kind
+        self.cat = cat
+        self.name = name
+        self.args = args
+        self.seconds = 0.0
+        self.cpu = None
+
+    def __enter__(self):
+        self._tracer = _trace.active()
+        if self.kind is not None:
+            _enter(self.kind)
+        self._t0 = time.perf_counter()
+        self._c0 = (time.thread_time() if self._tracer is not None
+                    or _profile.enabled() else None)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._c0 is not None:
+            self.cpu = time.thread_time() - self._c0
+        self.seconds = time.perf_counter() - self._t0
+        if self.kind is not None:
+            _leave(self.kind, self.seconds)
+        if self._tracer is not None and self.cat is not None:
+            self._tracer.interval(self.cat, self.name, self._t0,
+                                  self.seconds, self.cpu, self.args)
+        return False
 
 
 def active_in(thread_ident, kind):
@@ -209,11 +257,17 @@ def charging(store):
         _local.store = prev
 
 
-def keyed(name, seconds, h2d, d2h):
+def keyed(name, seconds, h2d, d2h, cpu=None):
     """One device call of the keyed op ``name``: its seconds go into the
-    ``device`` bucket, and its seconds and bytes to the run charging this
-    thread."""
+    ``device`` bucket, and its seconds (``cpu``, its thread CPU, where
+    read) and bytes to the run charging this thread."""
     add("device", seconds)
     store = getattr(_local, "store", None)
     if store is not None:
-        store.count_keyed(name, seconds, h2d, d2h)
+        store.count_keyed(name, seconds, h2d, d2h, cpu=cpu)
+
+
+def keyed_call(name):
+    """The timing site of one keyed device call: a ``device:keyed-<name>``
+    span; pass its reading to :func:`keyed`."""
+    return Timed(None, "device", "keyed-" + name)

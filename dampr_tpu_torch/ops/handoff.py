@@ -245,10 +245,10 @@ class _TableBatch(object):
     path."""
 
     __slots__ = ("miss", "n_miss", "starts", "lens", "lines", "n", "npad",
-                 "miss_idx", "start", "event", "keep")
+                 "miss_idx", "event", "keep")
 
     def __init__(self, miss, n_miss, starts, lens, lines, n, npad,
-                 start=None, event=None, keep=None):
+                 event=None, keep=None):
         self.miss = miss
         self.n_miss = n_miss
         self.starts = starts
@@ -257,7 +257,6 @@ class _TableBatch(object):
         self.n = n
         self.npad = npad
         self.miss_idx = None
-        self.start = start
         self.event = event
         self.keep = keep
 
@@ -467,7 +466,8 @@ class HandoffVocab(object):
         """Queue the table program over one padded batch (``inputs``: the
         host ``(mat, lens, lines)`` tensors, pinned on a card); the
         accumulator advances asynchronously.  Returns the drain handle, or
-        None when the job must degrade (the count guard, the budget)."""
+        None when the job must degrade (the count guard, the budget).  The
+        sink times the call (its ``handoff:table-probe`` span)."""
         mat_t, lens_t, lines_t = inputs
         npad = mat_t.shape[0]
         if self.total_added + n > _I64_GUARD:
@@ -488,13 +488,9 @@ class HandoffVocab(object):
         if self.store is not None:
             self.store.count_h2d(nbytes)
         cuda = self.stream is not None
-        start = event = keep = None
-        with devtime.track("device"), _trace.span(
-                "handoff", "table-probe", tokens=int(n),
-                bytes=int(nbytes)), self._on_stream():
+        event = keep = None
+        with self._on_stream():
             if cuda:
-                start = torch.cuda.Event(enable_timing=True)
-                start.record(self.stream)
                 dev_in = [t.to(self.device, non_blocking=True)
                           for t in inputs]
             else:
@@ -508,13 +504,13 @@ class HandoffVocab(object):
                 h_n = torch.empty((), dtype=torch.int32, pin_memory=True)
                 h_miss.copy_(miss, non_blocking=True)
                 h_n.copy_(n_miss, non_blocking=True)
-                event = torch.cuda.Event(enable_timing=True)
+                event = torch.cuda.Event()
                 event.record(self.stream)
                 keep = (inputs, dev_in, miss, n_miss)
                 miss, n_miss = h_miss, h_n
         self.table_batches += 1
         return _TableBatch(miss, n_miss, starts, lens, lines, n, npad,
-                           start, event, keep)
+                           event, keep)
 
     def drain(self, buf, batch):
         """Resolve one table dispatch: absorb its misses exactly on the

@@ -17,7 +17,6 @@ as int64 holding the unsigned value and multiplies modulo 2^32 with
 int64, exactly as in the reference.
 """
 
-import time
 
 import numpy as np
 
@@ -150,15 +149,15 @@ def _fnv(mat, lens):
     from . import fnv
 
     dev = settings.resolve_device()
-    t0 = time.perf_counter()
-    mat = np.ascontiguousarray(mat)
-    lens = np.ascontiguousarray(lens, dtype=np.int32)
-    h1, h2 = fnv.fnv(torch.from_numpy(mat).to(dev),
-                     torch.from_numpy(lens).to(dev))
-    out = (h1.cpu().numpy().view(np.uint32).copy(),
-           h2.cpu().numpy().view(np.uint32).copy())
-    devtime.keyed("fnv_lanes", time.perf_counter() - t0,
-                mat.nbytes + lens.nbytes, 8 * n)
+    with devtime.keyed_call("fnv_lanes") as t:
+        mat = np.ascontiguousarray(mat)
+        lens = np.ascontiguousarray(lens, dtype=np.int32)
+        h1, h2 = fnv.fnv(torch.from_numpy(mat).to(dev),
+                         torch.from_numpy(lens).to(dev))
+        out = (h1.cpu().numpy().view(np.uint32).copy(),
+               h2.cpu().numpy().view(np.uint32).copy())
+    devtime.keyed("fnv_lanes", t.seconds, mat.nbytes + lens.nbytes, 8 * n,
+                  t.cpu)
     return out
 
 
@@ -169,12 +168,12 @@ def _mix_int(vals_i64):
     import torch
 
     dev = settings.resolve_device()
-    t0 = time.perf_counter()
-    h1, h2 = _mix_int_torch(torch.from_numpy(
-        np.ascontiguousarray(vals_i64, dtype=np.int64)).to(dev))
-    out = (h1.cpu().numpy().astype(np.uint32),
-           h2.cpu().numpy().astype(np.uint32))
-    devtime.keyed("mix_int", time.perf_counter() - t0, 8 * n, 16 * n)
+    with devtime.keyed_call("mix_int") as t:
+        h1, h2 = _mix_int_torch(torch.from_numpy(
+            np.ascontiguousarray(vals_i64, dtype=np.int64)).to(dev))
+        out = (h1.cpu().numpy().astype(np.uint32),
+               h2.cpu().numpy().astype(np.uint32))
+    devtime.keyed("mix_int", t.seconds, 8 * n, 16 * n, t.cpu)
     return out
 
 

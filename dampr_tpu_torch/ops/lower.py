@@ -30,19 +30,22 @@ instead (:mod:`.handoff`): the first batches' drains seed a per-job
 vocabulary, later batches run its table program, and the job's end
 registers the counts as device-resident refs for the fold.
 
-Observability, at the JAX package's sites: the scan and the padded
-batch are ``codec`` time (devtime), each dispatch is a ``device`` span
-(``map-fold``) and ``device`` time, each wait for a batch's results a
-``device`` span (``drain``; a table batch's dispatch and wait are
-``handoff`` spans, :mod:`.handoff`).  Under the per-operator profiler
-the host seconds split into ``build`` (the padded batch), ``h2d``
-(copies and kernels queued), ``compute`` (the host blocked on the card:
-the batch's event, which covers its copies back) and ``d2h`` (the
-results read and decoded).  No site adds a synchronisation: the drain's
-wait is the sink's own.
+Observability: each host phase of the sink (:data:`PHASES`) is timed at
+one site (``DeviceTokenFoldSink._phase``), whose one clock reading feeds
+every reader: the sink's ``seconds`` (and, while tracing or profiling,
+its thread CPU in ``cpu_seconds``), devtime's bucket (the scan and the
+padded batch are ``codec`` time, the dispatch and the wait ``device``
+time), one span on the thread that runs the phase (``codec:sink-scan``,
+``codec:sink-pad``, ``device:map-fold``, ``device:drain``,
+``fold:sink-decode``, ``handoff:absorb``; a table batch's dispatch and
+wait are ``handoff:table-probe`` and ``handoff:table-drain``), and the
+per-operator profiler's ``build`` (the padded batch), ``h2d`` (copies
+and kernels queued), ``compute`` (the host blocked on the card: the
+batch's event, which covers its copies back) and ``d2h`` (the results
+read and decoded).  No site adds a synchronisation: the drain's wait is
+the sink's own.
 """
 
-import time
 
 import numpy as np
 import torch
@@ -136,14 +139,12 @@ def sort_segments(low, high):
 class _Batch(object):
     """One dispatched program plus what its drain needs.  ``out`` holds
     the host-side (pinned, on a card) result buffers, filled once
-    ``event`` completes (``start`` marks when the batch's stream work
-    began); ``keep`` pins the inputs until then."""
+    ``event`` completes; ``keep`` pins the inputs until then."""
 
-    __slots__ = ("out", "start", "event", "keep", "starts", "lens", "n")
+    __slots__ = ("out", "event", "keep", "starts", "lens", "n")
 
-    def __init__(self, out, start, event, keep, starts, lens):
+    def __init__(self, out, event, keep, starts, lens):
         self.out = out
-        self.start = start
         self.event = event
         self.keep = keep
         self.starts = starts
@@ -173,6 +174,43 @@ def _batch_bounds(lines, n_tokens, limit):
 
 #: The host phases a DeviceTokenFoldSink times (see its ``seconds``).
 PHASES = ("scan", "pad", "enqueue", "wait", "decode", "absorb")
+
+#: Each phase's span (category, name), devtime bucket and per-operator
+#: profiler label (None: none).
+_PHASE_SITES = {
+    "scan": ("codec", "sink-scan", "codec", None),
+    "pad": ("codec", "sink-pad", "codec", "build"),
+    "enqueue": ("device", "map-fold", "device", "h2d"),
+    "wait": ("device", "drain", "device", "compute"),
+    "decode": ("fold", "sink-decode", None, "d2h"),
+    "absorb": ("handoff", "absorb", None, None),
+}
+
+
+class _SinkPhase(devtime.Timed):
+    """One phase of a sink, timed at this one site: the reading feeds the
+    sink's ``seconds`` and ``cpu_seconds``, devtime, the span and the
+    profiler's label (``nbytes`` its bytes)."""
+
+    __slots__ = ("sink", "phase", "label", "nbytes")
+
+    def __init__(self, sink, phase, span, nbytes, args):
+        cat, name, kind, self.label = _PHASE_SITES[phase]
+        if span is not None:
+            cat, name = span
+        devtime.Timed.__init__(self, kind, cat, name, **args)
+        self.sink = sink
+        self.phase = phase
+        self.nbytes = nbytes
+
+    def __exit__(self, exc_type, exc, tb):
+        devtime.Timed.__exit__(self, exc_type, exc, tb)
+        self.sink.seconds[self.phase] += self.seconds
+        if self.cpu is not None:
+            self.sink.cpu_seconds[self.phase] += self.cpu
+        if self.label is not None:
+            _profile.device_add(self.label, self.seconds, self.nbytes)
+        return False
 
 
 class DeviceTokenFoldSink(object):
@@ -223,9 +261,9 @@ class DeviceTokenFoldSink(object):
         #: (the handoff's host work: survivors and a table batch's misses
         #: into the vocabulary, a host bootstrap)
         self.seconds = dict.fromkeys(PHASES, 0.0)
-        #: summed per-batch span on the card's stream (copies + program),
-        #: from CUDA events; 0 on the CPU
-        self.stream_seconds = 0.0
+        #: the thread CPU seconds of each phase, read while tracing or
+        #: profiling (0 otherwise): ``seconds`` less them is waiting
+        self.cpu_seconds = dict.fromkeys(PHASES, 0.0)
         self._hv = None
         if handoff and store is not None and not self.pair_values:
             from . import handoff as _handoff
@@ -337,19 +375,20 @@ class DeviceTokenFoldSink(object):
             out.append(blk)
 
     # -- the device path ---------------------------------------------------
+    def _phase(self, phase, span=None, nbytes=0, **args):
+        """The timing site of one ``phase`` (:data:`PHASES`); ``span``
+        replaces its (category, name), ``args`` go on the span."""
+        return _SinkPhase(self, phase, span, nbytes, args)
+
     def _host_buffer(self, shape, dtype):
         return torch.empty(shape, dtype=dtype, pin_memory=self._cuda)
 
     def _pad_batch(self, buf, starts, lens, lines):
         """The padded program inputs, built in place in (pinned) host
         tensors: rows pad to a power of two with lens 0 (hence invalid)."""
-        prof = _profile.active()
-        t0 = time.perf_counter()
-        with devtime.track("codec"):
+        with self._phase("pad") as ph:
             out = self._pad_rows(buf, starts, lens, lines)
-        if prof is not None:
-            prof.device_add("build", time.perf_counter() - t0,
-                            out[0].numel())
+            ph.nbytes = out[0].numel()
         return out
 
     def _pad_rows(self, buf, starts, lens, lines):
@@ -377,30 +416,19 @@ class DeviceTokenFoldSink(object):
         The ``device_dispatch`` fault site: a failure here surfaces through
         the map job and rides the job retry loop."""
         _faults.check("device_dispatch")
-        t0 = time.perf_counter()
         inputs = self._pad_batch(buf, starts, lens, lines)
         nbytes = sum(t.numel() * t.element_size() for t in inputs)
         if self.store is not None:
             self.store.count_h2d(nbytes)
-        t1 = time.perf_counter()
-        self.seconds["pad"] += t1 - t0
-        with devtime.track("device"), _trace.span(
-                "device", "map-fold", tokens=len(starts), bytes=nbytes):
+        with self._phase("enqueue", nbytes=nbytes, tokens=len(starts),
+                         bytes=nbytes):
             batch = self._enqueue(inputs, starts, lens)
-        t2 = time.perf_counter()
-        self.seconds["enqueue"] += t2 - t1
-        prof = _profile.active()
-        if prof is not None:
-            prof.device_add("h2d", t2 - t1, nbytes)
         self.batches += 1
         return batch
 
     def _enqueue(self, inputs, starts, lens):
-        start = None
         if self._cuda:
             with torch.cuda.stream(self._stream):
-                start = torch.cuda.Event(enable_timing=True)
-                start.record(self._stream)
                 mat, lens_d, lines_d = (t.to(self.device, non_blocking=True)
                                         for t in inputs)
                 res = token_fold(mat, lens_d, lines_d, self.dedup)
@@ -409,13 +437,13 @@ class DeviceTokenFoldSink(object):
                     h = self._host_buffer(r.shape, r.dtype)
                     h.copy_(r, non_blocking=True)
                     out.append(h)
-                event = torch.cuda.Event(enable_timing=True)
+                event = torch.cuda.Event()
                 event.record(self._stream)
             keep = (inputs, mat, lens_d, lines_d, res)
         else:
             out = token_fold(*inputs, self.dedup)
             event, keep = None, None
-        return _Batch(out, start, event, keep, starts, lens)
+        return _Batch(out, event, keep, starts, lens)
 
     def _next_batch(self, buf, starts, lens, lines, out):
         """Dispatch one batch through the program the vocabulary calls for:
@@ -426,17 +454,13 @@ class DeviceTokenFoldSink(object):
             # the table program's dispatch site: a fault here fails the
             # job (and rides the retry loop), it never degrades it
             _faults.check("device_dispatch")
-            t0 = time.perf_counter()
             inputs = self._pad_batch(buf, starts, lens, lines)
-            t1 = time.perf_counter()
-            self.seconds["pad"] += t1 - t0
-            batch = self._hv.dispatch(inputs, starts, lens, lines,
-                                      len(starts))
-            t2 = time.perf_counter()
-            self.seconds["enqueue"] += t2 - t1
-            prof = _profile.active()
-            if prof is not None:
-                prof.device_add("h2d", t2 - t1, inputs[0].numel())
+            with self._phase(
+                    "enqueue", ("handoff", "table-probe"),
+                    nbytes=inputs[0].numel(), tokens=len(starts),
+                    bytes=sum(t.numel() * t.element_size() for t in inputs)):
+                batch = self._hv.dispatch(inputs, starts, lens, lines,
+                                          len(starts))
             if batch is not None:
                 self.batches += 1
                 return batch
@@ -446,21 +470,12 @@ class DeviceTokenFoldSink(object):
             self.classic_batches += 1
         return self._dispatch(buf, starts, lens, lines)
 
-    def _wait(self, batch, cat="device", name="drain"):
+    def _wait(self, batch, span=None):
         """Block until one dispatch's results are on the host (a table
         batch's wait is a ``handoff`` span, as its dispatch is)."""
-        t0 = time.perf_counter()
-        with devtime.track("device"), _trace.span(cat, name,
-                                                  tokens=len(batch.starts)):
+        with self._phase("wait", span, tokens=len(batch.starts)):
             if batch.event is not None:
                 batch.event.synchronize()
-                self.stream_seconds += batch.start.elapsed_time(
-                    batch.event) / 1e3
-        dt = time.perf_counter() - t0
-        self.seconds["wait"] += dt
-        prof = _profile.active()
-        if prof is not None:
-            prof.device_add("compute", dt)
         batch.keep = None
 
     def _resolve(self, buf, batch, out):
@@ -473,16 +488,15 @@ class DeviceTokenFoldSink(object):
             if blk is not None and len(blk):
                 out.append(blk)
             return
-        self._wait(batch, "handoff", "table-drain")
-        t0 = time.perf_counter()
-        phase = "decode"
+        self._wait(batch, ("handoff", "table-drain"))
         if not self._handoff_live:
             # The vocabulary degraded while this batch was in flight: its
             # hits left with the flush (they counted at dispatch), but its
             # misses landed nowhere.
-            self._emit_table_misses(buf, batch, out, count_d2h=True)
-        else:
-            phase = "absorb"
+            with self._phase("decode"):
+                self._emit_table_misses(buf, batch, out, count_d2h=True)
+            return
+        with self._phase("absorb"):
             ok, miss_frac = self._hv.drain(buf, batch)
             if not ok:
                 # the refused absorb landed no miss count: the flush holds
@@ -492,7 +506,6 @@ class DeviceTokenFoldSink(object):
             elif miss_frac > _TABLE_REVERT_MISS_FRAC:
                 # the vocabulary shifted: bootstrap again
                 self._hv.table_mode = False
-        self.seconds[phase] += time.perf_counter() - t0
 
     def _drain(self, buf, batch, out=None):
         """Wait for one classic batch and build its partial-count Block (a
@@ -501,38 +514,35 @@ class DeviceTokenFoldSink(object):
         from .handoff import _TABLE_ENTER_NEW_FRAC
 
         self._wait(batch)
-        t1 = time.perf_counter()
-        sh1, sh2, tot, live, rep_orig, collisions = (
-            t.numpy() for t in batch.out)
-        d2h_bytes = sum(t.numel() * t.element_size() for t in batch.out)
-        if self.store is not None:
-            self.store.count_d2h(d2h_bytes)
-        prof = _profile.active()
-        if int(collisions):
-            lines = line_ids(buf, batch.starts) if self.dedup else None
-            blk = self._host_batch(buf, batch.starts, batch.lens, lines)
-            if self._handoff_live and out is not None:
-                self._absorb_or_out((blk,), out)
+        with self._phase("decode") as ph:
+            sh1, sh2, tot, live, rep_orig, collisions = (
+                t.numpy() for t in batch.out)
+            ph.nbytes = sum(t.numel() * t.element_size() for t in batch.out)
+            if self.store is not None:
+                self.store.count_d2h(ph.nbytes)
+            if int(collisions):
+                lines = line_ids(buf, batch.starts) if self.dedup else None
+                blk = self._host_batch(buf, batch.starts, batch.lens, lines)
+                if self._handoff_live and out is not None:
+                    self._absorb_or_out((blk,), out)
+                    return None
+                return blk
+            idx = np.flatnonzero(live)
+            if not len(idx):
                 return None
-            return blk
-        idx = np.flatnonzero(live)
-        if not len(idx):
-            return None
-        counts = tot[idx].astype(np.int64)
-        reps = rep_orig[idx]
-        keys = np.empty(len(idx), dtype=object)
-        starts, lens = batch.starts, batch.lens
-        for i, r in enumerate(reps):
-            s = int(starts[r])
-            keys[i] = buf[s:s + int(lens[r])].tobytes().decode(
-                "utf-8", "replace")
-        h1g, h2g = sh1[idx].view(np.uint32), sh2[idx].view(np.uint32)
-        t2 = time.perf_counter()
-        self.seconds["decode"] += t2 - t1
-        if prof is not None:
-            prof.device_add("d2h", t2 - t1, d2h_bytes)
+            counts = tot[idx].astype(np.int64)
+            reps = rep_orig[idx]
+            keys = np.empty(len(idx), dtype=object)
+            starts, lens = batch.starts, batch.lens
+            for i, r in enumerate(reps):
+                s = int(starts[r])
+                keys[i] = buf[s:s + int(lens[r])].tobytes().decode(
+                    "utf-8", "replace")
+            h1g, h2g = sh1[idx].view(np.uint32), sh2[idx].view(np.uint32)
+            if not self._handoff_live:
+                return self._emit(keys, counts, h1g, h2g)
         blk = None
-        if self._handoff_live:
+        with self._phase("absorb"):
             ok, new_frac = self._hv.absorb_drain(keys, counts, h1g, h2g,
                                                  batch.n)
             if ok:
@@ -545,10 +555,6 @@ class DeviceTokenFoldSink(object):
                                           "exceeded")
                     out.append(blk)
                     blk = None
-            self.seconds["absorb"] += time.perf_counter() - t2
-        else:
-            blk = self._emit(keys, counts, h1g, h2g)
-            self.seconds["decode"] += time.perf_counter() - t2
         return blk
 
     def _bootstrap_on_host(self, data, out):
@@ -561,23 +567,24 @@ class DeviceTokenFoldSink(object):
         # the bootstrap stands in for this window's dispatches, so it
         # keeps their fault site
         _faults.check("device_dispatch")
-        t0 = time.perf_counter()
         scan = chunk_doc_freq if self.dedup else chunk_token_counts
-        with _trace.span("handoff", "bootstrap-host", bytes=len(data)):
-            # the host grouping is codec work: traced and bucketed as such
-            with devtime.track("codec"), _trace.span(
-                    "codec", "codec-window", bytes=len(data)):
-                blk = scan(data, self.mode, self.lower, self.pair_values)
-            self.host_bootstraps += 1
-            self._absorb_or_out((blk,) if blk is not None else (), out)
-        if self._handoff_live and self._hv.nslots:
-            self._hv.table_mode = True
-            if self.store is not None and blk is not None:
-                # the drain the classic path would have fetched for this
-                # window, one batch's lower bound
-                self.store.count_d2h_avoided(
-                    CLASSIC_DRAIN_BYTES_PER_SLOT * len(blk))
-        self.seconds["absorb"] += time.perf_counter() - t0
+        with self._phase("absorb"):
+            with _trace.span("handoff", "bootstrap-host", bytes=len(data)):
+                # the host grouping is codec work: traced and bucketed as
+                # such
+                with devtime.track("codec"), _trace.span(
+                        "codec", "codec-window", bytes=len(data)):
+                    blk = scan(data, self.mode, self.lower,
+                               self.pair_values)
+                self.host_bootstraps += 1
+                self._absorb_or_out((blk,) if blk is not None else (), out)
+            if self._handoff_live and self._hv.nslots:
+                self._hv.table_mode = True
+                if self.store is not None and blk is not None:
+                    # the drain the classic path would have fetched for
+                    # this window, one batch's lower bound
+                    self.store.count_d2h_avoided(
+                        CLASSIC_DRAIN_BYTES_PER_SLOT * len(blk))
         return out
 
     def add(self, win):
@@ -600,13 +607,11 @@ class DeviceTokenFoldSink(object):
         if (self._handoff_live and not self._hv.table_mode
                 and not self._hv.nslots and _handoff._host_bootstrap()):
             return self._bootstrap_on_host(data, out)
-        t0 = time.perf_counter()
-        with devtime.track("codec"):
+        with self._phase("scan"):
             if self.lower:
                 buf = _LOWER[buf]
             starts, lens = _token_bounds(buf, self.mode)
             line_id = line_ids(buf, starts) if self.dedup else None
-        self.seconds["scan"] += time.perf_counter() - t0
         if len(starts) == 0:
             return ()
 

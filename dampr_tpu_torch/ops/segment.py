@@ -11,7 +11,6 @@ stable ``torch.sort`` over an order-preserving int64 packing of the
 unsigned lanes, and ``index_add_``/``scatter_reduce`` per segment.
 """
 
-import time
 
 import numpy as np
 
@@ -82,13 +81,13 @@ def hash_sort_perm(h1, h2):
         import torch
 
         dev = settings.resolve_device()
-        t0 = time.perf_counter()
-        key = packed_lane_key(
-            torch.from_numpy(h1.astype(np.int64)).to(dev),
-            torch.from_numpy(h2.astype(np.int64)).to(dev))
-        _, perm = torch.sort(key, stable=True)
-        out = perm.to(torch.int32).cpu().numpy()
-        devtime.keyed("hash_sort", time.perf_counter() - t0, 16 * n, 4 * n)
+        with devtime.keyed_call("hash_sort") as t:
+            key = packed_lane_key(
+                torch.from_numpy(h1.astype(np.int64)).to(dev),
+                torch.from_numpy(h2.astype(np.int64)).to(dev))
+            _, perm = torch.sort(key, stable=True)
+            out = perm.to(torch.int32).cpu().numpy()
+        devtime.keyed("hash_sort", t.seconds, 16 * n, 4 * n, t.cpu)
         return out
     return np.lexsort((h2, h1)).astype(np.int32)
 
@@ -223,24 +222,25 @@ def _device_fold(vals, starts, ends, kind):
     import torch
 
     dev = settings.resolve_device()
-    t0 = time.perf_counter()
     ng = len(starts)
-    seg = torch.repeat_interleave(
-        torch.arange(ng, device=dev),
-        torch.from_numpy((ends - starts).astype(np.int64)).to(dev))
-    vals = np.ascontiguousarray(vals)
-    v = torch.from_numpy(vals).to(dev)
-    out = torch.zeros((ng,) + tuple(v.shape[1:]), dtype=v.dtype, device=dev)
-    if kind == "sum":
-        out.index_add_(0, seg, v)
-    else:
-        if v.dim() == 2:
-            seg = seg[:, None].expand_as(v)
-        out.scatter_reduce_(0, seg, v, reduce="amin" if kind == "min"
-                            else "amax", include_self=False)
-    folded = out.cpu().numpy()
-    devtime.keyed("segment_fold", time.perf_counter() - t0,
-                vals.nbytes + 8 * ng, folded.nbytes)
+    with devtime.keyed_call("segment_fold") as t:
+        seg = torch.repeat_interleave(
+            torch.arange(ng, device=dev),
+            torch.from_numpy((ends - starts).astype(np.int64)).to(dev))
+        vals = np.ascontiguousarray(vals)
+        v = torch.from_numpy(vals).to(dev)
+        out = torch.zeros((ng,) + tuple(v.shape[1:]), dtype=v.dtype,
+                          device=dev)
+        if kind == "sum":
+            out.index_add_(0, seg, v)
+        else:
+            if v.dim() == 2:
+                seg = seg[:, None].expand_as(v)
+            out.scatter_reduce_(0, seg, v, reduce="amin" if kind == "min"
+                                else "amax", include_self=False)
+        folded = out.cpu().numpy()
+    devtime.keyed("segment_fold", t.seconds, vals.nbytes + 8 * ng,
+                  folded.nbytes, t.cpu)
     return folded
 
 

@@ -166,6 +166,9 @@ from .obs import trace as _trace
 
 log = logging.getLogger("dampr_tpu_torch.runner")
 
+#: The traced pool job a thread runs: ``index`` (None outside one).
+_job_local = threading.local()
+
 #: Partial fold blocks (map-side combine, the streaming reduce-side fold)
 #: merge once this many accumulate.
 _PARTIAL_FANIN = 8
@@ -284,7 +287,7 @@ def _run_record_chain(chain, batches, B, push, prof=None, prog=None,
     once.  Slices keep stream order, so results equal the streamed
     chain's.  With the per-operator profiler ``prof``, each op's
     ``apply_batch`` is timed once per batch under its index-prefixed
-    label.
+    label, its wall and its thread CPU.
 
     ``prog``, a certified chain's lane program
     (:class:`.analyze.torchtrace.ChainProgram`), evaluates whole batches
@@ -319,12 +322,11 @@ def _run_record_chain(chain, batches, B, push, prof=None, prog=None,
                 n, at, step = len(ks), 0, 1024
                 while at < n:
                     took = min(step, n - at)
-                    t0 = time.perf_counter() if prof is not None else 0.0
+                    since = _profile.mark() if prof is not None else None
                     sks, svs = op.apply_batch(ks[at:at + took],
                                               vs[at:at + took])
                     if prof is not None:
-                        prof.op_add(labels[i], time.perf_counter() - t0,
-                                    records=len(sks))
+                        prof.op_since(labels[i], since, records=len(sks))
                     at += took
                     if sks:
                         fan = -(-len(sks) // took)
@@ -334,10 +336,9 @@ def _run_record_chain(chain, batches, B, push, prof=None, prog=None,
             if prof is None:
                 ks, vs = op.apply_batch(ks, vs)
             else:
-                t0 = time.perf_counter()
+                since = _profile.mark()
                 ks, vs = op.apply_batch(ks, vs)
-                prof.op_add(labels[i], time.perf_counter() - t0,
-                            records=len(ks))
+                prof.op_since(labels[i], since, records=len(ks))
             if not ks:
                 return
         emit(ks, vs)
@@ -430,8 +431,11 @@ def _overlap_stream(items, store, size_of=None):
     if size_of is None:
         size_of = lambda b: b.nbytes()  # noqa: E731
     # one codec span per produced block: the generator's next(), not the
-    # queue wait (a pass-through when tracing is off)
-    items = _trace.timed_iter(items, "codec", "codec-window")
+    # queue wait (a pass-through when tracing is off), with the index of
+    # the job it feeds
+    job = getattr(_job_local, "index", None)
+    items = _trace.timed_iter(items, "codec", "codec-window",
+                              **({} if job is None else {"job": job}))
 
     q = queue.Queue(maxsize=depth)
     stop = threading.Event()
@@ -1244,9 +1248,10 @@ class MTRunner(object):
         self.plan_report = None
         self.run_summary = None
         self._lock = threading.Lock()
-        self._device = {"batches": 0, "fallbacks": 0, "stream_seconds": 0.0,
+        self._device = {"batches": 0, "fallbacks": 0,
                         "combine_seconds": 0.0,
                         "phases": dict.fromkeys(ops_lower.PHASES, 0.0),
+                        "phases_cpu": dict.fromkeys(ops_lower.PHASES, 0.0),
                         "handoff": dict.fromkeys(_HANDOFF_COUNTS, 0)}
         # Producer stage ids whose output edge the plan marked
         # handoff="device" (plan.lower.apply sets it): their jobs keep the
@@ -1302,6 +1307,8 @@ class MTRunner(object):
         #: which attempt of a ``run(resume="auto")`` this runner is (the
         #: failed ones before it are in ``stats()["faults"]``)
         self.run_attempt = 1
+        #: the stage the sequential walk is running (the job spans' id)
+        self._stage_sid = None
         # the observability plane, run-scoped (_start_obs/_stop_obs)
         self.tracer = None
         self.metrics = None
@@ -1357,7 +1364,8 @@ class MTRunner(object):
         """Run ``fn`` over ``jobs`` on a thread pool; every job's
         exception surfaces (results are read in order) and its keyed
         device calls are charged to this run's store.  ``label`` names
-        each job's ``job`` span (on its worker's lane) when tracing; the
+        each job's ``job`` span (on its worker's lane, with the job's
+        index and the stage id) when tracing; the
         profiler gets each job's thread-seconds, the metrics plane its
         start and end.  ``on_result(idx, result)`` (a streamed edge's
         publish) runs on this thread as each result comes in, in job
@@ -1377,10 +1385,19 @@ class MTRunner(object):
 
         if label is not None and _trace.enabled():
             inner_t = charged
+            sid = self._stage_sid
 
-            def charged(j):  # noqa: F811 - one job span per job
-                with _trace.span("job", label):
-                    return inner_t(j)
+            def charged(ij):  # noqa: F811 - one job span per job
+                # the job's index rides with it while tracing: on its span
+                # and on the codec windows of its overlap producer
+                _job_local.index = ij[0]
+                try:
+                    with _trace.span("job", label, job=ij[0], stage=sid):
+                        return inner_t(ij[1])
+                finally:
+                    _job_local.index = None
+
+            jobs = list(enumerate(jobs))
 
         # a speculative duplicate skips the once-per-job accounting below
         charged_spec = charged
@@ -1525,9 +1542,10 @@ class MTRunner(object):
             dev = self._device
             dev["batches"] += sink.batches
             dev["fallbacks"] += sink.fallbacks
-            dev["stream_seconds"] += sink.stream_seconds
             for k, v in sink.seconds.items():
                 dev["phases"][k] += v
+            for k, v in sink.cpu_seconds.items():
+                dev["phases_cpu"][k] += v
             for k in _HANDOFF_COUNTS:
                 dev["handoff"][k] += getattr(sink, k)
 
@@ -1970,32 +1988,30 @@ class MTRunner(object):
                     raw.append(blk)
                     return
                 _faults.check("fold")
-                t0 = time.perf_counter()
-                with _trace.span("fold", "partial-fold", records=len(blk)):
+                with devtime.Timed(None, "fold", "partial-fold",
+                                   records=len(blk)) as t:
                     partials.append(segment.fold_block(blk, combine_op))
                     if len(partials) >= _PARTIAL_FANIN:
                         merged = segment.fold_block(Block.concat(partials),
                                                     combine_op)
                         del partials[:]
                         partials.append(merged)
-                dt = time.perf_counter() - t0
-                self._add_combine_seconds(dt)
+                self._add_combine_seconds(t.seconds)
                 prof = _profile.active()
                 if prof is not None:
-                    prof.op_add("combine", dt, records=len(blk))
+                    prof.op_add("combine", t.seconds, records=len(blk),
+                                cpu=t.cpu)
 
             def end():
                 blocks = raw
                 if combine_op is not None and partials:
-                    t0 = time.perf_counter()
-                    with _trace.span("fold", "final-fold"):
+                    with devtime.Timed(None, "fold", "final-fold") as t:
                         blocks = [segment.fold_block(Block.concat(partials),
                                                      combine_op)]
-                    dt = time.perf_counter() - t0
-                    self._add_combine_seconds(dt)
+                    self._add_combine_seconds(t.seconds)
                     prof = _profile.active()
                     if prof is not None:
-                        prof.op_add("combine", dt)
+                        prof.op_add("combine", t.seconds, cpu=t.cpu)
                 if sorted_run_mode:
                     out = try_sorted_run(blocks)
                     if out is not None:
@@ -2103,15 +2119,15 @@ class MTRunner(object):
             elif prof is not None and combine_op is None:
                 # a generator chain does not decompose per op: the whole
                 # stream under one label keeps the stage's coverage
-                t0 = time.perf_counter()
+                since = _profile.mark()
                 nrec = 0
                 builder = BlockBuilder(B)
                 for k, v in mapper.map(chunk, *supplementary):
                     nrec += 1
                     push(builder.add(k, v))
                 push(builder.flush())
-                prof.op_add("stream:" + _profile.op_label(mapper),
-                            time.perf_counter() - t0, records=nrec)
+                prof.op_since("stream:" + _profile.op_label(mapper), since,
+                              records=nrec)
             else:
                 builder = BlockBuilder(B)
                 for k, v in mapper.map(chunk, *supplementary):
@@ -2631,29 +2647,32 @@ class MTRunner(object):
             maybe_compact()
 
         try:
-            win, wbytes = [], 0
-            dev_folds = 0
-            for ref in refs:
-                if ref.is_device and len(ref):
-                    flush_dev(ref)
-                    dev_folds += 1
-                    continue
-                for w in ref.iter_windows():
-                    if not len(w):
+            # the fold's device work on this thread (lanes joined, folds
+            # and refolds queued) is one span, as its fetch below is
+            with _trace.span("fold", "device-fold", refs=len(refs)):
+                win, wbytes = [], 0
+                dev_folds = 0
+                for ref in refs:
+                    if ref.is_device and len(ref):
+                        flush_dev(ref)
+                        dev_folds += 1
                         continue
-                    win.append(w)
-                    wbytes += w.nbytes()
-                    if wbytes >= window_budget:
-                        flush(win)
-                        win, wbytes = [], 0
-            if win:
-                flush(win)
-            if not partials:
-                return storage.PartitionSet(self.n_partitions,
-                                            hash_routed=True,
-                                            hash_sorted=True), 0, 1
-            if len(partials) > 1:
-                compact()
+                    for w in ref.iter_windows():
+                        if not len(w):
+                            continue
+                        win.append(w)
+                        wbytes += w.nbytes()
+                        if wbytes >= window_budget:
+                            flush(win)
+                            win, wbytes = [], 0
+                if win:
+                    flush(win)
+                if not partials:
+                    return storage.PartitionSet(self.n_partitions,
+                                                hash_routed=True,
+                                                hash_sorted=True), 0, 1
+                if len(partials) > 1:
+                    compact()
         except _HostPath:
             log.info("device fold: taking the host path")
             return None
@@ -2840,15 +2859,15 @@ class MTRunner(object):
             else:
                 # a reducer does not decompose per op: grouping, the
                 # user's reduce and the registration under one label
-                t0 = time.perf_counter()
+                since = _profile.mark()
                 nrec = 0
                 for k, v in records(pid):
                     nrec += 1
                     blk = builder.add(k, v)
                     if blk is not None:
                         refs.append(self.store.register(blk))
-                prof.op_add("reduce:" + _profile.op_label(stage.reducer),
-                            time.perf_counter() - t0, records=nrec)
+                prof.op_since("reduce:" + _profile.op_label(stage.reducer),
+                              since, records=nrec)
             blk = builder.flush()
             if blk is not None:
                 refs.append(self.store.register(blk))
@@ -2891,14 +2910,14 @@ class MTRunner(object):
             part = os.path.join(stage.path, "part-{}".format(i))
             n = 0
             prof = _profile.active()
-            t0 = time.perf_counter() if prof is not None else 0.0
+            since = _profile.mark() if prof is not None else None
             with open(part, "w", encoding="utf-8") as f:
                 for _k, v in stage.sinker.map(chunk):
                     f.write("{}\n".format(v))
                     n += 1
             if prof is not None:
-                prof.op_add("sink:" + _profile.op_label(stage.sinker),
-                            time.perf_counter() - t0, records=n)
+                prof.op_since("sink:" + _profile.op_label(stage.sinker),
+                              since, records=n)
             return part, n
 
         try:
@@ -3394,6 +3413,7 @@ class MTRunner(object):
             t0 = time.perf_counter()
             t0_span = _trace.now()
             sto.set_stage(sid)
+            self._stage_sid = sid
             # the stage the quarantine sink tags its records with
             _faults.set_context(run=self.name, stage=sid)
             snap = self._pressure_snap()
@@ -3639,9 +3659,6 @@ class MTRunner(object):
             # the dispatch and result sites (jobs overlap: it can pass 1)
             "device_fraction": frac(dev.get("device", 0.0)),
             "device_seconds": dev.get("device", 0.0),
-            # summed per-batch stream spans on the card over wall time
-            "stream_fraction": frac(dstate["stream_seconds"]),
-            "stream_seconds": dstate["stream_seconds"],
             # the device sink's host seconds per phase (enqueue + wait is
             # the host driving the card)
             "host_phase_seconds": phases,
@@ -3665,10 +3682,14 @@ class MTRunner(object):
             "mesh_folds": self.mesh_folds,
             "handoff": dict(dstate["handoff"]),
             # the keyed batch ops' device calls (hash lanes, sort, segment
-            # fold): calls and host seconds summed over jobs; their bytes
-            # are in h2d_bytes/d2h_bytes
+            # fold): calls and host seconds summed over jobs (and their
+            # thread CPU, cpu_seconds, while tracing or profiling); their
+            # bytes are in h2d_bytes/d2h_bytes
             "keyed": {k: dict(v) for k, v in sto.keyed.items()},
         }
+        if self.tracer is not None or self.profiler is not None:
+            # the part of each host phase its thread spent on a core
+            device["host_phase_cpu_seconds"] = dict(dstate["phases_cpu"])
         # Spill I/O: bytes on disk and thread-seconds on the writer and
         # reader pools, and the seconds jobs waited on them (write side:
         # the writer pool's cap; read side: a frame not yet prefetched)

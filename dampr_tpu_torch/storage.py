@@ -566,13 +566,17 @@ class RunStore(object):
         self.overlap_peak_bytes = 0
 
     # -- counters ------------------------------------------------------------
-    def count_keyed(self, name, seconds, h2d, d2h):
+    def count_keyed(self, name, seconds, h2d, d2h, cpu=None):
         """One device call of a keyed batch op (:mod:`.ops.devtime`): its
-        host seconds, and its copies into the h2d/d2h counters."""
+        host seconds, its thread CPU seconds where read (``cpu_seconds``,
+        while tracing or profiling), and its copies into the h2d/d2h
+        counters."""
         with self._lock:
             c = self.keyed.setdefault(name, {"calls": 0, "seconds": 0.0})
             c["calls"] += 1
             c["seconds"] += seconds
+            if cpu is not None:
+                c["cpu_seconds"] = c.get("cpu_seconds", 0.0) + cpu
             self.h2d_bytes += int(h2d)
             self.d2h_bytes += int(d2h)
 

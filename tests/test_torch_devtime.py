@@ -160,9 +160,11 @@ class TestEpochDelta:
 class _Store(object):
     def __init__(self):
         self.calls = []
+        self.cpu = []
 
-    def count_keyed(self, name, seconds, h2d, d2h):
+    def count_keyed(self, name, seconds, h2d, d2h, cpu=None):
         self.calls.append((name, seconds, h2d, d2h))
+        self.cpu.append(cpu)
 
 
 class TestKeyedHook:

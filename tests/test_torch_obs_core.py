@@ -4,8 +4,12 @@ package's on the same scripted input.
 Each case feeds one seeded script through both packages' functions and
 requires equal output.  Fields that name the producing package are
 masked: ``otherData.producer``, the ``process_name`` metadata event's
-name, and file paths.  Clocks are patched to the same script on both
-sides, so timestamps are equal too.  Tolerance: exact.
+name, and file paths.  So are the fields the port adds (each span's
+``cpu`` arg, ``otherData.lane_native_tid``, ``lane_thread_ident`` and
+``wall_start_err_us``, the self-time fields of the span summary), which
+are checked apart.
+Clocks are patched to the same script on both sides, so timestamps are
+equal too.  Tolerance: exact.
 """
 
 import copy
@@ -50,10 +54,18 @@ class _Clock(object):
     def __init__(self, seed):
         self._rng = random.Random(seed)
         self._t = 1000.0
+        self._cpu_rng = random.Random(seed + 1)
+        self._cpu = 10.0
 
     def perf_counter(self):
         self._t += self._rng.randint(1, 2000) / 1e6
         return self._t
+
+    def thread_time(self):
+        # its own script: the port's CPU reads leave the wall script as
+        # the reference reads it
+        self._cpu += self._cpu_rng.randint(0, 1000) / 1e6
+        return self._cpu
 
     def time(self):
         return 1.7e9
@@ -69,13 +81,25 @@ class _Clock(object):
         return time.localtime(*a)
 
 
+#: The otherData fields the port's trace adds to the reference's.
+_PORT_OTHER = ("lane_native_tid", "lane_thread_ident",
+               "wall_start_err_us")
+
+
 def _masked(doc):
     doc = copy.deepcopy(doc)
     other = doc.get("otherData", {})
     other.pop("producer", None)
+    for key in _PORT_OTHER:
+        other.pop(key, None)
     for ev in doc.get("traceEvents", ()):
         if ev.get("ph") == "M" and ev.get("name") == "process_name":
             ev["args"]["name"] = "<masked>"
+        args = ev.get("args")
+        if args is not None and "cpu" in args:
+            del args["cpu"]
+            if not args:
+                del ev["args"]
     return doc
 
 
@@ -91,6 +115,11 @@ def clocks(monkeypatch):
         clock = _Clock(seed)
         for mod in mods:
             monkeypatch.setattr(mod, "time", clock)
+            if mod is port_trace:
+                # the port brackets its wall anchor with more clock reads
+                # (TestWallAnchor): here it reads the reference's pair
+                monkeypatch.setattr(mod, "_wall_anchor", lambda: (
+                    clock.perf_counter(), clock.time(), 0.0))
         return clock
 
     return patch
@@ -153,13 +182,29 @@ class TestTraceExport:
         assert port_doc["otherData"]["producer"] == "dampr_tpu_torch.obs"
         assert _masked(port_doc) == _masked(ref_doc)
         assert port_doc["traceEvents"]
+        # the port's own fields: every span's cpu, every lane's thread id
+        spans = [ev for ev in port_doc["traceEvents"] if ev["ph"] == "X"]
+        assert spans and all(ev["args"]["cpu"] >= 0 for ev in spans)
+        lanes = {ev["tid"] for ev in port_doc["traceEvents"]
+                 if ev["ph"] == "M" and ev["name"] == "thread_name"}
+        native = port_doc["otherData"]["lane_native_tid"]
+        assert set(native) == {str(t) for t in lanes}
+        assert set(native.values()) == {threading.get_native_id()}
+        assert port_doc["otherData"]["lane_thread_ident"] == {
+            t: threading.get_ident() for t in native}
+        assert port_doc["otherData"]["wall_start_err_us"] == 0.0
 
     def test_span_summary_equal(self, clocks):
         clocks([ref_trace], 5)
         ref = _script_spans(ref_trace)
         clocks([port_trace], 5)
         port = _script_spans(port_trace)
-        assert port.span_summary() == ref.span_summary()
+        got = port.span_summary()
+        assert {cat: {k: v[k] for k in ("count", "seconds")}
+                for cat, v in got.items()} == ref.span_summary()
+        for v in got.values():
+            assert 0 <= v["self_seconds"] <= v["seconds"] + 1e-9
+            assert 0 <= v["self_cpu_seconds"] <= v["cpu_seconds"] + 1e-9
 
 
 class TestMetricsSummary:
