@@ -21,7 +21,12 @@ the kernels build for sm_90a).  Phases, each of which must pass:
    (at L = 8, 13 and 16); every case runs 100 times, since a look-back
    race would show only sometimes;
 5. ``token_fold`` with the kernels against ``token_fold`` with the plain
-   versions: all six outputs equal, with and without per-line dedup;
+   versions: all six outputs equal, with and without per-line dedup (the
+   corpus batch built as the sink builds it: compact upload, row builder);
+   the row builder (``csrc/fnv.cu``'s ``dampr_rows``) against its plain
+   version, bit for bit, at 2^18 rows with L = 32 and 256, with and
+   without lines, and timed there (the ``rows at`` lines; the kernels
+   line's ``rows`` entry);
    then the handoff's table program (``csrc/handoff.cu``, B4) against its
    plain version, bit for bit (``acc``, ``miss``, ``n_miss``), in its three
    variants (+1 a hit; per-line dedup through the 16-token window and
@@ -669,18 +674,19 @@ def check_segfold(torch, lower, fnv, segfold, dev, rng):
 
 def corpus_batch(torch, path, dev, dedup):
     """The first program batch of the corpus, padded exactly as the
-    device sink pads it (N = 2^18 rows)."""
+    device sink pads it (N = 2^18 rows): its compact upload, the row
+    builder on the card."""
     import numpy as np
 
     from dampr_tpu_torch.ops import lower as L
-    from dampr_tpu_torch.ops.text import _LOWER, _token_bounds, line_ids
+    from dampr_tpu_torch.ops.text import _LOWER
 
     with open(path, "rb") as f:
         data = f.read(8 * 1024 ** 2)
     data = data[:data.rfind(b"\n") + 1]
     buf = _LOWER[np.frombuffer(data, dtype=np.uint8)]
-    starts, lens = _token_bounds(buf, "word")
-    lines = line_ids(buf, starts)
+    starts, lens, lines, _long = L.scan_lanes(buf, "word", True,
+                                              L.scan_slices(buf))
     bounds = L._batch_bounds(lines, len(starts), LOWER_BATCH)
     a, b = bounds[0]
     sink = L.DeviceTokenFoldSink({"mode": "word", "lower": True,
@@ -688,7 +694,8 @@ def corpus_batch(torch, path, dev, dedup):
                                  device=dev)
     mat, ln, li = sink._pad_batch(buf, starts[a:b], lens[a:b],
                                   lines[a:b] if dedup else None)
-    return mat.to(dev), ln.to(dev), li.to(dev), b - a
+    sink._wait_inflight()  # built on the sink's stream
+    return mat, ln, li, b - a
 
 
 def check_token_fold(torch, lower, fnv, segfold, batches):
@@ -710,6 +717,51 @@ def check_token_fold(torch, lower, fnv, segfold, batches):
 #: Kernel names (regular expressions) in the profiler's table.
 K1_NAMES = r"fnv_(tile|rows)"
 K2_NAMES = r"segscan"
+ROWS_NAMES = r"build_rows"
+
+#: The row builder's widths: the benchmark corpus's bucket and the widest.
+ROWS_WIDTHS = (32, 256)
+
+
+def rows_upload(torch, dev, rng, n, L):
+    """A compact upload of ``n`` tokens of 1..L random bytes, a separator
+    after each, nine to a line: ``(span, offs, lens, lines)`` on ``dev``
+    and the bytes the row builder moves for it into ``LOWER_BATCH``
+    rows."""
+    import numpy as np
+
+    lens = rng.randint(1, L + 1, size=n).astype(np.uint8)
+    offs = np.zeros(n, dtype=np.int64)
+    offs[1:] = np.cumsum(lens.astype(np.int64) + 1)[:-1]
+    span = rng.randint(0, 256, size=int(offs[-1]) + int(lens[-1])).astype(
+        np.uint8)
+    lines = (np.arange(n) // 9).astype(np.int32)
+    moved = span.nbytes + 9 * n + LOWER_BATCH * (L + 8)
+    return [torch.from_numpy(x).to(dev) for x in (
+        span, offs.astype(np.int32), lens, lines)], moved
+
+
+def check_rows(torch, fnv, dev, rng):
+    """The row builder (``csrc/fnv.cu``'s ``dampr_rows``) against its
+    plain version at the main path's batch, 2^18 rows (1,000 of them pad
+    rows), at each of :data:`ROWS_WIDTHS`, with lines and without: bit
+    for bit.  Returns each width's upload."""
+    uploads = {}
+    for L in ROWS_WIDTHS:
+        (span, offs, lens, lines), moved = rows_upload(
+            torch, dev, rng, LOWER_BATCH - 1000, L)
+        for li in (lines, None):
+            got = fnv.build_rows(span, offs, lens, li, LOWER_BATCH, L)
+            want = fnv.build_rows_reference(span, offs, lens, li,
+                                            LOWER_BATCH, L)
+            for name, g, w in zip(("mat", "lens", "lines"), got, want):
+                ok, _ = exact(torch, g, w)
+                check(ok, "row builder {} differs from the plain version "
+                          "(L={}, lines={})".format(name, L,
+                                                     li is not None))
+        uploads[L] = ((span, offs, lens, lines), moved)
+    torch.cuda.synchronize()
+    return uploads
 
 
 def random_batch(torch, dev, rng, n, L):
@@ -2188,7 +2240,7 @@ OBS_COUNTERS = "store.resident_bytes,store.hbm_bytes"
 
 #: The kernels' names in a ``torch.profiler`` trace, by launch counter.
 PROFILER_NAMES = {"fnv": K1_NAMES, "segfold": K2_NAMES,
-                  "handoff": HANDOFF_NAMES}
+                  "handoff": HANDOFF_NAMES, "rows": ROWS_NAMES}
 
 
 def validate_trace_file(path, cats=None, counters=None):
@@ -4669,7 +4721,7 @@ def phase_serve(Dampr, DocFreq, TokenCounts, settings, workdir, corpus,
         check(dev.get("device_stages", 0) >= 1,
               "serve-cold: DocFreq did not lower in the worker")
         cold_launches = dict(dev.get("kernels") or {})
-        for name in ("fnv", "segfold", "handoff"):
+        for name in ("fnv", "segfold", "handoff", "rows"):
             check(cold_launches.get(name, 0) > 0,
                   "serve-cold: kernel {} never launched in the worker"
                   .format(name))
@@ -5083,7 +5135,7 @@ def phase_tooling(Dampr, DocFreq, settings, workdir, corpus, mb, chunk):
     with open(rec["stats_file"]) as f:
         winner = json.load(f)
     launches = dict(winner["device"]["kernels"])
-    for name in ("fnv", "segfold", "handoff"):
+    for name in ("fnv", "segfold", "handoff", "rows"):
         check(launches.get(name, 0) > 0, "tooling: kernel {} not launched "
               "in the winning run".format(name))
 
@@ -5234,13 +5286,39 @@ def main(argv=None):
         log("phase token_fold: six outputs equal, dedup and not, in {:.3f} "
             "s".format(time.perf_counter() - t0))
 
+        t0 = time.perf_counter()
+        uploads = check_rows(torch, fnv, dev, rng)
+        times = {"rows": {}}
+        for L, ((span, offs, lens, lines), moved) in uploads.items():
+
+            def run(fn=fnv.build_rows, L=L, a=(span, offs, lens, lines)):
+                return fn(*a, LOWER_BATCH, L)
+
+            def plain(run=run):
+                return run(fnv.build_rows_reference)
+
+            t = timing(torch, run, args.reps, ROWS_NAMES)
+            # about 6 launches a column: past the launch queue at the
+            # widest, where only the events around one call time it
+            t["plain"] = (timing(torch, plain, args.reps, launches=6 * L)
+                          if 6 * L < 500 else
+                          {"ms": time_ms(torch, plain, args.reps),
+                           "device_ms": None, "host_ms": None})
+            t["shape"] = [LOWER_BATCH, L]
+            t["bound"] = bound_ms(moved, 0)
+            times["rows"][L] = t
+            log("rows at {}: {}".format(t["shape"], json.dumps(t)))
+        log("phase rows: the row builder equals its plain version at "
+            "widths {} and timed, in {:.3f} s".format(
+                list(ROWS_WIDTHS), time.perf_counter() - t0))
+
         # -- timings at the main path's batch and at 2^22 ------------------
         mat, lens, lines, ntok = batches[True]
         N, L = mat.shape
         sizes = {"main": (mat, lens, lines),
                  "2^22": random_batch(torch, dev, rng, 1 << 22, L)}
         t0 = time.perf_counter()
-        times = {"fnv": {}, "segfold": {}}
+        times.update({"fnv": {}, "segfold": {}})
         for label, (m, ln, li) in sizes.items():
             n = m.shape[0]
             live_bytes = int(ln.clamp(0, L).sum())
@@ -5632,6 +5710,42 @@ def main(argv=None):
         "library_ms": None, "variants": ht["variants"],
         "previous_device_ms": ht["previous_device_ms"],
         "previous_source": "tools/handoff_ablate.cu"})
+    rows_t = times["rows"][ROWS_WIDTHS[0]]
+    wide_t = times["rows"][ROWS_WIDTHS[-1]]
+    kernels.append({
+        "name": "rows", "route": "cuda",
+        "source": "dampr_tpu_torch/csrc/fnv.cu",
+        "replaces": None,
+        "replaces_host": "dampr_tpu/ops/lower.py DeviceTokenFoldSink"
+                         "._pad_batch (host padding; no TPU kernel)",
+        "entry": "build_rows(span, offs, lens, lines, npad, L)",
+        "shape": rows_t["shape"],
+        "launches": launches["rows"],
+        "launches_tfidf": tfidf_launches["rows"],
+        "launches_wc": wc_launches["rows"],
+        "launches_ooc": ooc_launches["rows"],
+        "launches_ingest": ingest_launches["rows"],
+        "launches_obs": obs_launches["rows"],
+        "launches_adapt": adapt_launches["rows"],
+        "launches_faults": faults_launches["rows"],
+        "launches_serve": serve_launches.get("rows", 0),
+        "launches_tooling": tooling_launches["rows"],
+        "launches_fleet": fleet_launches["rows"],
+        "max_abs_err": 0, "ms": rows_t["ms"],
+        "device_ms": rows_t["device_ms"], "host_ms": rows_t["host_ms"],
+        "profiler_ms": rows_t["profiler_ms"],
+        "plain_ms": rows_t["plain"]["ms"],
+        "plain_device_ms": rows_t["plain"]["device_ms"],
+        "plain_host_ms": rows_t["plain"]["host_ms"],
+        "bound_ms": rows_t["bound"][0], "bound_by": rows_t["bound"][1],
+        "library_ms": None,
+        "at_widest": {"shape": wide_t["shape"], "ms": wide_t["ms"],
+                      "device_ms": wide_t["device_ms"],
+                      "host_ms": wide_t["host_ms"],
+                      "profiler_ms": wide_t["profiler_ms"],
+                      "plain_device_ms": wide_t["plain"]["device_ms"],
+                      "bound_ms": wide_t["bound"][0],
+                      "bound_by": wide_t["bound"][1]}})
     lanes = times["fnv"]["wc"]
     kernels[0]["at_wc_batch"] = {
         "entry": "fnv(mat, lens)", "shape": lanes["shape"],

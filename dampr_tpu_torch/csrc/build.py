@@ -87,7 +87,8 @@ class Kernel(object):
         if os.path.exists(lib):
             return None
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = "{}.{}.tmp".format(lib, os.getpid())
+        # one source may serve several entries, each its own Kernel
+        tmp = "{}.{}.{}.tmp".format(lib, self.symbol, os.getpid())
         proc = subprocess.Popen([_nvcc()] + NVCC_FLAGS + ["-o", tmp, src],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT)
@@ -141,8 +142,13 @@ class Kernel(object):
 
 def build_all(kernels):
     """Build every given kernel's library at once (one ``nvcc`` process
-    per source, all started together), then load each."""
-    started = [k.start_build() for k in kernels]
+    per source, all started together), then load each entry."""
+    started, libs = [], set()
+    for k in kernels:
+        lib = k._paths()[1]
+        if lib not in libs:  # entries of one source share its build
+            libs.add(lib)
+            started.append(k.start_build())
     for s in started:
         Kernel.finish_build(s)
     for k in kernels:

@@ -17,6 +17,9 @@
 //   KEYS_DEDUP the same with the line in the low key, for per-line dedup;
 // so the fold's two stable sorts read the keys straight from this launch.
 //
+// The row builder at the end of this file writes the padded matrix these
+// kernels read (dampr_rows, a second entry of the same library).
+//
 // Bound on the card: bytes.  LANES reads N*L + 4N and writes 8N; the keys
 // read N*L + 4N (+ 4N lines) and write 16N.  At the main path's N = 2^18,
 // L = 8, KEYS_DEDUP moves 32 bytes a row, 8.4 MB: 2.5 us at 3.35 TB/s.
@@ -210,6 +213,75 @@ cudaError_t launch(const uint8_t* m, const int32_t* l, const int32_t* li,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The row builder: a batch's padded token rows from its compact upload.
+//
+// Replaces no TPU kernel: the JAX package pads on the host
+// (dampr_tpu/ops/lower.py::DeviceTokenFoldSink._pad_batch) and copies the
+// padded matrix up.  The port copies up only what the rows are made of
+// (the byte span the batch's tokens cover, each token's int32 offset into
+// it, its uint8 length and, under dedup, its int32 line) and builds here,
+// for each row r < npad:
+//
+//   mat[r, c]  = r < n && c < lens[r] ? span[offs[r] + c] : 0   (c < L)
+//   lens_out[r]  = r < n ? lens[r] : 0
+//   lines_out[r] = r < n && lines ? lines[r] : 0
+//
+// bit for bit the host padding it replaces, so K1 reads the same input.
+//
+// Bound on the card: bytes.  It reads the span and 9 bytes a token and
+// writes npad * (L + 8); at the main path's batch (npad = 2^18, L = 32,
+// about 1.6 MB of span) that is 14 MB, 4.3 us at 3.35 TB/s.
+//
+// Design: one thread a row; consecutive threads own consecutive rows, so
+// every store is coalesced: the row goes out in 16-byte stores (8-byte
+// when L = 8), zeros past its length included, so the matrix needs no
+// memset.  The span is read byte by byte, only up to the length: the 32
+// rows a warp reads lie next to each other in the span, so those loads
+// share cache lines.
+template <int VEC>
+__global__ void __launch_bounds__(256)
+    build_rows(const uint8_t* __restrict__ span,
+               const int32_t* __restrict__ offs,
+               const uint8_t* __restrict__ lens_in,
+               const int32_t* __restrict__ lines_in,
+               uint8_t* __restrict__ mat, int32_t* __restrict__ lens_out,
+               int32_t* __restrict__ lines_out, long long n, long long npad,
+               int L) {
+  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= npad) return;
+  int len = 0;
+  int line = 0;
+  const uint8_t* src = span;
+  if (row < n) {
+    len = lens_in[row];
+    src = span + offs[row];
+    if (lines_in != nullptr) line = lines_in[row];
+  }
+  lens_out[row] = len;
+  lines_out[row] = line;
+  uint8_t* dst = mat + row * (long long)L;
+  for (int c0 = 0; c0 < L; c0 += VEC) {
+    uint32_t w[VEC / 4];
+#pragma unroll
+    for (int k = 0; k < VEC / 4; ++k) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + 4 * k + j;
+        if (c < len) x |= (uint32_t)src[c] << (8 * j);
+      }
+      w[k] = x;
+    }
+    if constexpr (VEC == 16) {
+      *reinterpret_cast<uint4*>(dst + c0) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+      *reinterpret_cast<uint2*>(dst + c0) = make_uint2(w[0], w[1]);
+    }
+  }
+}
+
 }  // namespace
 
 // mode: 0 LANES (out0 = h1, out1 = h2, uint32 [n]); 1 KEYS and 2
@@ -225,4 +297,31 @@ extern "C" int dampr_fnv(const void* mat, const void* lens, const void* lines,
   if (mode == KEYS_DEDUP) return (int)launch<KEYS_DEDUP>(m, l, li, out0, out1, n, L, s);
   if (mode == KEYS) return (int)launch<KEYS>(m, l, li, out0, out1, n, L, s);
   return (int)launch<LANES>(m, l, li, out0, out1, n, L, s);
+}
+
+// The row builder's entry: span uint8 [*], offs int32 [n], lens uint8 [n],
+// lines int32 [n] or null; mat uint8 [npad, L] (L a multiple of 8, its
+// base 16-byte aligned), lens_out and lines_out int32 [npad].  The caller
+// guarantees offs[r] + lens[r] lies within the span and lens[r] <= L.
+extern "C" int dampr_rows(const void* span, const void* offs,
+                          const void* lens, const void* lines, void* mat,
+                          void* lens_out, void* lines_out, long long n,
+                          long long npad, int L, void* stream) {
+  if (npad <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((npad + threads - 1) / threads);
+  const uint8_t* sp = (const uint8_t*)span;
+  const int32_t* of = (const int32_t*)offs;
+  const uint8_t* ln = (const uint8_t*)lens;
+  const int32_t* li = (const int32_t*)lines;
+  uint8_t* m = (uint8_t*)mat;
+  int32_t* lo = (int32_t*)lens_out;
+  int32_t* lio = (int32_t*)lines_out;
+  if (L % 16 == 0) {
+    build_rows<16><<<blocks, threads, 0, s>>>(sp, of, ln, li, m, lo, lio, n, npad, L);
+  } else {
+    build_rows<8><<<blocks, threads, 0, s>>>(sp, of, ln, li, m, lo, lio, n, npad, L);
+  }
+  return (int)cudaGetLastError();
 }

@@ -12,10 +12,14 @@ on the card), serves two entries:
   lanes they hold, in the packing of :func:`pack_sort_keys` (its CUDA twin
   is ``csrc/sort_keys.cuh``), with ``inv = lens <= 0``.
 
+The same source holds the row builder, :func:`build_rows`: the padded
+matrix those entries read, built on the card from a batch's compact
+upload (the lowered sink's feed, :mod:`.lower`).
+
 On a CUDA tensor each launches the kernel; on a CPU tensor it runs its
-plain torch version (:func:`fnv_reference`, :func:`fnv_sort_keys_reference`).
-Any other device raises: there is no fallback from the card to the plain
-version.
+plain torch version (:func:`fnv_reference`, :func:`fnv_sort_keys_reference`,
+:func:`build_rows_reference`).  Any other device raises: there is no
+fallback from the card to the plain version.
 """
 
 import ctypes
@@ -30,6 +34,11 @@ KERNEL = build.Kernel(
     "fnv.cu", "dampr_fnv",
     [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                              ctypes.c_void_p])
+
+ROWS_KERNEL = build.Kernel(
+    "fnv.cu", "dampr_rows",
+    [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_longlong,
+                             ctypes.c_int, ctypes.c_void_p])
 
 # the kernel's output modes (csrc/fnv.cu)
 _LANES, _KEYS, _KEYS_DEDUP = 0, 1, 2
@@ -133,3 +142,86 @@ def fnv_sort_keys(mat, lens, lines=None):
         return fnv_sort_keys_reference(mat, lens, lines)
     return _launch("fnv_sort_keys", mat, lens, lines, torch.int64,
                    _KEYS if lines is None else _KEYS_DEDUP)
+
+
+# ---------------------------------------------------------------------------
+# The row builder
+# ---------------------------------------------------------------------------
+
+
+def build_rows_reference(span, offs, lens, lines, npad, L):
+    """Plain torch version of :func:`build_rows`: a gather a column at a
+    time (each token's byte at ``offs + c``, zero from its length on)."""
+    dev = span.device
+    n = offs.shape[0]
+    mat = torch.zeros((npad, L), dtype=torch.uint8, device=dev)
+    lens_out = torch.zeros(npad, dtype=torch.int32, device=dev)
+    lines_out = torch.zeros(npad, dtype=torch.int32, device=dev)
+    if n:
+        ln = lens.to(torch.int32)
+        at = offs.to(torch.int64)
+        last = span.shape[0] - 1
+        for c in range(L):
+            byte = span[(at + c).clamp_(max=last)]
+            mat[:n, c] = torch.where(c < ln, byte, 0)
+        lens_out[:n] = ln
+        if lines is not None:
+            lines_out[:n] = lines
+    return mat, lens_out, lines_out
+
+
+def _check_rows(span, offs, lens, lines, npad, L):
+    n = offs.shape[0]
+    dev = span.device
+    for what, t, dtype in (("span", span, torch.uint8),
+                           ("offs", offs, torch.int32),
+                           ("lens", lens, torch.uint8),
+                           ("lines", lines, torch.int32)):
+        if t is None and what == "lines":
+            continue
+        if (t.dtype != dtype or t.dim() != 1 or not t.is_contiguous()
+                or t.device != dev
+                or (what != "span" and t.shape[0] != n)):
+            raise ValueError("build_rows: {} must be a contiguous {} [{}] "
+                             "tensor on the span's device".format(
+                                 what, dtype, "*" if what == "span" else n))
+    if npad < n or L < 8 or L % 8 or L > 256:
+        raise ValueError("build_rows: need npad >= n and L a multiple of 8 "
+                         "in [8, 256] (npad {}, n {}, L {})".format(
+                             npad, n, L))
+    if n and span.shape[0] == 0:
+        raise ValueError("build_rows: tokens need a non-empty span")
+
+
+def build_rows(span, offs, lens, lines, npad, L):
+    """One batch's padded program rows from its compact upload:
+    ``(mat uint8 [npad, L], lens int32 [npad], lines int32 [npad])``,
+    row ``r < n`` the ``lens[r]`` bytes of ``span`` from ``offs[r]`` then
+    zeros, its length and its line (0 when ``lines`` is None), every
+    later row zero: bit for bit the host padding of the JAX package's
+    sink.
+
+    ``span`` uint8 (the bytes the tokens cover), ``offs`` int32 [n]
+    (each token's start in it), ``lens`` uint8 [n] (each at most ``L``),
+    ``lines`` int32 [n] or None; ``L`` a multiple of 8 up to 256.  The
+    caller keeps every ``offs[r] + lens[r]`` within the span.  On a CUDA
+    tensor it launches ``csrc/fnv.cu``'s row builder; on a CPU tensor it
+    runs :func:`build_rows_reference`."""
+    _check_rows(span, offs, lens, lines, npad, L)
+    if span.device.type == "cpu":
+        return build_rows_reference(span, offs, lens, lines, npad, L)
+    if span.device.type != "cuda":
+        raise ValueError("build_rows: unsupported device {}".format(
+            span.device))
+    dev = span.device
+    n = offs.shape[0]
+    mat = torch.empty((npad, L), dtype=torch.uint8, device=dev)
+    lens_out = torch.empty(npad, dtype=torch.int32, device=dev)
+    lines_out = torch.empty(npad, dtype=torch.int32, device=dev)
+    if npad:
+        ROWS_KERNEL.launch(dev, span.data_ptr(), offs.data_ptr(),
+                           lens.data_ptr(),
+                           lines.data_ptr() if lines is not None else None,
+                           mat.data_ptr(), lens_out.data_ptr(),
+                           lines_out.data_ptr(), n, npad, L)
+    return mat, lens_out, lines_out

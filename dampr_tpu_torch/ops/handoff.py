@@ -462,14 +462,17 @@ class HandoffVocab(object):
         return self.scatter_counts(slots, counts), new_frac
 
     # -- the table-mode batch ------------------------------------------------
-    def dispatch(self, inputs, starts, lens, lines, n):
-        """Queue the table program over one padded batch (``inputs``: the
-        host ``(mat, lens, lines)`` tensors, pinned on a card); the
-        accumulator advances asynchronously.  Returns the drain handle, or
-        None when the job must degrade (the count guard, the budget).  The
+    def dispatch(self, rows, starts, lens, lines, n, ring):
+        """Queue the table program over one padded batch (``rows``: the
+        ``(mat, lens, lines)`` tensors on the vocabulary's device, built
+        by the sink, which counts their copy up); the accumulator advances
+        asynchronously.  On a card the miss lane and its count come back
+        into ``ring``'s current slot (the sink's staging ring,
+        ``ops.lower._StagingRing``), which holds the batch's event.  Returns the drain handle, or None
+        when the job must degrade (the count guard, the budget).  The
         sink times the call (its ``handoff:table-probe`` span)."""
-        mat_t, lens_t, lines_t = inputs
-        npad = mat_t.shape[0]
+        mat, lens_d, lines_d = rows
+        npad = mat.shape[0]
         if self.total_added + n > _I64_GUARD:
             return None
         if not self._ensure_capacity(max(self.nslots, 1), self.Lcap):
@@ -484,30 +487,22 @@ class HandoffVocab(object):
             runs = np.diff(np.concatenate(([0], bound, [n])))
             if int(runs.max()) <= _DEDUP_WINDOW:
                 dedup_k = _DEDUP_WINDOW
-        nbytes = sum(t.numel() * t.element_size() for t in inputs)
-        if self.store is not None:
-            self.store.count_h2d(nbytes)
         cuda = self.stream is not None
         event = keep = None
         with self._on_stream():
-            if cuda:
-                dev_in = [t.to(self.device, non_blocking=True)
-                          for t in inputs]
-            else:
-                dev_in = list(inputs)
             miss, n_miss = table_probe(
-                dev_in[0], dev_in[1], dev_in[2], self.tab_h1, self.tab_slot,
+                mat, lens_d, lines_d, self.tab_h1, self.tab_slot,
                 self.tab_mat, self.tab_lens, self.acc, self.dedup, dedup_k)
             if cuda:
-                h_miss = torch.empty(miss.shape, dtype=torch.bool,
-                                     pin_memory=True)
-                h_n = torch.empty((), dtype=torch.int32, pin_memory=True)
+                h_miss, h_n = ring.views(((torch.bool, npad),
+                                          (torch.int32, ())))
                 h_miss.copy_(miss, non_blocking=True)
                 h_n.copy_(n_miss, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record(self.stream)
-                keep = (inputs, dev_in, miss, n_miss)
+                keep = (rows, miss, n_miss)
                 miss, n_miss = h_miss, h_n
+        ring.done(event)
         self.table_batches += 1
         return _TableBatch(miss, n_miss, starts, lens, lines, n, npad,
                            event, keep)

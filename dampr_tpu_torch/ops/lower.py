@@ -5,11 +5,15 @@ native-vocabulary scanner (``TokenCounts``/``DocFreq``) feeding a keyed
 sum fold runs its windows through :func:`token_fold` instead of the host
 codec:
 
-- **host (feed)**: token bounds and case fold from the byte tables
-  (:mod:`.text`), per-line ids, and the padded token byte matrix, written
-  straight into pinned buffers for the next batch while the previous
-  batch's program runs (double buffering);
-- **device**: :func:`token_fold` — the FNV kernel writing the sort keys
+- **host (feed)**: the case fold, then the window's tokens as compact
+  lanes (:func:`scan_lanes`: int32 starts, uint8 lengths, int32 line ids,
+  built a line-aligned slice at a time), and each batch's compact upload
+  (the byte span its tokens cover, offsets into it, lengths, lines)
+  staged in a small ring of reused (pinned, on a card) host buffers
+  while the previous batch's program runs (double buffering);
+- **device**: the row builder (:func:`.fnv.build_rows`) turning the
+  upload into the padded token matrix, then :func:`token_fold` — the FNV
+  kernel writing the sort keys
   (:mod:`.fnv`), a stable ``(inv, h1, h2[, line])`` sort, then the
   segmented-fold kernel (:mod:`.segfold`) in one pass: per-line
   first-occurrence dedup, segment totals, segment representatives and a
@@ -34,8 +38,9 @@ Observability: each host phase of the sink (:data:`PHASES`) is timed at
 one site (``DeviceTokenFoldSink._phase``), whose one clock reading feeds
 every reader: the sink's ``seconds`` (and, while tracing or profiling,
 its thread CPU in ``cpu_seconds``), devtime's bucket (the scan and the
-padded batch are ``codec`` time, the dispatch and the wait ``device``
-time), one span on the thread that runs the phase (``codec:sink-scan``,
+padded batch, its staging, copy up and row build, are ``codec`` time,
+the dispatch and the wait ``device`` time), one span on the thread that
+runs the phase (``codec:sink-scan``,
 ``codec:sink-pad``, ``device:map-fold``, ``device:drain``,
 ``fold:sink-decode``, ``handoff:absorb``; a table batch's dispatch and
 wait are ``handoff:table-probe`` and ``handoff:table-drain``), and the
@@ -46,6 +51,8 @@ read and decoded).  No site adds a synchronisation: the drain's wait is
 the sink's own.
 """
 
+
+import contextlib
 
 import numpy as np
 import torch
@@ -132,14 +139,187 @@ def sort_segments(low, high):
 
 
 # ---------------------------------------------------------------------------
+# The feed: compact token lanes and their staging
+# ---------------------------------------------------------------------------
+
+#: Bytes of a window the scan takes at a time (each slice ends at a
+#: newline, so no token or line straddles two): no temporary of the scan
+#: is wider than one slice.
+SCAN_SLICE = 1 << 20
+
+
+def _line_end(buf, at):
+    """The index just past the first newline at or after ``at`` (the
+    buffer's length when there is none)."""
+    n = len(buf)
+    step = 4096
+    while at < n:
+        hit = np.flatnonzero(buf[at:at + step] == 10)
+        if len(hit):
+            return at + int(hit[0]) + 1
+        at += step
+        step *= 2
+    return n
+
+
+def scan_slices(buf, size=SCAN_SLICE):
+    """The window's ``[a, b)`` slices: about ``size`` bytes each, every one
+    but the last ending just past a newline."""
+    cuts = []
+    a, n = 0, len(buf)
+    while a < n:
+        b = n if a + size >= n else _line_end(buf, a + size - 1)
+        cuts.append((a, b))
+        a = b
+    return cuts
+
+
+def scan_lanes(buf, mode, dedup, cuts):
+    """A window's tokens as compact lanes, scanned slice by slice
+    (``cuts``, :func:`scan_slices`) with ``text._token_bounds`` and
+    ``text.line_ids``: its tokens, in its order.
+
+    Returns ``(starts, lens, lines, long)``: the tokens of at most
+    ``_SHORT_TOKEN`` bytes as window-relative int32 starts, uint8 lengths
+    and, under ``dedup``, int32 line ids (else None); ``long`` the longer
+    tokens' ``(starts, lens, lines)`` (int32 lengths), or None when there
+    are none.  The window is under 2 GiB."""
+    parts = ([], [], [])
+    longs = ([], [], [])
+    base_line = 0
+    for a, b in cuts:
+        s = buf[a:b]
+        st, ln = _token_bounds(s, mode)
+        li = None
+        if dedup:
+            li = line_ids(s, st)
+            li += base_line
+            base_line += int(np.count_nonzero(s == 10))
+        st = st.astype(np.int32)
+        st += a
+        short = ln <= _SHORT_TOKEN
+        if not short.all():
+            big = ~short
+            longs[0].append(st[big])
+            longs[1].append(ln[big])
+            longs[2].append(li[big] if dedup else None)
+            st, ln = st[short], ln[short]
+            li = li[short] if dedup else None
+        parts[0].append(st)
+        parts[1].append(ln.astype(np.uint8))
+        if dedup:
+            parts[2].append(li)
+
+    def joined(pieces, dtype):
+        # one lane at a time, its pieces dropped as it is joined
+        out = (np.concatenate(pieces) if pieces
+               else np.empty(0, dtype=dtype))
+        del pieces[:]
+        return out
+
+    starts = joined(parts[0], np.int32)
+    lens = joined(parts[1], np.uint8)
+    lines = joined(parts[2], np.int32) if dedup else None
+    long = None
+    if longs[0]:
+        long = (np.concatenate(longs[0]), np.concatenate(longs[1]),
+                np.concatenate(longs[2]) if dedup else None)
+    return starts, lens, lines, long
+
+
+#: Slots of a sink's staging ring: the double-buffered feed has at most
+#: two batches out, one in flight and one being staged.
+RING_SLOTS = 2
+
+#: Alignment (bytes) of each lane carved out of a staging buffer.
+_ALIGN = 16
+
+
+def _layout(specs):
+    """``(offsets, total)`` of ``specs`` (``(dtype, numel)`` pairs, ``()``
+    for a 0-d tensor) laid out one after another, each aligned."""
+    offsets, at = [], 0
+    for dtype, numel in specs:
+        at = -(-at // _ALIGN) * _ALIGN
+        offsets.append(at)
+        at += (1 if numel == () else numel) * dtype.itemsize
+    return offsets, at
+
+
+def _views(buf, specs, offsets):
+    """Typed views of a uint8 tensor at ``offsets`` (:func:`_layout`)."""
+    out = []
+    for (dtype, numel), at in zip(specs, offsets):
+        k = 1 if numel == () else numel
+        t = buf[at:at + k * dtype.itemsize].view(dtype)
+        out.append(t.reshape(()) if numel == () else t)
+    return out
+
+
+class _StagingRing(object):
+    """A sink's few reused host buffers (pinned on a card): each batch
+    stages its compact upload in the next slot, and its results come back
+    into the same slot.  On the card both are queued on one stream, the
+    copy up before the copy back, so the results may overlay the upload.
+    A slot is taken again only after the event recorded behind its last
+    batch has completed.  A slot's buffer is made, or grows, only when a
+    batch outgrows it, and then to the power of two that holds the most
+    any use of the ring has asked for (an upload, or the results that
+    come back over it), so the slots settle at one size; ``allocs``
+    counts the buffers made."""
+
+    def __init__(self, pinned, slots=RING_SLOTS):
+        self.pinned = pinned
+        self.bufs = [None] * slots
+        self.events = [None] * slots
+        self.slot = slots - 1
+        self.high = 0
+        self.allocs = 0
+
+    def _fit(self, nbytes):
+        buf = self.bufs[self.slot]
+        if buf is None or buf.numel() < nbytes:
+            self.high = max(self.high, nbytes)
+            buf = torch.empty(_pow2(self.high), dtype=torch.uint8,
+                              pin_memory=self.pinned)
+            self.bufs[self.slot] = buf
+            self.allocs += 1
+        return buf
+
+    def take(self, nbytes):
+        """The next slot's buffer, at least ``nbytes``, once the work
+        behind its last use is done."""
+        self.slot = (self.slot + 1) % len(self.bufs)
+        event = self.events[self.slot]
+        if event is not None:
+            event.synchronize()
+            self.events[self.slot] = None
+        return self._fit(nbytes)
+
+    def views(self, specs):
+        """Typed views of the current slot laid out from its start (a
+        batch's results, over its upload), the slot grown to hold them;
+        the old buffer, if any, stays alive while a copy reads it
+        (torch's pinned allocator records the copy's event)."""
+        offsets, nbytes = _layout(specs)
+        return _views(self._fit(nbytes), specs, offsets)
+
+    def done(self, event):
+        """The event behind the current slot's batch (None: nothing
+        queued)."""
+        self.events[self.slot] = event
+
+
+# ---------------------------------------------------------------------------
 # The window sink
 # ---------------------------------------------------------------------------
 
 
 class _Batch(object):
     """One dispatched program plus what its drain needs.  ``out`` holds
-    the host-side (pinned, on a card) result buffers, filled once
-    ``event`` completes; ``keep`` pins the inputs until then."""
+    the host-side results (on a card, views of the sink's staging ring),
+    filled once ``event`` completes; ``keep`` holds the device tensors
+    until then."""
 
     __slots__ = ("out", "event", "keep", "starts", "lens", "n")
 
@@ -218,9 +398,14 @@ class DeviceTokenFoldSink(object):
     ``window_sink()``): ``add(win)`` feeds the window through
     double-buffered dispatches and returns partial-count Blocks.
 
-    On a card each sink owns a CUDA stream: a batch's host-to-device copy,
-    program and device-to-host copy queue on it and the host moves on to
-    build the next batch; the drain waits on that batch's event only.
+    On a card each sink owns a CUDA stream: a batch's compact upload, the
+    row builder, the program and the device-to-host copy queue on it and
+    the host moves on to stage the next batch; the drain waits on that
+    batch's event only.  The staging and the results go through the
+    sink's ring of reused host buffers (``staging_allocs`` counts the
+    buffers it made); ``card_rows_batches`` counts the batches whose
+    padded rows the row builder made from their compact upload on the
+    program's device.
 
     ``handoff=True`` (the plan's ``handoff="device"`` edge,
     :mod:`.handoff`): the counts stay on the device in a per-job
@@ -250,13 +435,18 @@ class DeviceTokenFoldSink(object):
                         else None)
         self.batches = 0
         self.fallbacks = 0
+        self.card_rows_batches = 0
+        self._ring = _StagingRing(pinned=self._cuda)
+        self._staged = 0  # the last batch's upload bytes
         #: classic batches dispatched while the handoff was live, and the
         #: windows that seeded the vocabulary through the host codec
         self.classic_batches = 0
         self.host_bootstraps = 0
         #: host seconds per phase of the lowered scan: ``scan`` (case fold,
-        #: token bounds, line ids), ``pad`` (the padded batch), ``enqueue``
-        #: (queueing copies + program), ``wait`` (blocked on a batch's
+        #: the compact token lanes), ``pad`` (the batch's compact upload
+        #: staged and queued, and its rows built on the device),
+        #: ``enqueue`` (queueing the program + copies back), ``wait``
+        #: (blocked on a batch's
         #: results), ``decode`` (survivor strings -> Block) and ``absorb``
         #: (the handoff's host work: survivors and a table batch's misses
         #: into the vocabulary, a host bootstrap)
@@ -272,6 +462,13 @@ class DeviceTokenFoldSink(object):
             self._hv = _handoff.HandoffVocab(store, self.dedup, budget=share,
                                              device=self.device,
                                              stream=self._stream)
+
+    @property
+    def staging_allocs(self):
+        """Host buffers the staging ring allocated: one a slot, and one
+        more each time a batch's upload or results outgrow every size the
+        ring has held (on a card the first results do, once)."""
+        return self._ring.allocs
 
     @property
     def table_batches(self):
@@ -308,18 +505,19 @@ class DeviceTokenFoldSink(object):
     def _emit(self, keys, counts, h1, h2):
         return _block_of(keys, counts, self.pair_values, h1, h2)
 
-    def _long_tokens(self, buf, starts, lens, line_id, long_idx):
-        """Tokens over _SHORT_TOKEN bytes, counted in a host dict."""
+    def _long_tokens(self, buf, starts, lens, lines):
+        """Tokens over _SHORT_TOKEN bytes (their lanes), counted in a host
+        dict."""
         from . import hashing
 
-        bb = buf.tobytes()
         agg = {}
         seen = set()
-        for i in long_idx:
+        for i in range(len(starts)):
             s = int(starts[i])
-            tok = bb[s:s + int(lens[i])].decode("utf-8", "replace")
+            tok = buf[s:s + int(lens[i])].tobytes().decode("utf-8",
+                                                           "replace")
             if self.dedup:
-                key = (int(line_id[i]), tok)
+                key = (int(lines[i]), tok)
                 if key in seen:
                     continue
                 seen.add(key)
@@ -380,95 +578,108 @@ class DeviceTokenFoldSink(object):
         replaces its (category, name), ``args`` go on the span."""
         return _SinkPhase(self, phase, span, nbytes, args)
 
-    def _host_buffer(self, shape, dtype):
-        return torch.empty(shape, dtype=dtype, pin_memory=self._cuda)
+    def _on_stream(self):
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
 
     def _pad_batch(self, buf, starts, lens, lines):
-        """The padded program inputs, built in place in (pinned) host
-        tensors: rows pad to a power of two with lens 0 (hence invalid)."""
+        """The program's padded inputs on its device, from the batch's
+        compact upload (:meth:`_pad_rows`); the upload's bytes are the
+        batch's copy up."""
         with self._phase("pad") as ph:
-            out = self._pad_rows(buf, starts, lens, lines)
-            ph.nbytes = out[0].numel()
-        return out
+            rows = self._pad_rows(buf, starts, lens, lines)
+            ph.nbytes = self._staged
+        if self.store is not None:
+            self.store.count_h2d(self._staged)
+        return rows
 
     def _pad_rows(self, buf, starts, lens, lines):
+        """``(mat uint8 [npad, L], lens int32 [npad], lines int32 [npad])``
+        on the program's device, rows padded to a power of two with lens 0
+        (hence invalid): the byte span the batch's tokens cover, their
+        offsets into it, their lengths and their lines (under dedup) are
+        staged in the ring's next slot, copied up at once, and the row
+        builder (:func:`.fnv.build_rows`) makes the rows there."""
         n = len(starts)
         L = _len_bucket(lens.max())
         npad = _pow2(n)
-        mat_t = self._host_buffer((npad, L), torch.uint8)
-        lens_t = self._host_buffer((npad,), torch.int32)
-        lines_t = self._host_buffer((npad,), torch.int32)
-        mat, lens_p, lines_p = mat_t.numpy(), lens_t.numpy(), lines_t.numpy()
-        idx = starts[:, None] + np.arange(L, dtype=np.int64)[None, :]
-        np.clip(idx, 0, len(buf) - 1, out=idx)
-        mat[:n] = np.where(np.arange(L, dtype=np.int32)[None, :]
-                           < lens[:, None], buf[idx], 0)
-        mat[n:] = 0
-        lens_p[:n] = lens
-        lens_p[n:] = 0
-        lines_p[:] = 0
+        s0 = int(starts[0])
+        s1 = int(starts[-1]) + int(lens[-1])
+        specs = [(torch.int32, n), (torch.uint8, n), (torch.uint8, s1 - s0)]
         if lines is not None:
-            lines_p[:n] = lines
-        return mat_t, lens_t, lines_t
+            specs.append((torch.int32, n))
+        offsets, nbytes = _layout(specs)
+        host = self._ring.take(nbytes)
+        staged = _views(host, specs, offsets)
+        np.subtract(starts, s0, out=staged[0].numpy(), casting="unsafe")
+        staged[1].numpy()[:] = lens
+        staged[2].numpy()[:] = buf[s0:s1]
+        if lines is not None:
+            staged[3].numpy()[:] = lines
+        self._staged = nbytes
+        with self._on_stream():
+            up = _views(host[:nbytes].to(self.device, non_blocking=True),
+                        specs, offsets)
+            rows = _fnv.build_rows(up[2], up[0], up[1],
+                                   up[3] if lines is not None else None,
+                                   npad, L)
+        self.card_rows_batches += 1
+        return rows
 
-    def _dispatch(self, buf, starts, lens, lines):
-        """Queue one classic batch: inputs up, the program, results down.
-        The ``device_dispatch`` fault site: a failure here surfaces through
-        the map job and rides the job retry loop."""
-        _faults.check("device_dispatch")
-        inputs = self._pad_batch(buf, starts, lens, lines)
-        nbytes = sum(t.numel() * t.element_size() for t in inputs)
-        if self.store is not None:
-            self.store.count_h2d(nbytes)
-        with self._phase("enqueue", nbytes=nbytes, tokens=len(starts),
-                         bytes=nbytes):
-            batch = self._enqueue(inputs, starts, lens)
+    def _dispatch(self, rows, starts, lens):
+        """Queue one classic batch over its padded rows: the program,
+        results down."""
+        with self._phase("enqueue", nbytes=self._staged, tokens=len(starts),
+                         bytes=self._staged):
+            batch = self._enqueue(rows, starts, lens)
         self.batches += 1
         return batch
 
-    def _enqueue(self, inputs, starts, lens):
+    def _enqueue(self, rows, starts, lens):
+        event = keep = None
         if self._cuda:
-            with torch.cuda.stream(self._stream):
-                mat, lens_d, lines_d = (t.to(self.device, non_blocking=True)
-                                        for t in inputs)
-                res = token_fold(mat, lens_d, lines_d, self.dedup)
-                out = []
-                for r in res:
-                    h = self._host_buffer(r.shape, r.dtype)
+            with self._on_stream():
+                res = token_fold(*rows, self.dedup)
+                out = self._ring.views([(r.dtype, r.numel() if r.dim() else ())
+                                        for r in res])
+                for h, r in zip(out, res):
                     h.copy_(r, non_blocking=True)
-                    out.append(h)
                 event = torch.cuda.Event()
                 event.record(self._stream)
-            keep = (inputs, mat, lens_d, lines_d, res)
+            keep = (rows, res)
         else:
-            out = token_fold(*inputs, self.dedup)
-            event, keep = None, None
+            out = token_fold(*rows, self.dedup)
+        self._ring.done(event)
         return _Batch(out, event, keep, starts, lens)
 
     def _next_batch(self, buf, starts, lens, lines, out):
         """Dispatch one batch through the program the vocabulary calls for:
         the table program once it has converged, the classic one
         otherwise.  A refused table dispatch (the count guard, the budget)
-        degrades the job, and the batch goes classic."""
-        if self._handoff_live and self._hv.table_mode:
-            # the table program's dispatch site: a fault here fails the
-            # job (and rides the retry loop), it never degrades it
-            _faults.check("device_dispatch")
-            inputs = self._pad_batch(buf, starts, lens, lines)
+        degrades the job, and the batch's rows go classic.  Each
+        program's dispatch is a ``device_dispatch`` fault site: a failure
+        there surfaces through the map job and rides the job retry loop
+        (a table fault fails the job, it never degrades it)."""
+        table = self._handoff_live and self._hv.table_mode
+        _faults.check("device_dispatch")
+        rows = self._pad_batch(buf, starts, lens, lines)
+        if table:
             with self._phase(
                     "enqueue", ("handoff", "table-probe"),
-                    nbytes=inputs[0].numel(), tokens=len(starts),
-                    bytes=sum(t.numel() * t.element_size() for t in inputs)):
-                batch = self._hv.dispatch(inputs, starts, lens, lines,
-                                          len(starts))
+                    nbytes=self._staged, tokens=len(starts),
+                    bytes=self._staged):
+                batch = self._hv.dispatch(rows, starts, lens, lines,
+                                          len(starts), self._ring)
             if batch is not None:
                 self.batches += 1
                 return batch
             self._degrade_to(out, "count-lane overflow guard or hbm budget "
                                   "exceeded mid-stage")
+            _faults.check("device_dispatch")
         if self._handoff_live:
             self.classic_batches += 1
-        return self._dispatch(buf, starts, lens, lines)
+        return self._dispatch(rows, starts, lens)
 
     def _wait(self, batch, span=None):
         """Block until one dispatch's results are on the host (a table
@@ -590,39 +801,39 @@ class DeviceTokenFoldSink(object):
     def add(self, win):
         from . import handoff as _handoff
 
-        data = bytes(win) if isinstance(win, memoryview) else win
-        buf = np.frombuffer(data, dtype=np.uint8)
+        buf = np.frombuffer(win, dtype=np.uint8)
         if not len(buf):
             return ()
         out = []
-        if (buf > 127).any():
+        if len(buf) >= 1 << 31:
+            # past the int32 lanes (a line longer than the scan window)
+            self._absorb_or_out(self._host_window(win), out)
+            return out
+        cuts = scan_slices(buf)
+        if buf.max() > 127:
             # Only valid-UTF-8 windows lower: token substrings of valid
             # UTF-8 decode losslessly, so keys can never desync from their
-            # byte hash lanes or the per-line byte dedup.
+            # byte hash lanes or the per-line byte dedup.  A slice ends at
+            # a newline, which no multibyte sequence holds, so the slices
+            # decode as the window does.
+            mv = memoryview(win)
             try:
-                data.decode("utf-8")
+                for a, b in cuts:
+                    str(mv[a:b], "utf-8")
             except UnicodeDecodeError:
                 self._absorb_or_out(self._host_window(win), out)
                 return out
         if (self._handoff_live and not self._hv.table_mode
                 and not self._hv.nslots and _handoff._host_bootstrap()):
-            return self._bootstrap_on_host(data, out)
+            return self._bootstrap_on_host(win, out)
         with self._phase("scan"):
             if self.lower:
                 buf = _LOWER[buf]
-            starts, lens = _token_bounds(buf, self.mode)
-            line_id = line_ids(buf, starts) if self.dedup else None
-        if len(starts) == 0:
-            return ()
-
-        short = lens <= _SHORT_TOKEN
-        long_idx = np.flatnonzero(~short)
-        s_starts, s_lens, s_lines = starts, lens, line_id
-        if len(long_idx):
-            sidx = np.flatnonzero(short)
-            s_starts, s_lens = starts[sidx], lens[sidx]
-            s_lines = line_id[sidx] if line_id is not None else None
+            s_starts, s_lens, s_lines, long = scan_lanes(
+                buf, self.mode, self.dedup, cuts)
         ns = len(s_starts)
+        if ns == 0 and long is None:
+            return ()
 
         bounds = (_batch_bounds(s_lines, ns, max(1024, settings.lower_batch))
                   if ns else [])
@@ -631,9 +842,8 @@ class DeviceTokenFoldSink(object):
             # included, so nothing else may land for this window.
             self._absorb_or_out(self._host_window(win), out)
             return out
-        if len(long_idx):
-            self._absorb_or_out((self._long_tokens(buf, starts, lens, line_id,
-                                                   long_idx),), out)
+        if long is not None:
+            self._absorb_or_out((self._long_tokens(buf, *long),), out)
 
         # Double-buffered feed: dispatch batch i+1 before draining batch i.
         pending = None
@@ -656,8 +866,8 @@ class DeviceTokenFoldSink(object):
             if pending is not None:
                 self._resolve(buf, pending, out)
         except BaseException:
-            # a batch still in flight writes into pinned host tensors this
-            # frame holds: it lands before they go
+            # a batch still in flight reads or writes the ring's host
+            # buffers: it lands before anything takes them again
             self._wait_inflight()
             raise
         return [blk for blk in out if blk is not None and len(blk)]

@@ -201,7 +201,7 @@ _REFOLD_LANE_CAP = 1 << 20
 
 #: Every kernel the device path launches, by name.
 KERNELS = {"fnv": _fnv.KERNEL, "segfold": _segfold.KERNEL,
-           "handoff": _handoff.KERNEL}
+           "handoff": _handoff.KERNEL, "rows": _fnv.ROWS_KERNEL}
 
 #: The handoff's counts each device sink keeps (``stats()["device"]
 #: ["handoff"]``): table-program batches, classic batches dispatched while
@@ -1249,6 +1249,7 @@ class MTRunner(object):
         self.run_summary = None
         self._lock = threading.Lock()
         self._device = {"batches": 0, "fallbacks": 0,
+                        "card_rows_batches": 0, "staging_allocs": 0,
                         "combine_seconds": 0.0,
                         "phases": dict.fromkeys(ops_lower.PHASES, 0.0),
                         "phases_cpu": dict.fromkeys(ops_lower.PHASES, 0.0),
@@ -1542,6 +1543,8 @@ class MTRunner(object):
             dev = self._device
             dev["batches"] += sink.batches
             dev["fallbacks"] += sink.fallbacks
+            dev["card_rows_batches"] += sink.card_rows_batches
+            dev["staging_allocs"] += sink.staging_allocs
             for k, v in sink.seconds.items():
                 dev["phases"][k] += v
             for k, v in sink.cpu_seconds.items():
@@ -3664,6 +3667,13 @@ class MTRunner(object):
             "host_phase_seconds": phases,
             "batches": dstate["batches"],
             "fallbacks": dstate["fallbacks"],
+            # the batches whose padded rows the row builder made on the
+            # program's device from their compact upload (every batch),
+            # and the host buffers the sinks' staging rings allocated
+            # (one a ring slot and one for the first results' growth,
+            # whatever the batch count)
+            "card_rows_batches": dstate["card_rows_batches"],
+            "staging_allocs": dstate["staging_allocs"],
             "h2d_bytes": sto.h2d_bytes,
             "d2h_bytes": sto.d2h_bytes,
             "kernels": {k: kern.launches - launches0[k]

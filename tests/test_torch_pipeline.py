@@ -159,7 +159,7 @@ class TestSliceParity:
         path = _write(tmp_path, "c.txt", CORPORA["text"]())
         _, _, stats = _port(path, "docfreq", "1")
         assert stats["device"]["kernels"] == {"fnv": 0, "segfold": 0,
-                                              "handoff": 0}
+                                              "handoff": 0, "rows": 0}
         assert stats["device"]["h2d_bytes"] > 0
 
     def test_memory_budget_spill_keeps_results(self, tmp_path):
