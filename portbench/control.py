@@ -13,8 +13,9 @@ first 16 bytes where the configuration states exact keys.
 import argparse
 import json
 import sys
+import tempfile
 
-from portbench import check, corpus, registry
+from portbench import check, registry
 
 
 def readings(bench, workload, seed):
@@ -22,9 +23,10 @@ def readings(bench, workload, seed):
     cell = bench.cell(workload)
     traffic = bench.traffic(cell["traffic"])
     ref = bench.module("reference", cell["config"])
-    base = corpus.base_text(traffic["base"], seed)
-    want = ref.expected(base, traffic["factor"])
-    got = ref.control(base, traffic["factor"])
+    with tempfile.TemporaryDirectory() as work:
+        truth = bench.maker(traffic).make(traffic, seed, work, bench)["truth"]
+    want = ref.expected(*truth)
+    got = ref.control(*truth)
     return {"{}_rows".format(k): v
             for k, v in check.mismatches(got, want).items()}
 

@@ -1,43 +1,45 @@
-"""The one text generator: a Shakespeare-shaped base text from a seed.
+"""What every maker shares: the seed's generator, the writer of a corpus
+in its storage, the read that puts it in the page cache, and the chunk
+size.  Makers (``makers/<name>.py``) make the data; nothing here names a
+traffic mix or a configuration.
 
-A traffic file (``traffic/<name>.json``) gives the base's shape under
-``base`` and how many copies of it make the corpus under ``factor``.  Every
-count in the text is fixed by the file alone: the word lengths of the
-vocabulary, each word's number of occurrences, the words per line, the
-blank, indented and upper-case lines, and the punctuation.  The seed
-chooses only the letters of each word and the order of everything.  So
-every seed gives the same bytes, lines and tokens, in another order, and
-the lane widths the port pads to are the same for every seed.
+Storage (a traffic file's ``storage``):
 
-Shape of ``base`` (all keys required):
-
-- ``bytes``: the base's exact size; the last line is padded with spaces.
-- ``word_lengths``: ``{length: number of distinct words}``; the sum is the
-  number of distinct lower-case words.
-- ``zipf``: ``{"a", "s", "q"}``; the word of rank r occurs
-  ``max(1, round(a / (r + q) ** s))`` times.
-- ``length_rank_sigma``: short words take the frequent ranks: ranks are
-  ordered by ``log(length)`` plus normal noise of this deviation.
-- ``line_words``: ``{words: weight}``, the words on a non-blank line.
-- ``blank_share``, ``indent_share``, ``indent``, ``upper_share``: blank
-  lines, lines indented by ``indent`` spaces, and lines in capitals, each
-  as a share of the non-blank lines (blank lines of all lines).
-- ``comma_share``: tokens followed by a comma, as a share of the tokens
-  that do not end a line.
-- ``line_end``: ``{mark: weight}``, what follows a line's last word
-  (``""`` for nothing).
-- ``layout_seed``: the seed of the fixed counts above (not ``--seed``).
-
-Each line's first word is capitalised.  Words are lower-case ASCII
-letters, so splitting on ``[^\\w]+`` after lowering gives exactly the
-vocabulary.
+- ``"plain"``: the bytes as they are;
+- ``"bgzf"``: one BGZF file as ``bgzip`` writes it by default, made here
+  with the standard library's ``zlib`` alone: members of at most 65,280
+  bytes of input (htslib's ``BGZF_BLOCK_SIZE``), each deflated at zlib's
+  default level 6 under an 18-byte gzip header whose extra field holds the
+  ``BC`` subfield (the member's size less one), then the standard 28-byte
+  empty member that ends the file, and no ``.gzi`` index.
 """
 
+import concurrent.futures
+import hashlib
 import math
+import os
+import struct
+import zlib
 
 import numpy as np
 
-LETTERS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", dtype=np.uint8)
+#: The file name's ending for each storage.
+SUFFIX = {"plain": ".txt", "bgzf": ".txt.gz"}
+
+#: A BGZF member's input at most (htslib's ``BGZF_BLOCK_SIZE``, 0xff00): a
+#: member then stays within 64 KiB even where deflate cannot shrink it.
+BGZF_BLOCK = 0xff00
+
+#: zlib's default level, which ``bgzip`` uses unless told otherwise.
+BGZF_LEVEL = 6
+
+#: A member's gzip header up to its size: magic, deflate, FEXTRA, no time,
+#: no extra flags, unknown OS, 6 bytes of extra field: ``BC``, length 2.
+_BGZF_HEAD = b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff\x06\x00BC\x02\x00"
+
+#: The empty member that ends every BGZF file.
+BGZF_EOF = bytes.fromhex(
+    "1f8b08040000000000ff0600424302001b0003000000000000000000")
 
 
 def _seed_rng(seed):
@@ -54,180 +56,89 @@ def _seed_rng(seed):
         words + [1 if seed < 0 else 0]))
 
 
-def _fixed_counts(weights, total, rng):
-    """Whole counts for ``{key: weight}`` summing to ``total`` (largest
-    remainders, ties broken by ``rng``)."""
-    keys = list(weights)
-    w = np.array([float(weights[k]) for k in keys])
-    raw = w / w.sum() * total
-    base = np.floor(raw).astype(np.int64)
-    left = int(total - base.sum())
-    order = np.lexsort((rng.random(len(keys)), -(raw - base)))
-    base[order[:left]] += 1
-    return dict(zip(keys, base.tolist()))
+def bgzf_member(data):
+    """One BGZF member holding ``data`` (at most :data:`BGZF_BLOCK`
+    bytes)."""
+    if len(data) > BGZF_BLOCK:
+        raise ValueError("a BGZF member holds at most {} bytes, not {}"
+                         .format(BGZF_BLOCK, len(data)))
+    c = zlib.compressobj(BGZF_LEVEL, zlib.DEFLATED, -15)
+    body = c.compress(data) + c.flush()
+    size = len(_BGZF_HEAD) + 2 + len(body) + 8
+    return b"".join((_BGZF_HEAD, struct.pack("<H", size - 1), body,
+                     struct.pack("<II", zlib.crc32(data), len(data))))
 
 
-class Layout(object):
-    """What every seed shares: per rank its word length and count, the
-    lines' word counts, and how many lines and tokens carry each mark."""
+class BgzfWriter(object):
+    """Writes BGZF to the open binary file ``f``: whole members as the
+    input fills them, the last partial one and the end member at
+    :meth:`close`.  A write's members are deflated on ``threads`` threads
+    (``zlib`` releases the interpreter lock) and written in order."""
 
-    def __init__(self, base):
-        rng = np.random.default_rng(int(base["layout_seed"]))
-        hist = {int(k): int(v) for k, v in base["word_lengths"].items()}
-        lengths = np.repeat(np.array(sorted(hist), dtype=np.int64),
-                            [hist[k] for k in sorted(hist)])
-        self.n_words = len(lengths)
-        key = np.log(lengths) + rng.normal(0.0, base["length_rank_sigma"],
-                                           self.n_words)
-        self.rank_lengths = lengths[np.argsort(key, kind="stable")]
-        z = base["zipf"]
-        r = np.arange(1, self.n_words + 1, dtype=np.float64)
-        self.rank_counts = np.maximum(
-            1, np.rint(z["a"] / (r + z["q"]) ** z["s"])).astype(np.int64)
-        self.n_tokens = int(self.rank_counts.sum())
-        # words per non-blank line: a fixed multiset summing to n_tokens
-        lw = {int(k): float(v) for k, v in base["line_words"].items()}
-        mean = sum(k * v for k, v in lw.items()) / sum(lw.values())
-        n_lines = int(round(self.n_tokens / mean))
-        per = _fixed_counts(lw, n_lines, rng)
-        words = np.repeat(np.array(sorted(per), dtype=np.int64),
-                          [per[k] for k in sorted(per)])
-        diff = self.n_tokens - int(words.sum())
-        i = 0
-        while diff:  # spread the remainder one word at a time
-            step = 1 if diff > 0 else -1
-            j = i % len(words)
-            if words[j] + step >= 1:
-                words[j] += step
-                diff -= step
-            i += 1
-        self.line_words = words
-        self.n_text_lines = len(words)
-        self.n_blank = int(round(base["blank_share"] * self.n_text_lines /
-                                 (1.0 - base["blank_share"])))
-        self.n_indent = int(round(base["indent_share"] * self.n_text_lines))
-        self.indent = int(base["indent"])
-        self.n_upper = int(round(base["upper_share"] * self.n_text_lines))
-        self.n_comma = int(round(base["comma_share"] *
-                                 (self.n_tokens - self.n_text_lines)))
-        self.line_end = _fixed_counts(base["line_end"], self.n_text_lines,
-                                      rng)
-        self.bytes = int(base["bytes"])
-        self.unpadded = (int((self.rank_lengths * self.rank_counts).sum())
-                         + (self.n_tokens - self.n_text_lines)  # spaces
-                         + self.n_comma
-                         + sum(len(m) * c for m, c in self.line_end.items())
-                         + self.n_indent * self.indent
-                         + self.n_text_lines + self.n_blank)  # newlines
-        if self.unpadded > self.bytes:
-            raise ValueError("the base's shape needs {} bytes, over its "
-                             "stated {}".format(self.unpadded, self.bytes))
+    def __init__(self, f, threads):
+        self.f = f
+        self.members = 0
+        self.stored_bytes = 0
+        self._tail = b""
+        self._pool = concurrent.futures.ThreadPoolExecutor(threads)
 
-    @property
-    def n_lines(self):
-        return self.n_text_lines + self.n_blank
+    def _put(self, blocks):
+        for member in self._pool.map(bgzf_member, blocks):
+            self.f.write(member)
+            self.members += 1
+            self.stored_bytes += len(member)
+
+    def write(self, data):
+        buf = memoryview(self._tail + data)
+        whole = len(buf) - len(buf) % BGZF_BLOCK
+        self._put([buf[i:i + BGZF_BLOCK]
+                   for i in range(0, whole, BGZF_BLOCK)])
+        self._tail = bytes(buf[whole:])
+
+    def close(self):
+        try:
+            if self._tail:
+                self._put([self._tail])
+            self.f.write(BGZF_EOF)
+            self.stored_bytes += len(BGZF_EOF)
+        finally:
+            self._pool.shutdown()
 
 
-def _vocabulary(layout, rng):
-    """Distinct lower-case words, one per rank, with the rank's length."""
-    words = [None] * layout.n_words
-    for length in np.unique(layout.rank_lengths):
-        ranks = np.flatnonzero(layout.rank_lengths == length)
-        n = len(ranks)
-        length = int(length)
-        if 26 ** length < 4 * n:  # small spaces: draw without replacement
-            if 26 ** length < n:
-                raise ValueError("{} distinct words of {} letters".format(
-                    n, length))
-            codes = rng.choice(26 ** length, size=n, replace=False)
-            digits = (codes[:, None] // 26 ** np.arange(length)[None, :]) % 26
-        else:
-            seen, rows = set(), []
-            while len(rows) < n:
-                draw = rng.integers(0, 26, size=(n - len(rows), length))
-                for row in draw:
-                    key = row.tobytes()
-                    if key not in seen:
-                        seen.add(key)
-                        rows.append(row)
-            digits = np.array(rows)
-        text = LETTERS[digits].tobytes().decode("ascii")
-        for i, rank in enumerate(ranks):
-            words[rank] = text[i * length:(i + 1) * length]
-    return words
-
-
-def base_text(base, seed):
-    """The base text (``str``) for one seed: ``len`` is ``base["bytes"]``."""
-    layout = Layout(base)
-    rng = _seed_rng(seed)
-    vocab = _vocabulary(layout, rng)
-    ids = np.repeat(np.arange(layout.n_words), layout.rank_counts)
-    rng.shuffle(ids)
-    tokens = [vocab[i] for i in ids.tolist()]
-    words = layout.line_words.copy()
-    rng.shuffle(words)
-    ends = np.cumsum(words)
-    starts = ends - words
-    # commas after tokens that do not end a line
-    inner = np.ones(layout.n_tokens, dtype=bool)
-    inner[ends - 1] = False
-    for i in rng.choice(np.flatnonzero(inner), size=layout.n_comma,
-                        replace=False).tolist():
-        tokens[i] += ","
-    for i in starts.tolist():
-        tokens[i] = tokens[i].capitalize()
-    marks = np.repeat(np.array(list(layout.line_end), dtype=object),
-                      list(layout.line_end.values()))
-    rng.shuffle(marks)
-    upper = np.zeros(layout.n_text_lines, dtype=bool)
-    upper[rng.choice(layout.n_text_lines, size=layout.n_upper,
-                     replace=False)] = True
-    indent = np.zeros(layout.n_text_lines, dtype=bool)
-    indent[rng.choice(layout.n_text_lines, size=layout.n_indent,
-                      replace=False)] = True
-    pad = " " * layout.indent
-    lines = []
-    for j, (a, b) in enumerate(zip(starts.tolist(), ends.tolist())):
-        line = " ".join(tokens[a:b]) + marks[j]
-        if upper[j]:
-            line = line.upper()
-        lines.append(pad + line if indent[j] else line)
-    # blank lines between text lines, never first
-    slots = np.sort(rng.choice(np.arange(1, layout.n_text_lines),
-                               size=layout.n_blank, replace=True))
-    out, prev = [], 0
-    for s in slots.tolist():
-        out.extend(lines[prev:s])
-        out.append("")
-        prev = s
-    out.extend(lines[prev:])
-    out[-1] += " " * (layout.bytes - layout.unpadded)
-    text = "\n".join(out) + "\n"
-    if len(text) != layout.bytes:
-        raise AssertionError("base text is {} bytes, not {}".format(
-            len(text), layout.bytes))
-    return text
-
-
-def write_corpus(path, text, factor):
-    """``factor`` copies of ``text`` into ``path``; returns its bytes."""
-    data = text.encode("ascii")
+def write_copies(path, data, copies, storage="plain"):
+    """``copies`` copies of ``data`` (bytes) into ``path``, stored as
+    ``storage``, one copy at a time: the corpus is never held whole.
+    Returns ``{"stored_bytes"}``, and for BGZF ``"members"``: the members
+    that hold data, the end member not counted."""
+    if storage not in SUFFIX:
+        raise ValueError("unknown storage {!r} (known: {})".format(
+            storage, ", ".join(sorted(SUFFIX))))
     with open(path, "wb") as f:
-        for _ in range(int(factor)):
-            f.write(data)
-    return len(data) * int(factor)
+        if storage == "plain":
+            for _ in range(int(copies)):
+                f.write(data)
+            return {"stored_bytes": len(data) * int(copies)}
+        w = BgzfWriter(f, min(8, len(os.sched_getaffinity(0))))
+        try:
+            for _ in range(int(copies)):
+                w.write(data)
+        finally:
+            w.close()
+        return {"stored_bytes": w.stored_bytes, "members": w.members}
 
 
 def read_once(path, block=1 << 24):
-    """Read the file through, so that it sits in the page cache."""
+    """Read the file through, so that it sits in the page cache.  Returns
+    its size and its SHA-256 (hex)."""
     n = 0
+    digest = hashlib.sha256()
     with open(path, "rb") as f:
         while True:
             b = f.read(block)
             if not b:
-                return n
+                return n, digest.hexdigest()
             n += len(b)
+            digest.update(b)
 
 
 def chunk_size(corpus_bytes, chunks):

@@ -1,13 +1,15 @@
 """Find a cell's files by the names in ``BENCHMARK.json``.
 
 - ``configs/<config>.json``: the configuration as it is run;
-- ``traffic/<traffic>.json``: the traffic mix, read by :mod:`.corpus`;
+- ``traffic/<traffic>.json``: the traffic mix, read by its maker;
+- ``makers/<maker>.py``: how a mix's data is made and stored, named by the
+  traffic file's ``maker`` (:meth:`Bench.maker`);
 - ``pipelines/<config>.py``: the pipeline, written against the port's API;
 - ``reference/<config>.py``: its plain reference;
 - ``metrics/<metric>.py``: one reader a metric.
 
-A later change adds a configuration, a mix or a metric by adding files and
-entries; nothing here names one.
+A later change adds a configuration, a mix, a data shape or a metric by
+adding files and entries; nothing here names one.
 """
 
 import importlib.util
@@ -16,7 +18,6 @@ import os
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-
 
 def _json(path):
     with open(path) as f:
@@ -64,6 +65,25 @@ class Bench(object):
 
     def traffic(self, name):
         return _json(os.path.join(self.here, "traffic", name + ".json"))
+
+    def maker(self, traffic):
+        """The module that makes ``traffic``'s data: ``makers/<maker>.py``.
+
+        Its one function, ``make(traffic, seed, work_dir, bench)``, writes
+        the data for ``seed`` under ``work_dir`` and returns a dict:
+
+        - ``input``: the pipeline's first argument, one path or a dict of
+          names to paths (a configuration that reads several inputs);
+        - ``bytes``: the record bytes a job reads (text uncompressed), the
+          denominator of every per-MB metric;
+        - ``stored_bytes``: the bytes on disk, which the harness cuts into
+          the configuration's ``chunks``;
+        - ``truth``: a tuple; the reference is called as
+          ``expected(*truth)``, ``work(*truth)`` and ``control(*truth)``;
+        - ``about`` (optional): a dict of what else the run prints and
+          keeps of the data (copies, members, ...).
+        """
+        return self.module("makers", traffic["maker"])
 
     def metrics(self, workload, trace):
         """The metric entries a cell reports: its end-to-end metrics

@@ -10,9 +10,10 @@ pipeline, reference and metric readers are found by name
 1. checks the cards (``torch.cuda``) and that ``dampr_tpu_torch`` is the
    checkout's own, and prints the host's affinity, load and the card's
    clocks and power limit on standard error;
-2. makes the corpus from ``--seed`` under ``$TMPDIR/portbench/<cell>/``
-   and reads it once, so that it sits in the page cache; its time is
-   printed on a line of its own and left out of ``setup_s``;
+2. has the traffic's maker (``makers/<maker>.py``) make the data from
+   ``--seed`` under ``$TMPDIR/portbench/<cell>/`` and reads each file of it
+   once, so that it sits in the page cache; its time is printed on a line
+   of its own and left out of ``setup_s``;
 3. pins the port's settings from the configuration's file (parallelism,
    lowering, no history, no cache, no autotune), and runs one warm-up
    job: set-up ends there;
@@ -26,8 +27,9 @@ pipeline, reference and metric readers are found by name
    ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
    ``breakdown``, and last ``checks``.
 
-Each job's wall and plan go into the run's file (``--run-file``, by
-default ``$TMPDIR/portbench/runs/<cell>-s<seed>-t<trace>.json``).
+Each job's wall and plan, and the data's sizes and SHA-256, go into the
+run's file (``--run-file``, by default
+``$TMPDIR/portbench/runs/<cell>-s<seed>-t<trace>.json``).
 """
 
 import argparse
@@ -267,24 +269,28 @@ def run(argv=None, root=registry.ROOT, device=None):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(os.path.join(work, "out"))
     try:
-        return _run(args, cell, config, traffic, pipe, ref, entries, readers,
-                    cuda, device, work, marks, torch)
+        return _run(args, bench, cell, config, traffic, pipe, ref, entries,
+                    readers, cuda, device, work, marks, torch)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def _run(args, cell, config, traffic, pipe, ref, entries, readers, cuda,
-         device, work, marks, torch):
+def _run(args, bench, cell, config, traffic, pipe, ref, entries, readers,
+         cuda, device, work, marks, torch):
     t0 = time.time()
-    base = corpus.base_text(traffic["base"], args.seed)
-    path = os.path.join(work, "corpus.txt")
-    nbytes = corpus.write_corpus(path, base, traffic["factor"])
-    corpus.read_once(path)
-    chunk = corpus.chunk_size(nbytes, config["chunks"])
+    made = bench.maker(traffic).make(traffic, args.seed, work, bench)
+    maker_s = time.time() - t0
+    inputs = made["input"]
+    files = inputs if isinstance(inputs, dict) else {"input": inputs}
+    sha256 = {name: corpus.read_once(p)[1] for name, p in files.items()}
+    nbytes, truth = made["bytes"], made["truth"]
+    chunk = corpus.chunk_size(made["stored_bytes"], config["chunks"])
     corpus_s = time.time() - t0
-    log("corpus {} bytes ({} x {}), {} chunks of {} bytes, made in "
-        "{:.3f} s".format(nbytes, traffic["factor"], len(base),
-                          config["chunks"], chunk, corpus_s))
+    about = made.get("about", {})
+    log("corpus {} bytes stored as {} bytes ({}), {} chunks of {} bytes, "
+        "made in {:.3f} s, {:.3f} s with the read".format(
+            nbytes, made["stored_bytes"], json.dumps(about),
+            config["chunks"], chunk, maker_s, corpus_s))
     marks("corpus")
 
     from dampr_tpu_torch import settings
@@ -301,7 +307,7 @@ def _run(args, cell, config, traffic, pipe, ref, entries, readers, cuda,
         def one(i):
             out = os.path.join(work, "out", "{}-{}".format(tag, i))
             gc0, cpu0 = gct.seconds, time.process_time()
-            output, stats = pipe.job(path, chunk, out)
+            output, stats = pipe.job(inputs, chunk, out)
             dev = stats.get("device", {})
             if tag != "warm" and not keep(i):
                 output = None
@@ -364,7 +370,7 @@ def _run(args, cell, config, traffic, pipe, ref, entries, readers, cuda,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    want = ref.expected(base, traffic["factor"])
+    want = ref.expected(*truth)
     all_jobs = warm + jobs
     for j in all_jobs:
         j["check"] = (None if j["output"] is None else
@@ -381,7 +387,7 @@ def _run(args, cell, config, traffic, pipe, ref, entries, readers, cuda,
                   total_bytes=float(nbytes * len(jobs)),
                   setup_s=setup_s, cold_job_s=warm[0]["wall"],
                   maxrss_bytes=maxrss, timeline=tl,
-                  work=ref.work(base, traffic["factor"]) if args.trace
+                  work=ref.work(*truth) if args.trace
                   else None,
                   hbm_bytes_per_s=(hbm_bytes_per_s(
                       torch.cuda.get_device_name(0)) if cuda else None))
@@ -399,8 +405,12 @@ def _run(args, cell, config, traffic, pipe, ref, entries, readers, cuda,
     with open(run_file, "w") as f:
         json.dump({"workload": args.workload, "seed": args.seed,
                    "trace": args.trace, "setup_s": setup_s,
-                   "corpus_s": corpus_s, "setup_steps": marks.steps,
+                   "corpus_s": corpus_s, "maker_s": maker_s,
+                   "setup_steps": marks.steps,
                    "window_s": end - start, "corpus_bytes": nbytes,
+                   "stored_bytes": made["stored_bytes"],
+                   "chunk_size": chunk, "corpus_sha256": sha256,
+                   "corpus_about": about,
                    "warmup": [{k: j[k] for k in keep} for j in warm],
                    "jobs": [{k: j[k] for k in keep} for j in jobs],
                    "written": written_bytes(), "maxrss_bytes": maxrss,

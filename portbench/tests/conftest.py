@@ -1,6 +1,7 @@
 """Fixtures of the benchmark's own tests: a small copy of the benchmark
-(the real configurations, pipelines, references and readers over a
-40 KB base) run on the CPU through the lowered path's plain versions."""
+(the real configurations, pipelines, references, makers and readers over
+a 40 KB base, plain and BGZF) run on the CPU through the lowered path's
+plain versions."""
 
 import json
 import os
@@ -27,7 +28,8 @@ def tiny_traffic(factor=2):
     with open(os.path.join(PKG, "traffic", "shakespeare-1x.json")) as f:
         base = json.load(f)["base"]
     base = dict(base, **TINY_BASE)
-    return {"about": "a test-sized base", "factor": factor, "base": base}
+    return {"about": "a test-sized base", "maker": "shakespeare",
+            "factor": factor, "base": base}
 
 
 @pytest.fixture
@@ -44,11 +46,19 @@ def tiny_root(tmp_path, monkeypatch):
     with open(str(root / "portbench" / "traffic" / "tiny-2x.json"),
               "w") as f:
         json.dump(tiny_traffic(), f)
+    # 6 copies, the base named: 243,000 bytes of text in 4 members
+    with open(str(root / "portbench" / "traffic" / "tiny-6x-bgzf.json"),
+              "w") as f:
+        json.dump({"about": "the tiny base, stored BGZF",
+                   "maker": "shakespeare", "factor": 6,
+                   "storage": "bgzf", "base": "tiny-2x"}, f)
     doc["workloads"] = [
         {"name": "tfidf-tiny", "config": "tfidf-shakespeare",
          "traffic": "tiny-2x", "chips": 1, "why": "test"},
         {"name": "wc-tiny", "config": "wordcount-shakespeare",
-         "traffic": "tiny-2x", "chips": 1, "why": "test"}]
+         "traffic": "tiny-2x", "chips": 1, "why": "test"},
+        {"name": "tfidf-tiny-bgzf", "config": "tfidf-shakespeare",
+         "traffic": "tiny-6x-bgzf", "chips": 1, "why": "test"}]
     for m in doc["per_layer"]:
         m.pop("workloads", None)
     with open(str(root / "BENCHMARK.json"), "w") as f:

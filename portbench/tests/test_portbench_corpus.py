@@ -1,11 +1,14 @@
+import hashlib
 import json
 import os
 import re
 
 import pytest
 
-from portbench import corpus
+from portbench import corpus, registry
 from portbench.tests.conftest import PKG, TINY_BASE, tiny_traffic
+
+base_text = registry.load_module("makers", "shakespeare").base_text
 
 RX = re.compile(r"[^\w]+")
 
@@ -19,9 +22,9 @@ def _words(text):
 
 def test_tiny_base_is_deterministic_and_of_its_size():
     base = tiny_traffic()["base"]
-    a = corpus.base_text(base, 2 ** 31 + 77)
-    b = corpus.base_text(base, 2 ** 31 + 77)
-    c = corpus.base_text(base, 3)
+    a = base_text(base, 2 ** 31 + 77)
+    b = base_text(base, 2 ** 31 + 77)
+    c = base_text(base, 3)
     assert a == b
     assert a != c
     assert len(a) == len(c) == TINY_BASE["bytes"]
@@ -32,7 +35,7 @@ def test_tiny_base_is_deterministic_and_of_its_size():
 def test_seeds_share_every_count():
     """Two seeds give the same tokens per length and the same lines."""
     base = tiny_traffic()["base"]
-    texts = [corpus.base_text(base, s) for s in (1, 2 ** 40 + 5, -9)]
+    texts = [base_text(base, s) for s in (1, 2 ** 40 + 5, -9)]
 
     def shape(text):
         toks = [t for t in RX.split(text.lower()) if t]
@@ -48,7 +51,7 @@ def test_upstream_base_shape(name):
     words of 1 to 27 bytes, and its stated size."""
     with open(os.path.join(PKG, "traffic", name + ".json")) as f:
         traffic = json.load(f)
-    text = corpus.base_text(traffic["base"], 123456789012)
+    text = base_text(traffic["base"], 123456789012)
     assert len(text) == traffic["base"]["bytes"] == 5300000
     words = _words(text)
     assert len(words) == 23903
@@ -59,9 +62,10 @@ def test_upstream_base_shape(name):
 
 def test_write_corpus_copies(tmp_path):
     path = str(tmp_path / "c.txt")
-    n = corpus.write_corpus(path, "ab\ncd\n", 3)
-    assert n == 18
+    assert corpus.write_copies(path, b"ab\ncd\n", 3) == {
+        "stored_bytes": 18}
     assert open(path).read() == "ab\ncd\n" * 3
-    assert corpus.read_once(path) == 18
+    assert corpus.read_once(path) == (
+        18, hashlib.sha256(b"ab\ncd\n" * 3).hexdigest())
     assert corpus.chunk_size(18, 8) == 3
     assert corpus.chunk_size(16, 8) == 2

@@ -29,7 +29,8 @@ def _listed(cell):
 
 
 @pytest.mark.parametrize("tiny,cell", [("tfidf-tiny", "tfidf-20x"),
-                                       ("wc-tiny", "wc-1x")])
+                                       ("wc-tiny", "wc-1x"),
+                                       ("tfidf-tiny-bgzf", "tfidf-bgzf-20x")])
 def test_traced_run_reports_the_twins(tiny_root, port_settings, monkeypatch,
                                       tiny, cell):
     # the tiny corpus's keyed blocks are under the CPU's device floor

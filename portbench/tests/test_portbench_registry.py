@@ -7,7 +7,7 @@ import shutil
 
 import pytest
 
-from portbench import registry, run
+from portbench import control, registry, run
 from portbench.tests.conftest import ROOT
 
 
@@ -101,3 +101,118 @@ def test_added_files_are_found(tiny_root, port_settings):
                  "--trace", "1"], root=tiny_root, device="cpu")
     assert r["correct"] is True
     assert r["metrics"]["jobs_in_window"]["value"] == r["attempted"]
+
+
+#: A maker of two seeded tables, a join over them and its reference: what
+#: a join configuration brings, as files only.
+TOY_MAKER = '''
+import os
+
+from portbench import corpus
+
+
+def make(traffic, seed, work_dir, bench):
+    rng = corpus._seed_rng(seed)
+    n = int(traffic["pages"])
+    ranks = [("u%d" % i, int(r)) for i, r in
+             enumerate(rng.integers(0, 100, n))]
+    visits = [("u%d" % int(u), int(c)) for u, c in
+              zip(rng.integers(0, 2 * n, traffic["visits"]),
+                  rng.integers(0, 10 ** 7, traffic["visits"]))]
+    paths = {}
+    for name, rows in (("rankings", ranks), ("visits", visits)):
+        paths[name] = os.path.join(work_dir, name + ".tsv")
+        with open(paths[name], "w") as f:
+            f.writelines("%s\\t%d\\n" % row for row in rows)
+    size = sum(os.path.getsize(p) for p in paths.values())
+    return {"input": paths, "bytes": size, "stored_bytes": size,
+            "truth": (ranks, visits), "about": {"pages": n}}
+'''
+
+TOY_PIPELINE = '''
+def _row(line):
+    key, value = line.split("\\t")
+    return key, int(value)
+
+
+def job(inputs, chunk_size, out_dir):
+    from dampr_tpu_torch import Dampr
+
+    ranks = (Dampr.text(inputs["rankings"], chunk_size).map(_row)
+             .group_by(lambda r: r[0], lambda r: r[1]))
+    visits = (Dampr.text(inputs["visits"], chunk_size).map(_row)
+              .group_by(lambda r: r[0], lambda r: r[1]))
+    em = ranks.join(visits).reduce(lambda rs, vs: (max(rs), sum(vs))).run()
+    records = list(em.read())
+    em.delete()
+    return records, em.stats()
+'''
+
+TOY_REFERENCE = '''
+import numpy as np
+
+
+def _join(ranks, visits, add):
+    rank = dict(ranks)
+    out = {}
+    for url, cents in visits:
+        if url in rank:
+            out[url] = (rank[url], add(out.get(url, (0, 0))[1], cents))
+    return out
+
+
+def expected(ranks, visits):
+    return _join(ranks, visits, lambda a, b: a + b)
+
+
+def control(ranks, visits):
+    return _join(ranks, visits,
+                 lambda a, b: int(np.float32(a) + np.float32(b)))
+
+
+def load(output):
+    return dict(output)
+
+
+def work(ranks, visits):
+    return {"bytes": 0}
+'''
+
+
+def test_two_input_maker_runs_as_files_only(tiny_root, port_settings):
+    """A data shape of two tables, a join over them and its reference,
+    added as a maker, a traffic file, a configuration, a pipeline and a
+    reference, run through the harness as a new cell whose control
+    fails."""
+    pb = os.path.join(tiny_root, "portbench")
+    for kind, text in (("makers", TOY_MAKER), ("pipelines", TOY_PIPELINE),
+                       ("reference", TOY_REFERENCE)):
+        with open(os.path.join(pb, kind, "toy-join.py"), "w") as f:
+            f.write(text)
+    with open(os.path.join(pb, "traffic", "toy-tables.json"), "w") as f:
+        json.dump({"maker": "toy-join", "pages": 300, "visits": 2000}, f)
+    with open(os.path.join(pb, "configs",
+                           "wordcount-shakespeare.json")) as f:
+        cfg = json.load(f)
+    cfg.update(name="toy-join", chunks=3, check_jobs="all")
+    with open(os.path.join(pb, "configs", "toy-join.json"), "w") as f:
+        json.dump(cfg, f)
+    path = os.path.join(tiny_root, "BENCHMARK.json")
+    with open(path) as f:
+        bench = json.load(f)
+    bench["configs"].append({"name": "toy-join", "source": "test",
+                             "file": "portbench/configs/toy-join.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": "toy", "config": "toy-join",
+                               "traffic": "toy-tables", "chips": 1,
+                               "why": "test"})
+    with open(path, "w") as f:
+        json.dump(bench, f)
+    r = run.run(["--workload", "toy", "--seed", str(2 ** 31 + 5),
+                 "--seconds", "0.3", "--trace", "0"], root=tiny_root,
+                device="cpu")
+    assert r["correct"] is True and r["attempted"] >= 1
+    assert r["checks"]["missing_rows"]["value"] == 0
+    readings = control.readings(registry.Bench(tiny_root), "toy",
+                                2 ** 31 + 5)
+    assert readings["wrong_rows"] > 0

@@ -22,7 +22,8 @@ def _run(root, workload, trace=0, seed=2 ** 31 + 3):
                    root=root, device="cpu")
 
 
-@pytest.mark.parametrize("workload", ["tfidf-tiny", "wc-tiny"])
+@pytest.mark.parametrize("workload", ["tfidf-tiny", "wc-tiny",
+                                      "tfidf-tiny-bgzf"])
 def test_sound_run_is_correct(tiny_root, port_settings, workload):
     r = _run(tiny_root, workload)
     assert list(r) == KEYS
@@ -58,6 +59,27 @@ def test_run_file_holds_each_jobs_wall_and_plan(tiny_root, port_settings,
         run.run(["--workload", "wc-tiny", "--seed", "4", "--seconds", "0.3",
                  "--trace", "0", "--set", "max_processes=2"],
                 root=tiny_root, device="cpu")
+
+
+def test_run_file_holds_the_data_it_ran(tiny_root, port_settings,
+                                       tmp_path):
+    """The run's file names the data: its text and stored bytes, the
+    chunk size cut from the stored size, its SHA-256 and what the maker
+    says of it (the BGZF members)."""
+    path = str(tmp_path / "run.json")
+    r = run.run(["--workload", "tfidf-tiny-bgzf", "--seed", "4",
+                 "--seconds", "0.3", "--trace", "0", "--run-file", path],
+                root=tiny_root, device="cpu")
+    assert r["correct"] is True
+    with open(path) as f:
+        doc = json.load(f)
+    assert doc["corpus_bytes"] == 6 * 40500
+    assert 0 < doc["stored_bytes"] < doc["corpus_bytes"]
+    assert doc["chunk_size"] == -(-doc["stored_bytes"] // 8)
+    assert doc["corpus_about"]["members"] == 4
+    assert doc["corpus_about"]["storage"] == "bgzf"
+    assert len(doc["corpus_sha256"]["input"]) == 64
+    assert 0 < doc["maker_s"] <= doc["corpus_s"]
 
 
 def test_traced_run_reports_per_layer(tiny_root, port_settings):
@@ -104,6 +126,26 @@ def _bump_first_total(monkeypatch):
     monkeypatch.setattr(handoff, "table_probe_reference", broken_probe)
 
 
+def _bump_first_total_or_bootstrap(monkeypatch):
+    """As :func:`_bump_first_total`, and where a whole chunk is one window
+    (a BGZF chunk) and the CPU seeds each vocabulary from it through the
+    host codec, one count off by one there too."""
+    from dampr_tpu_torch.blocks import Block
+    from dampr_tpu_torch.ops import lower
+
+    _bump_first_total(monkeypatch)
+    orig = lower.chunk_doc_freq
+
+    def broken(*a, **k):
+        out = orig(*a, **k)
+        if out is not None and len(out):
+            vals = np.array(out.values, copy=True)
+            vals[0] += 1
+            out = Block(out.keys, vals, out.h1, out.h2)
+        return out
+    monkeypatch.setattr(lower, "chunk_doc_freq", broken)
+
+
 def _drop_half_the_tokens(monkeypatch):
     from dampr_tpu_torch.ops import lower
 
@@ -114,6 +156,19 @@ def _drop_half_the_tokens(monkeypatch):
         lens_t[1::2] = 0  # every other token becomes a pad row
         return mat, lens_t, lines_t
     monkeypatch.setattr(lower.DeviceTokenFoldSink, "_pad_rows", broken)
+
+
+def _drop_half_of_each_inflate(monkeypatch):
+    """The compressed path's own fault: every member's inflate loses the
+    second half of its bytes."""
+    from dampr_tpu_torch.inputs import BgzfChunkDataset
+
+    orig = BgzfChunkDataset._inflate
+
+    def broken(raw):
+        out = orig(raw)
+        return out[:len(out) // 2]
+    monkeypatch.setattr(BgzfChunkDataset, "_inflate", staticmethod(broken))
 
 
 def _bump_first_count(monkeypatch):
@@ -147,8 +202,11 @@ def _drop_half_the_batch(monkeypatch):
     ("tfidf-tiny", _drop_half_the_tokens),
     ("wc-tiny", _bump_first_count),
     ("wc-tiny", _drop_half_the_batch),
+    ("tfidf-tiny-bgzf", _bump_first_total_or_bootstrap),
+    ("tfidf-tiny-bgzf", _drop_half_of_each_inflate),
 ], ids=["tfidf-answer-altered", "tfidf-half-the-batch",
-        "wc-answer-altered", "wc-half-the-batch"])
+        "wc-answer-altered", "wc-half-the-batch",
+        "bgzf-answer-altered", "bgzf-half-of-each-inflate"])
 def test_fault_is_not_correct(tiny_root, port_settings, monkeypatch,
                               workload, fault):
     fault(monkeypatch)
@@ -166,7 +224,8 @@ def test_checked_jobs_are_a_fixed_seeded_sample():
                       if run.checked_jobs(4, 2 ** 40 + 3)(i)]
 
 
-@pytest.mark.parametrize("workload", ["tfidf-tiny", "wc-tiny"])
+@pytest.mark.parametrize("workload", ["tfidf-tiny", "wc-tiny",
+                                      "tfidf-tiny-bgzf"])
 @pytest.mark.parametrize("seed", [5, 2 ** 31 + 11, 2 ** 33 + 1])
 def test_control_is_not_correct(tiny_root, workload, seed):
     r = control.readings(registry.Bench(tiny_root), workload, seed)
